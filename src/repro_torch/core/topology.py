@@ -1,0 +1,178 @@
+"""Switch-level topologies: the MRLS fabric of the paper (Cano et al., 2026).
+
+The port's own copy of the reference's numpy constructor: for the same
+arguments and seed it gives identical ``nbrs`` and ``nbr_port`` arrays,
+so both simulators run on one fabric.  Only :func:`mrls` is here; the
+other families follow with the policies that need them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+__all__ = ["Topology", "mrls"]
+
+
+@dataclasses.dataclass
+class Topology:
+    """A switch-level graph with endpoint bookkeeping.
+
+    ``nbrs[c, p]`` is the switch reached by port ``p`` of switch ``c`` (or -1
+    for an unused port).  ``nbr_port[c, p]`` is the port index *on that
+    neighbor* that the link lands on — needed by the simulator to address the
+    receiving input queue.  Multi-edges (parallel links) are allowed; each
+    occupies distinct ports on both sides.
+    """
+
+    name: str
+    kind: str                      # "indirect" | "direct"
+    nbrs: np.ndarray               # [N, P] int32, -1 padded
+    nbr_port: np.ndarray           # [N, P] int32, -1 padded
+    is_leaf: np.ndarray            # [N] bool — switches with endpoints
+    endpoints_per_leaf: int        # d
+    level: np.ndarray              # [N] int32, 0 = leaf level
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_switches(self) -> int:
+        return int(self.nbrs.shape[0])
+
+    @property
+    def max_ports(self) -> int:
+        return int(self.nbrs.shape[1])
+
+    @property
+    def leaf_ids(self) -> np.ndarray:
+        return np.nonzero(self.is_leaf)[0].astype(np.int32)
+
+    @property
+    def n_leaves(self) -> int:
+        return int(self.is_leaf.sum())
+
+    @property
+    def n_endpoints(self) -> int:
+        return self.n_leaves * self.endpoints_per_leaf
+
+    def leaf_rank(self) -> np.ndarray:
+        """[N] int32: rank of each switch among leaves (-1 for non-leaf)."""
+        r = np.full(self.n_switches, -1, np.int32)
+        r[self.leaf_ids] = np.arange(self.n_leaves, dtype=np.int32)
+        return r
+
+    def validate(self) -> None:
+        """Structural invariants: reciprocal links, consistent padding."""
+        n, p = self.nbrs.shape
+        used = self.nbrs >= 0
+        if self.nbr_port.shape != (n, p):
+            raise ValueError("nbr_port shape differs from nbrs")
+        if not ((self.nbr_port[used] >= 0).all()
+                and (~used == (self.nbr_port < 0)).all()):
+            raise ValueError("nbr_port padding differs from nbrs")
+        c, pt = np.nonzero(used)
+        dst, dpt = self.nbrs[c, pt], self.nbr_port[c, pt]
+        if not (self.nbrs[dst, dpt] == c).all():
+            raise ValueError("non-reciprocal link")
+        if not (self.nbr_port[dst, dpt] == pt).all():
+            raise ValueError("port mismatch")
+        if not self.is_leaf.any():
+            raise ValueError("topology has no leaf switch")
+
+
+def _from_edges(
+    name: str,
+    kind: str,
+    n_switches: int,
+    edges: np.ndarray,          # [M, 2] int
+    is_leaf: np.ndarray,
+    endpoints_per_leaf: int,
+    level: np.ndarray,
+    max_ports: Optional[int] = None,
+    meta: Optional[dict] = None,
+) -> Topology:
+    edges = np.asarray(edges, np.int64)
+    deg = np.zeros(n_switches, np.int64)
+    np.add.at(deg, edges[:, 0], 1)
+    np.add.at(deg, edges[:, 1], 1)
+    P = int(deg.max()) if max_ports is None else max_ports
+    nbrs = np.full((n_switches, P), -1, np.int32)
+    nbr_port = np.full((n_switches, P), -1, np.int32)
+    cursor = np.zeros(n_switches, np.int64)
+    # sequential port assignment (python loop is fine at build time)
+    for a, b in edges:
+        pa, pb = cursor[a], cursor[b]
+        nbrs[a, pa], nbrs[b, pb] = b, a
+        nbr_port[a, pa], nbr_port[b, pb] = pb, pa
+        cursor[a], cursor[b] = pa + 1, pb + 1
+    topo = Topology(
+        name=name,
+        kind=kind,
+        nbrs=nbrs,
+        nbr_port=nbr_port,
+        is_leaf=np.asarray(is_leaf, bool),
+        endpoints_per_leaf=int(endpoints_per_leaf),
+        level=np.asarray(level, np.int32),
+        meta=meta or {},
+    )
+    topo.validate()
+    return topo
+
+
+def mrls(
+    n_leaves: int,
+    u: int,
+    d: int,
+    seed: int = 0,
+    dedup_passes: int = 40,
+    name: Optional[str] = None,
+) -> Topology:
+    """Multipass Random Leaf-Spine network (Definition 4.1).
+
+    ``n_leaves`` leaf switches with ``d`` endpoint ports and ``u`` up-links;
+    spines have ``R = u + d`` down-links.  Requires ``u * n_leaves % R == 0``
+    (the paper's ``u N1 = R N2``).  Wiring is a random bipartite matching of
+    port stubs (configuration model) with parallel-edge reduction via edge
+    swaps.
+    """
+    R = u + d
+    if (u * n_leaves) % R != 0:
+        raise ValueError(f"u*N1 = {u * n_leaves} must be divisible by R = {R}")
+    n_spines = (u * n_leaves) // R
+    rng = np.random.default_rng(seed)
+
+    leaf_stubs = np.repeat(np.arange(n_leaves), u)
+    spine_stubs = np.repeat(np.arange(n_spines), R)
+    rng.shuffle(spine_stubs)
+    pairs = np.stack([leaf_stubs, spine_stubs], axis=1)  # [u*N1, 2]
+
+    # reduce parallel edges by re-shuffling duplicate stubs together with a
+    # random set of partners (a permutation preserves the degree sequence).
+    for _ in range(dedup_passes):
+        key = pairs[:, 0].astype(np.int64) * n_spines + pairs[:, 1]
+        order = np.argsort(key, kind="stable")
+        sk = key[order]
+        dup_pos = order[1:][sk[1:] == sk[:-1]]
+        if dup_pos.size == 0:
+            break
+        partners = rng.integers(0, pairs.shape[0], size=2 * dup_pos.size)
+        swap = np.unique(np.concatenate([dup_pos, partners]))
+        pairs[swap, 1] = pairs[rng.permutation(swap), 1]
+
+    edges = np.stack([pairs[:, 0], n_leaves + pairs[:, 1]], axis=1)
+    n = n_leaves + n_spines
+    is_leaf = np.zeros(n, bool)
+    is_leaf[:n_leaves] = True
+    level = np.where(is_leaf, 0, 1).astype(np.int32)
+    return _from_edges(
+        name or f"MRLS(R={R},S={n_leaves * d},u={u})",
+        "indirect",
+        n,
+        edges,
+        is_leaf,
+        d,
+        level,
+        max_ports=R,
+        meta={"u": u, "d": d, "R": R, "n_leaves": n_leaves, "n_spines": n_spines,
+              "f": u / d, "seed": seed},
+    )
