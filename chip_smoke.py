@@ -12,19 +12,34 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``nvcc`` (build seconds and the ``-Xptxas -v`` report);
 3. kernels  — each kernel against its plain PyTorch version on the card,
    bitwise, on seeded inputs at the paper's 11k-endpoint shapes and at
-   two ragged shapes; kernel time, plain time and the bound, timed with
-   CUDA events;
+   ragged shapes (``minplus`` also with ``INF`` entries, on the Figure-5
+   adjacency, and on the adjacency of both 104,976-endpoint fabrics
+   squared to the fixpoint through the wrapper, each squaring's first,
+   middle and last row blocks held against the plain version); kernel
+   time, plain time and the bound, timed with CUDA events;
 4. golden   — the polarized, minimal_adaptive and ksp entries of
    ``tests/golden/engine_parity.json`` reproduce exactly on the card;
 5. full width — the paper's Figure-5 MRLS (11,052 endpoints, Polarized,
    uniform load 1.0, 300 + 300 slots) through ``repro_torch.api.run``
-   equals ``tests/golden/torch_fig5_mrls_u18.json`` field for field, and
-   every kernel of the path launched the expected number of times;
+   (tables on the card included) equals
+   ``tests/golden/torch_fig5_mrls_u18.json`` field for field, and every
+   kernel of the path launched the expected number of times;
 6. breakdown — where a slot of that fabric spends its time: per-phase
-   CUDA-event times, the PRNG draws alone, and the device-busy share
-   from ``torch.profiler``; and two slots under
-   ``torch.cuda.set_sync_debug_mode("error")`` to show that the step
-   never synchronises with the host.
+   CUDA-event times, the slot's PRNG draws alone in the same event
+   window, and the device-busy share from ``torch.profiler``; and two
+   slots under ``torch.cuda.set_sync_debug_mode("error")`` to show that
+   the step never synchronises with the host;
+7. tables   — the routing tables of the three All2All fabrics built on
+   the card (``minplus`` squarings, mask packing, simulator set-up);
+   for both 104,976-endpoint Figure-6 fabrics the card's distances
+   equal the host BFS, and for the Figure-6 MRLS its mask words equal
+   the host's numpy packing of the first, middle and last leaf blocks,
+   each host step timed;
+8. all2all  — the Figure-5 MRLS and both Figure-6 fabrics (MRLS f1 and
+   the 50 %-depopulated Fat-Tree, 104,976 endpoints each) run an
+   All2All of 16 rounds to completion through ``repro_torch.api.run``;
+   each Result equals its ``tests/golden/torch_a2a_*.json`` field for
+   field, and every kernel launched the expected number of times.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -44,13 +59,24 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ENGINE_GOLDEN = ROOT / "tests" / "golden" / "engine_parity.json"
 FIG5_GOLDEN = ROOT / "tests" / "golden" / "torch_fig5_mrls_u18.json"
+# the All2All points of phases 7 and 8, smallest first
+A2A_GOLDENS = {
+    label: ROOT / "tests" / "golden" / f"torch_a2a_{name}.json"
+    for label, name in (("fig5.mrls_u18", "fig5_mrls_u18"),
+                        ("fig6.mrls_f1", "fig6_mrls_f1"),
+                        ("fig6.ft50", "fig6_ft50"))}
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32, outside tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu"
-REPLACES = {
-    "vc_prearb": "src/repro/kernels/switch_arb/kernel.py:64",
-    "switch_arbitrate": "src/repro/kernels/switch_arb/kernel.py:113",
+# kernel -> (its CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "vc_prearb": ("src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
+                  "src/repro/kernels/switch_arb/kernel.py:64"),
+    "switch_arbitrate": (
+        "src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
+        "src/repro/kernels/switch_arb/kernel.py:113"),
+    "minplus": ("src/repro_torch/kernels/minplus/csrc/minplus.cu",
+                "src/repro/kernels/minplus/kernel.py:42"),
 }
 
 
@@ -78,6 +104,28 @@ def bound_ms(n_bytes: int, fp32_ops: int) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = fp32_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels.minplus import kernel as mp
+    from repro_torch.kernels.switch_arb import kernel as arb
+    arb.reset_launch_counts()
+    mp.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since the last :func:`reset_counts`."""
+    from repro_torch.kernels.minplus import kernel as mp
+    from repro_torch.kernels.switch_arb import kernel as arb
+    return {**arb.launch_counts(), **mp.launch_counts()}
+
+
+def check_counts(counts: dict, expected: dict, path: str) -> None:
+    print(f"launches on {path}: {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"kernel launches on {path}: {counts} != "
+                             f"{expected}")
 
 
 # ---------------------------------------------------------------------- #
@@ -212,6 +260,105 @@ def run_kernels(shapes):
     return records
 
 
+def run_minplus(fig5_nbrs, fabrics: dict) -> dict:
+    """Bitwise checks of ``minplus`` and its timings; returns its record
+    (times at the Figure-5 size, where the plain version is timed).
+
+    ``fabrics`` maps a label to the neighbour array of each 100k fabric:
+    its adjacency is squared to the fixpoint through the wrapper, as the
+    table build squares it, each launch timed with CUDA events and its
+    first, middle and last row blocks held against the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.minplus import kernel, ref
+    dev = torch.device("cuda")
+
+    def check(label, a, b):
+        got, want = kernel.minplus(a, b), ref.minplus_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        same = torch.equal(got, want)
+        print(f"minplus {label}: max_abs_err {err!r}, bitwise "
+              f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"minplus differs from its plain version "
+                                 f"at {label}")
+        return err, want
+
+    # seeded operands, a share of them INF, at ragged shapes and at N = 921
+    errs = []
+    cases = [(37, 53, 29, 0.0), (37, 53, 29, 0.9), (130, 17, 257, 0.2),
+             (1, 1, 1, 0.0), (64, 40, 48, 1.0), (921, 921, 921, 0.5)]
+    for i, (m, k, n, frac) in enumerate(cases):
+        rng = np.random.default_rng(300 + i)
+        a = rng.uniform(0, 10, (m, k)).astype(np.float32)
+        b = rng.uniform(0, 10, (k, n)).astype(np.float32)
+        a[rng.random((m, k)) < frac] = ref.INF
+        b[rng.random((k, n)) < frac] = ref.INF
+        errs.append(check(f"[{m},{k}]x[{k},{n}] INF share {frac}",
+                          torch.as_tensor(a, device=dev),
+                          torch.as_tensor(b, device=dev))[0])
+    # the Figure-5 adjacency (N = 921) squared three times, as the table
+    # build squares it
+    d = ref.adjacency_matrix(fig5_nbrs, device=dev)
+    for i in range(3):
+        err, d = check(f"Figure-5 adjacency, squaring {i + 1}", d, d)
+        errs.append(err)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = kernel._lib()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 921
+    x = torch.rand((n, n), generator=gen, device=dev) * 10
+    c = torch.empty_like(x)
+    ms = cuda_ms(lambda: lib.minplus_launch(
+        x.data_ptr(), x.data_ptr(), c.data_ptr(), n, n, n, stream), iters=50,
+        warmup=5)
+    plain = cuda_ms(lambda: ref.minplus_ref(x, x), iters=5, warmup=1)
+    bnd, by = bound_ms(4 * 3 * n * n, 2 * n ** 3)
+    record = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    print(f"minplus N={n}: kernel {ms:.6f} ms per launch (50 launches), "
+          f"bound {bnd:.6f} ms ({by}), {100 * bnd / ms:.1f}% of the bound; "
+          f"plain {plain:.6f} ms")
+    del x, c
+
+    for label, nbrs in fabrics.items():
+        d = ref.adjacency_matrix(nbrs, device=dev)
+        n = d.shape[0]
+        blk = 128
+        rows = sorted({0, (n // 2) // blk * blk, n - blk})
+        launch_ms = []
+        for i in range(16):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            nd = kernel.minplus(d, d)
+            ev[1].record()
+            torch.cuda.synchronize()
+            launch_ms.append(ev[0].elapsed_time(ev[1]))
+            for lo in rows:
+                want = ref.minplus_ref(d[lo:lo + blk], d)
+                if not torch.equal(nd[lo:lo + blk], want):
+                    raise AssertionError(
+                        f"minplus differs from its plain version on {label}"
+                        f", squaring {i + 1}, rows {lo}:{lo + blk}")
+                errs.append(float((nd[lo:lo + blk] - want).abs().max()))
+            done = torch.equal(nd, d)
+            d = nd
+            if done:
+                break
+        del d, nd
+        torch.cuda.empty_cache()
+        ms = sum(launch_ms) / len(launch_ms)
+        bnd, by = bound_ms(4 * 3 * n * n, 2 * n ** 3)
+        print(f"minplus {label} N={n}: {len(launch_ms)} squarings to the "
+              f"fixpoint through the wrapper, each bitwise equal to the "
+              f"plain version on rows {[(r, r + blk) for r in rows]}; "
+              f"{ms:.6f} ms per launch (CUDA events: "
+              f"{[round(t, 3) for t in launch_ms]}), bound {bnd:.6f} ms "
+              f"({by}), {100 * bnd / ms:.1f}% of the bound")
+    return dict(max_abs_err=max(errs), **record)
+
+
 def run_golden():
     import numpy as np
     from repro_torch.core import build_tables, mrls
@@ -244,22 +391,21 @@ def run_golden():
                                  f"{got} != {want}")
 
 
-def run_full_width():
+def run_full_width(squarings: int) -> dict:
     import torch
     from repro_torch.api import Experiment, run
-    from repro_torch.kernels.switch_arb import kernel
     phase("5. full width: Figure-5 MRLS through repro_torch.api.run")
     golden = json.loads(FIG5_GOLDEN.read_text())
     exp = Experiment.from_dict(golden["experiment"])
     slots = exp.warm + exp.measure
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = run(exp, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel.launch_counts()
+    launches = read_counts()
     got = res.to_dict()
     print(f"result: throughput {res.throughput!r} avg_hops "
           f"{res.avg_hops!r} ejected {res.ejected} pool_stall "
@@ -275,14 +421,17 @@ def run_full_width():
     print("Result equals tests/golden/torch_fig5_mrls_u18.json field for "
           "field")
     # per slot: speedup crossbar rounds each launch both kernels once, and
-    # the link phase launches vc_prearb once more
-    speedup = exp.route.speedup
-    expected = {"vc_prearb": (speedup + 1) * slots,
-                "switch_arbitrate": speedup * slots}
-    print(f"launches on the main path: {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
+    # the link phase launches vc_prearb once more; the table build squares
+    # the adjacency matrix once per minplus launch
+    check_counts(launches, expected_counts(exp, slots, squarings),
+                 "the Figure-5 uniform run")
     return launches
+
+
+def expected_counts(exp, slots: int, squarings: int) -> dict:
+    speedup = exp.route.speedup
+    return {"vc_prearb": (speedup + 1) * slots,
+            "switch_arbitrate": speedup * slots, "minplus": squarings}
 
 
 def run_breakdown(tables, exp) -> dict:
@@ -306,8 +455,25 @@ def run_breakdown(tables, exp) -> dict:
     print(f"steady state: {slot_ms:.4f} ms per slot (host clock, "
           f"{n} slots) = {1e3 / slot_ms:.2f} slots/s")
 
+    # the slot's PRNG draws, again and alone at the same shapes, timed in
+    # the same CUDA-event window as the phases that make them
+    pt = sim._pt
+    N, P, V, S, NR = sim.N, sim.P, sim.V, sim.S, sim.NR
+
+    def draws(key):
+        prng.split(key, 3 + sim.cfg.speedup, partitionable=pt)
+        prng.split(key, 4, partitionable=pt)
+        prng.uniform(key, (S,), partitionable=pt)
+        prng.randint(key, (S,), 0, S, partitionable=pt)
+        for _ in range(sim.cfg.speedup):
+            prng.split(key, 3, partitionable=pt)
+            prng.uniform(key, (N, P, V), partitionable=pt)
+            prng.uniform(key, (NR, P), partitionable=pt)
+            prng.randint(key, (NR,), 0, 256, partitionable=pt)
+        prng.uniform(key, (N * P, V), partitionable=pt)
+
     names = ["inject"] + [f"crossbar{r}" for r in range(sim.cfg.speedup)] \
-        + ["link"]
+        + ["link", "prng"]
     acc = dict.fromkeys(names, 0.0)
     n_ev = 20
     for _ in range(n_ev):
@@ -322,33 +488,20 @@ def run_breakdown(tables, exp) -> dict:
             sim._crossbar_round(st, k_xb[r])
             ev[2 + r].record()
         sim._link_phase(st, k_link)
+        ev[-2].record()
+        draws(key)
         ev[-1].record()
         st["slot"] = st["slot"] + 1
         torch.cuda.synchronize()
         for i, nm in enumerate(names):
             acc[nm] += ev[i].elapsed_time(ev[i + 1]) / n_ev
+    prng_ms = acc.pop("prng")
+    phases_ms = sum(acc.values())
     print("per phase (CUDA events, ms per slot): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()))
-
-    # the slot's PRNG draws alone, at the same shapes
-    pt = sim._pt
-    N, P, V, S, NR = sim.N, sim.P, sim.V, sim.S, sim.NR
-    key = st["key"]
-
-    def draws():
-        prng.split(key, 3 + sim.cfg.speedup, partitionable=pt)
-        prng.split(key, 4, partitionable=pt)
-        prng.uniform(key, (S,), partitionable=pt)
-        prng.randint(key, (S,), 0, S, partitionable=pt)
-        for _ in range(sim.cfg.speedup):
-            prng.split(key, 3, partitionable=pt)
-            prng.uniform(key, (N, P, V), partitionable=pt)
-            prng.uniform(key, (NR, P), partitionable=pt)
-            prng.randint(key, (NR,), 0, 256, partitionable=pt)
-        prng.uniform(key, (N * P, V), partitionable=pt)
-    prng_ms = cuda_ms(draws, iters=20, warmup=3)
-    print(f"PRNG draws of one slot alone: {prng_ms:.4f} ms "
-          f"({100 * prng_ms / slot_ms:.1f}% of the steady slot)")
+          + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+          + f"; sum {phases_ms:.4f}")
+    print(f"PRNG draws of one slot alone, in the same window: {prng_ms:.4f} "
+          f"ms ({100 * prng_ms / phases_ms:.1f}% of the phases' sum)")
 
     # the step must never wait for the device: any synchronising call
     # (.item(), nonzero, a boolean-mask index) raises in this mode
@@ -385,7 +538,7 @@ def run_breakdown(tables, exp) -> dict:
           f"% of the unprofiled {slot_ms:.4f} ms slot")
     per_launch = {}
     for dev_us, count, k in rows:
-        for nm in REPLACES:
+        for nm in KERNELS:
             if f"{nm}_kernel" in k:
                 per_launch[nm] = dev_us / count / 1e3
                 print(f"  {nm}: {dev_us / count:.3f} us per launch on the "
@@ -394,6 +547,157 @@ def run_breakdown(tables, exp) -> dict:
         print(f"  {dev_us / n_prof / 1e3:8.4f} ms/slot {count // n_prof:6d}"
               f"x/slot  {k[:80]}")
     return per_launch
+
+
+def run_tables(points: dict) -> dict:
+    """Routing tables of each All2All fabric built on the card, timed;
+    the Figure-6 fabrics' distances against the host BFS, and the
+    Figure-6 MRLS's mask words against the host packing.  Returns each
+    point's minplus squarings."""
+    import numpy as np
+    import torch
+    from repro_torch.api import build_network
+    from repro_torch.core import bfs_distances, build_tables
+    from repro_torch.core.routing import _pack_mask_block
+    from repro_torch.simulator.engine import Simulator
+    phase("7. routing tables on the card")
+    squarings = {}
+    for label, exp in points.items():
+        t0 = time.perf_counter()
+        topo = build_network(exp.network)
+        t_topo = time.perf_counter() - t0
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = build_tables(topo, device="cuda")
+        torch.cuda.synchronize()
+        t_tab = time.perf_counter() - t0
+        sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0 - t_tab
+        check_counts(read_counts(), {"vc_prearb": 0, "switch_arbitrate": 0,
+                                     "minplus": tables.squarings},
+                     f"the {label} table build")
+        squarings[label] = tables.squarings
+        t0 = time.perf_counter()
+        sim._build_device_masks(tables)
+        torch.cuda.synchronize()
+        t_masks = time.perf_counter() - t0
+        print(f"{label}: N={topo.n_switches} switches, N1={topo.n_leaves} "
+              f"leaves, {topo.n_endpoints} endpoints, P={topo.max_ports}; "
+              f"topology {t_topo:.3f} s on the host; set-up on the card "
+              f"{t_tab + t_sim:.3f} s = tables {t_tab:.3f} s "
+              f"({tables.squarings} minplus squarings and the int16 leaf "
+              f"rows) + Simulator.__init__ {t_sim:.3f} s; the device mask "
+              f"packing alone, run again: {t_masks:.3f} s for "
+              f"{-(-topo.n_leaves // tables.leaf_block)} leaf blocks")
+        if label.startswith("fig6."):
+            t0 = time.perf_counter()
+            bfs = bfs_distances(topo, topo.leaf_ids)
+            t_bfs = time.perf_counter() - t0
+            same = np.array_equal(bfs, tables.dist_leaf.cpu().numpy())
+            print(f"{label}: host BFS of the leaf rows {t_bfs:.3f} s; the "
+                  f"card's dist_leaf {'equals' if same else 'DIFFERS FROM'}"
+                  " it element for element")
+            if not same:
+                raise AssertionError(f"dist_leaf from minplus differs from "
+                                     f"the BFS on {label}")
+        if label == "fig6.mrls_f1":
+            nbrs = topo.nbrs
+            valid = nbrs >= 0
+            nbr_safe = np.where(valid, nbrs, 0)
+            n, w, blk = sim.N, sim.W, tables.leaf_block
+            n_blocks = -(-topo.n_leaves // blk)
+            checked = sorted({0, n_blocks // 2, n_blocks - 1})
+            host_s = []
+            for b in checked:
+                lo, hi = b * blk, min((b + 1) * blk, topo.n_leaves)
+                t0 = time.perf_counter()
+                min_b, away_b = _pack_mask_block(bfs[lo:hi], nbrs, valid,
+                                                 nbr_safe)
+                host_s.append(time.perf_counter() - t0)
+                for name, host, dev_t in (("min", min_b, sim.min_mask),
+                                          ("away", away_b, sim.away_mask)):
+                    got = dev_t[lo * n:hi * n].cpu().numpy()
+                    if not np.array_equal(
+                            got, host.reshape(-1, w).view(np.int32)):
+                        raise AssertionError(f"{name} mask words of leaf "
+                                             f"block {b} differ")
+            print(f"{label}: device mask words equal the host's numpy "
+                  f"packing in leaf blocks {checked} of {n_blocks}; host "
+                  "seconds per block "
+                  f"{[round(x, 3) for x in host_s]} (mean "
+                  f"{sum(host_s) / len(host_s):.3f} s, so about "
+                  f"{n_blocks * sum(host_s) / len(host_s):.1f} s for all "
+                  f"{n_blocks})")
+        del sim, tables
+        torch.cuda.empty_cache()
+    return squarings
+
+
+def run_all2all(points: dict, squarings: dict) -> dict:
+    """Each All2All point through ``repro_torch.api.run`` on the card,
+    against its golden; returns the launches summed over the points."""
+    import torch
+    from repro_torch.api import run
+    from repro_torch.simulator.engine import Simulator
+    phase("8. All2All to completion through repro_torch.api.run")
+    # the slots actually run and their time, read around the user's call
+    # without changing it
+    timing = {}
+    run_completion = Simulator.run_completion
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_completion(self, *args, **kw)
+        torch.cuda.synchronize()
+        timing["run_s"] = time.perf_counter() - t0
+        timing["slots_run"] = int(r["state"]["slot"])
+        return r
+
+    total = dict.fromkeys(KERNELS, 0)
+    slots = {}
+    Simulator.run_completion = timed
+    try:
+        for label, exp in points.items():
+            golden = json.loads(A2A_GOLDENS[label].read_text())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run(exp, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            ran, run_s = timing.pop("slots_run"), timing.pop("run_s")
+            print(f"{label}: completion at slot {res.slots} "
+                  f"(completed {res.completed}, pool_stall "
+                  f"{res.pool_stall}); {ran} slots run (chunk "
+                  f"{exp.chunk}); {wall:.3f} s end to end = set-up "
+                  f"{wall - run_s:.3f} s + run {run_s:.3f} s "
+                  f"({ran / run_s:.2f} slots/s); peak device memory "
+                  f"{torch.cuda.max_memory_allocated()} bytes")
+            if res.to_dict() != golden:
+                got = res.to_dict()
+                diff = {k: (got.get(k), golden.get(k)) for k in golden
+                        if got.get(k) != golden.get(k)}
+                raise AssertionError(f"{label} Result differs from the JAX "
+                                     f"reference: {diff}")
+            print(f"{label}: Result equals {A2A_GOLDENS[label].name} field "
+                  "for field")
+            check_counts(counts, expected_counts(exp, ran, squarings[label]),
+                         f"the {label} All2All run")
+            for k in total:
+                total[k] += counts[k]
+            slots[label] = res.slots
+    finally:
+        Simulator.run_completion = run_completion
+    print(f"Fat-Tree / MRLS completion slots at 104,976 endpoints: "
+          f"{slots['fig6.ft50']} / {slots['fig6.mrls_f1']} = "
+          f"{slots['fig6.ft50'] / slots['fig6.mrls_f1']:.4f} (simulated "
+          "slots, a simulation output)")
+    return total
 
 
 def main() -> int:
@@ -415,25 +719,38 @@ def main() -> int:
     from repro_torch.simulator.engine import Simulator, SimConfig
     exp = Experiment.from_dict(json.loads(FIG5_GOLDEN.read_text())
                                ["experiment"])
-    tables = build_tables(build_network(exp.network))
+    tables = build_tables(build_network(exp.network), device="cuda")
     geo = Simulator(tables, SimConfig(), device="cuda")
     shapes = {"N": geo.N, "P": geo.P, "V": geo.V, "R": geo.R_max}
     del geo
-    print(f"Fig-5 shapes: {shapes}")
+    print(f"Fig-5 shapes: {shapes}; {tables.squarings} minplus squarings "
+          "build its tables")
 
+    points = {label: Experiment.from_dict(json.loads(path.read_text())
+                                          ["experiment"])
+              for label, path in A2A_GOLDENS.items()}
     records = run_kernels(shapes)
+    records["minplus"] = run_minplus(
+        tables.topo.nbrs, {label: build_network(p.network).nbrs
+                           for label, p in points.items()
+                           if label.startswith("fig6.")})
     run_golden()
-    launches = run_full_width()
+    launches = run_full_width(tables.squarings)
     per_launch = run_breakdown(tables, exp)
+    del tables
+    squarings = run_tables(points)
+    for k, n in run_all2all(points, squarings).items():
+        launches[k] += n
 
     # a kernel's time is its device time per launch on the main path where
     # the profiler saw it; else the back-to-back launch time of phase 3
-    # (an upper bound: Python launches no faster than a few microseconds)
+    # (an upper bound: Python launches no faster than a few microseconds).
+    # Launches are summed over the main-path runs of phases 5 and 8.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])
-    out = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[k], "launches": rec["launches"],
+    out = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
+            "replaces": KERNELS[k][1], "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None}

@@ -1,9 +1,11 @@
 """One-call experiment execution: ``run(experiment) -> Result``.
 
 Topology -> ``build_tables`` -> ``Simulator`` -> measurement run, on the
-card by default.  This slice runs one replica of the ``throughput`` and
-``latency`` metrics; the other metrics, replicas and simulator caching
-come with later slices.
+card by default (the routing tables' distances too).  The port runs one
+replica of the ``throughput`` and ``latency`` metrics and the
+``completion`` metric of a free-running ``all2all``; scheduled
+collectives, the other metrics, replicas and simulator caching come
+later.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Mapping, Optional, Tuple
 from .._device import resolve_device
 from ..core.routing import build_tables
 from ..simulator.engine import Simulator, Traffic
+from ..workloads.patterns import check_pattern
 from .registry import build_network
 from .specs import Experiment
 
@@ -74,16 +77,35 @@ def run(experiment: Experiment, *, device=None) -> Result:
     """
     dev = resolve_device(device)
     metric = experiment.resolved_metric()
-    if metric not in ("throughput", "latency"):
+    w = experiment.workload
+    if metric not in ("throughput", "latency", "completion"):
         raise NotImplementedError(
-            f"metric {metric!r} is not ported yet: this slice runs "
-            "'throughput' and 'latency'")
+            f"metric {metric!r} is not ported yet: the port runs "
+            "'throughput', 'latency' and 'completion'")
+    # the reference runs a scheduled all2all and the other collectives as
+    # workload programs
+    if check_pattern(w.pattern) == "collective" and (
+            w.pattern != "all2all" or w.schedule):
+        raise NotImplementedError(
+            f"collective {w.pattern!r} (schedule {w.schedule!r}) runs as a "
+            "workload program, which is not ported yet: the port runs the "
+            "free-running all2all; workload programs come later")
+    if metric == "completion" and w.pattern != "all2all":
+        raise ValueError(f"completion metric needs a collective workload, "
+                         f"got {w.pattern!r}")
     if experiment.replicas != 1:
         raise NotImplementedError("replicated runs are not ported yet")
-    w = experiment.workload
-    traffic = Traffic(pattern=w.pattern, load=w.load)
-    tables = build_tables(build_network(experiment.network))
+    traffic = Traffic(pattern=w.pattern, load=w.load, rounds=w.rounds)
+    tables = build_tables(build_network(experiment.network), device=dev)
     sim = Simulator(tables, experiment.route.to_sim_config(), device=dev)
+    if metric == "completion":
+        r = sim.run_completion(traffic, expected=sim.S * w.rounds,
+                               chunk=experiment.chunk,
+                               max_slots=experiment.max_slots,
+                               seed=experiment.seed)
+        return Result(experiment=experiment, metric=metric,
+                      slots=int(r["slots"]), completed=bool(r["completed"]),
+                      pool_stall=int(r["pool_stall"]))
     if metric == "throughput":
         r = sim.run_throughput(traffic, warm=experiment.warm,
                                measure=experiment.measure,

@@ -108,7 +108,8 @@ class RouteSpec:
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
     """Traffic program: the reference's fields and validation.  The
-    engine of this slice runs ``uniform`` only and refuses the others."""
+    engine runs ``uniform`` and the free-running ``all2all`` and refuses
+    the others."""
 
     pattern: str = "uniform"
     load: float = 1.0
@@ -162,9 +163,9 @@ class Experiment:
 
     ``metric`` is ``auto`` (Bernoulli patterns -> ``throughput``,
     collectives -> ``completion``, arrival processes -> ``serving``),
-    ``throughput`` or ``latency``; this slice's runner executes the
-    throughput and latency metrics of one replica.  ``seed`` drives the
-    simulator's PRNG stream.
+    ``throughput`` or ``latency``; the port's runner executes the
+    throughput, latency and completion metrics of one replica.  ``seed``
+    drives the simulator's PRNG stream.
     """
 
     network: NetworkSpec

@@ -1,13 +1,13 @@
-"""Topologies and routing tables (numpy, computed on the host)."""
-from .topology import Topology, mrls
-from .routing import (bfs_distances, RoutingTables, build_tables,
-                      pack_port_masks, iter_port_mask_blocks,
-                      mask_table_bytes, MASK_LAYOUTS, DENSE_MASK_LIMIT)
+"""Topologies (numpy on the host) and routing tables (int16 distance
+rows, computed and kept on the card when the caller passes a CUDA
+device)."""
+from .topology import Topology, fat_tree, mrls
+from .routing import (bfs_distances, minplus_distances, RoutingTables,
+                      build_tables)
 
 # topology-family names the spec layer resolves NetworkSpec.family against
-TOPOLOGY_FAMILIES = {"mrls": mrls}
+TOPOLOGY_FAMILIES = {"mrls": mrls, "fat_tree": fat_tree}
 
-__all__ = ["Topology", "mrls", "bfs_distances", "RoutingTables",
-           "build_tables", "pack_port_masks", "iter_port_mask_blocks",
-           "mask_table_bytes", "MASK_LAYOUTS", "DENSE_MASK_LIMIT",
-           "TOPOLOGY_FAMILIES"]
+__all__ = ["Topology", "mrls", "fat_tree", "bfs_distances",
+           "minplus_distances", "RoutingTables",
+           "build_tables", "TOPOLOGY_FAMILIES"]

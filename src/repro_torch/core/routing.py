@@ -1,10 +1,15 @@
 """Routing tables for randomly-wired indirect networks (Section 4.3).
 
-The port's own copy of the reference's numpy table build: BFS hop
-distances from every leaf, and the packed per-(target leaf, switch)
-port bitmasks the engine tests instead of gathering ``[P]``-wide
-distance rows.  Word for word the reference's tables, in both the dense
-and the blocked (streamed) layout.
+The port's own copy of the reference's table build: hop distances from
+every leaf, as int16 rows equal to the reference's ``dist_leaf``.  The
+device picks how they are computed.  On the host (no device, or the
+CPU) they come from a BFS over blocks of sources; on the card from
+min-plus powering of the adjacency matrix through the CUDA ``minplus``
+kernel (``repro_torch.kernels.minplus``), which gives the same table and
+leaves it on the card.  The simulator packs its port-mask words from
+these rows on its own device (``simulator.engine.pack_mask_block``);
+:func:`_pack_mask_block` is the reference's numpy packing, kept as the
+host version that the device words are checked against.
 """
 from __future__ import annotations
 
@@ -12,25 +17,18 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from ..kernels.minplus.ops import INF, minplus_op
+from ..kernels.minplus.ref import adjacency_matrix, minplus_powers
 from .topology import Topology
 
 __all__ = [
     "bfs_distances",
+    "minplus_distances",
     "RoutingTables",
     "build_tables",
-    "pack_port_masks",
-    "iter_port_mask_blocks",
-    "mask_table_bytes",
-    "MASK_LAYOUTS",
-    "DENSE_MASK_LIMIT",
 ]
-
-MASK_LAYOUTS = ("auto", "dense", "blocked")
-
-# ``masks="auto"`` switches to the blocked (streamed) layout once one dense
-# numpy mask table would exceed this many bytes.
-DENSE_MASK_LIMIT = 256 * 1024 * 1024
 
 
 def bfs_distances(topo: Topology, sources: np.ndarray) -> np.ndarray:
@@ -69,44 +67,47 @@ def bfs_distances(topo: Topology, sources: np.ndarray) -> np.ndarray:
     return out
 
 
+def minplus_distances(topo: Topology, device, max_pow: int = 16):
+    """``([N, N] float32 hop distances on device, squarings)``.
+
+    Squares the adjacency matrix under (min, +) until a squaring changes
+    nothing (``kernels.minplus.minplus_powers``); ``INF`` marks an
+    unreachable pair.  Testing the fixpoint costs one host sync per
+    squaring, at set-up time only.
+    """
+    return minplus_powers(adjacency_matrix(topo.nbrs, device=device),
+                          minplus_op, max_pow=max_pow)
+
+
+def _hops_int16(d: torch.Tensor) -> torch.Tensor:
+    """float32 min-plus distances -> the BFS's int16 table (-1 where
+    unreachable), on the device of ``d``."""
+    return torch.where(d >= INF, -1.0, d).to(torch.int16)
+
+
 @dataclasses.dataclass
 class RoutingTables:
     """Precomputed routing state for the simulator.
 
-    ``dist_leaf`` is int16 ``[N1, N]``.  Bit ``p`` of word
-    ``min_mask[t, c, p // 32]`` is set iff port ``p`` of switch ``c`` leads
-    one hop closer to leaf ``t``; ``away_mask`` is the one-hop-farther
-    twin.  With ``mask_layout="blocked"`` the dense arrays are never built
-    (``min_mask is None``) and :meth:`mask_blocks` computes leaf blocks on
-    the fly; the values are the same word for word.
+    ``dist_leaf`` is an int16 tensor ``[N1, N]`` of hop distances from
+    each leaf (-1 = unreachable), on the device the distances were
+    computed on: the card for the min-plus build, the CPU for the BFS.
+    ``leaf_block`` is the height of the leaf blocks in which the
+    simulator packs its port-mask words.
     """
 
     topo: Topology
-    dist_leaf: np.ndarray          # [N1, N] int16 distances from each leaf
+    dist_leaf: torch.Tensor        # [N1, N] int16 distances from each leaf
     leaf_rank: np.ndarray          # [N] rank among leaves or -1
-    dist_full: Optional[np.ndarray] = None   # [N, N] (small nets)
-    min_mask: Optional[np.ndarray] = None    # [N1, N, W] uint32 toward-bits
-    away_mask: Optional[np.ndarray] = None   # [N1, N, W] uint32 away-bits
-    mask_layout: str = "dense"     # "dense" | "blocked"
-    leaf_block: int = 256          # block height of the blocked layout
-
-    def mask_blocks(self, block: Optional[int] = None):
-        """Yield ``(lo, hi, min_block, away_block)`` leaf blocks tiling
-        ``[0, N1)`` in order, for either layout."""
-        block = block or self.leaf_block
-        if self.min_mask is not None and self.away_mask is not None:
-            n1 = self.min_mask.shape[0]
-            for lo in range(0, n1, block):
-                hi = min(lo + block, n1)
-                yield lo, hi, self.min_mask[lo:hi], self.away_mask[lo:hi]
-            return
-        yield from iter_port_mask_blocks(self.dist_leaf, self.topo.nbrs,
-                                         block)
+    dist_full: Optional[torch.Tensor] = None   # [N, N] (small nets)
+    leaf_block: int = 256          # block height of the mask packing
+    squarings: int = 0             # minplus launches of the build (0: BFS)
 
 
 def _pack_mask_block(dist_block: np.ndarray, nbrs: np.ndarray,
                      valid: np.ndarray, nbr_safe: np.ndarray):
-    """One ``(min, away)`` uint32 block [B, N, W] for a leaf slice."""
+    """One ``(min, away)`` uint32 block [B, N, W] for a leaf slice: the
+    reference's numpy packing, the host version of the device words."""
     p = nbrs.shape[1]
     d = dist_block                                        # [B, N]
     dn = d[:, nbr_safe]                                   # [B, N, P]
@@ -122,64 +123,26 @@ def _pack_mask_block(dist_block: np.ndarray, nbrs: np.ndarray,
         away_b.astype(np.uint32, copy=False)
 
 
-def iter_port_mask_blocks(dist_leaf: np.ndarray, nbrs: np.ndarray,
-                          block: int = 256):
-    """Stream ``(lo, hi, min_block, away_block)`` leaf blocks without
-    materializing the ``[N1, N, W]`` arrays."""
-    n1 = dist_leaf.shape[0]
-    valid = nbrs >= 0
-    nbr_safe = np.where(valid, nbrs, 0)
-    for lo in range(0, n1, block):
-        hi = min(lo + block, n1)
-        min_b, away_b = _pack_mask_block(dist_leaf[lo:hi], nbrs,
-                                         valid, nbr_safe)
-        yield lo, hi, min_b, away_b
-
-
-def pack_port_masks(dist_leaf: np.ndarray, nbrs: np.ndarray,
-                    leaf_chunk: int = 256):
-    """``(min_mask, away_mask)`` — [N1, N, ceil(P/32)] uint32 bitmasks, the
-    dense assembly of :func:`iter_port_mask_blocks`."""
-    n1, n = dist_leaf.shape
-    w = (nbrs.shape[1] + 31) // 32
-    min_mask = np.zeros((n1, n, w), np.uint32)
-    away_mask = np.zeros((n1, n, w), np.uint32)
-    for lo, hi, min_b, away_b in iter_port_mask_blocks(dist_leaf, nbrs,
-                                                       leaf_chunk):
-        min_mask[lo:hi] = min_b
-        away_mask[lo:hi] = away_b
-    return min_mask, away_mask
-
-
-def mask_table_bytes(n1: int, n: int, p: int) -> int:
-    """Bytes of ONE dense ``[N1, N, W]`` uint32 mask table."""
-    return n1 * n * ((p + 31) // 32) * 4
-
-
 def build_tables(topo: Topology, full: bool = False, *,
-                 masks: str = "auto",
-                 leaf_block: int = 256) -> RoutingTables:
-    """Distance tables + packed port masks for ``topo``.
+                 leaf_block: int = 256, device=None) -> RoutingTables:
+    """Leaf distance tables for ``topo``.
 
-    ``masks`` picks the port-mask layout: ``"dense"`` materializes the
-    ``[N1, N, W]`` numpy arrays, ``"blocked"`` defers them to streamed
-    leaf blocks, and ``"auto"`` uses ``"blocked"`` once one dense table
-    would exceed :data:`DENSE_MASK_LIMIT` bytes.
+    ``device`` picks where the distances are computed and kept: a CUDA
+    device squares the adjacency matrix there (:func:`minplus_distances`)
+    and keeps the int16 rows on the card; no device or the CPU runs
+    :func:`bfs_distances` on the host.  Either way the rows equal the
+    reference's ``dist_leaf`` element for element.
     """
-    if masks not in MASK_LAYOUTS:
-        raise ValueError(f"unknown mask layout {masks!r}; expected one of "
-                         f"{MASK_LAYOUTS}")
-    dist_leaf = bfs_distances(topo, topo.leaf_ids)
-    dist_full = bfs_distances(topo, np.arange(topo.n_switches)) if full else None
-    if masks == "auto":
-        dense_bytes = mask_table_bytes(topo.n_leaves, topo.n_switches,
-                                       topo.max_ports)
-        masks = "dense" if dense_bytes <= DENSE_MASK_LIMIT else "blocked"
-    if masks == "dense":
-        min_mask, away_mask = pack_port_masks(dist_leaf, topo.nbrs,
-                                              leaf_block)
+    squarings = 0
+    if device is not None and torch.device(device).type == "cuda":
+        d, squarings = minplus_distances(topo, torch.device(device))
+        dist_leaf = _hops_int16(d[torch.as_tensor(topo.leaf_ids,
+                                                  device=d.device).long()])
+        dist_full = _hops_int16(d) if full else None
     else:
-        min_mask = away_mask = None
+        dist_leaf = torch.from_numpy(bfs_distances(topo, topo.leaf_ids))
+        dist_full = (torch.from_numpy(
+            bfs_distances(topo, np.arange(topo.n_switches)))
+            if full else None)
     return RoutingTables(topo, dist_leaf, topo.leaf_rank(), dist_full,
-                         min_mask, away_mask, mask_layout=masks,
-                         leaf_block=leaf_block)
+                         leaf_block=leaf_block, squarings=squarings)

@@ -1,18 +1,20 @@
-"""Switch-level topologies: the MRLS fabric of the paper (Cano et al., 2026).
+"""Switch-level topologies: the MRLS fabric of the paper (Cano et al.,
+2026) and the Fat-Tree it is compared with.
 
-The port's own copy of the reference's numpy constructor: for the same
-arguments and seed it gives identical ``nbrs`` and ``nbr_port`` arrays,
-so both simulators run on one fabric.  Only :func:`mrls` is here; the
-other families follow with the policies that need them.
+The port's own copy of the reference's numpy constructors: for the same
+arguments and seed they give identical ``nbrs`` and ``nbr_port`` arrays,
+so both simulators run on one fabric.  :func:`mrls` and :func:`fat_tree`
+are here; the other families follow with the policies that need them.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["Topology", "mrls"]
+__all__ = ["Topology", "mrls", "fat_tree"]
 
 
 @dataclasses.dataclass
@@ -175,4 +177,74 @@ def mrls(
         max_ports=R,
         meta={"u": u, "d": d, "R": R, "n_leaves": n_leaves, "n_spines": n_spines,
               "f": u / d, "seed": seed},
+    )
+
+
+# ---------------------------------------------------------------------- #
+# Fat-Tree (folded Clos, Section 2.1.1)
+# ---------------------------------------------------------------------- #
+def fat_tree(radix: int, h: int, a1: Optional[int] = None) -> Topology:
+    """Non-blocking folded-Clos Fat-Tree of height ``h`` (h+1 switch levels).
+
+    Built as a mixed-radix n-tree: endpoints are addressed by digits
+    ``(a_1, a_2, .., a_h)`` with ``a_1 in [A1]`` (default ``A1 = radix``) and
+    ``a_i in [k]``, ``k = radix / 2``.  A level-``l`` switch is
+    ``(a_1..a_{h-l}, p_1..p_l)``; its up-port ``p`` connects to
+    ``(a_1..a_{h-l-1}, p_1..p_l, p)``.  Leaves have ``k`` endpoints.
+
+    * full tree: ``a1 = radix`` (=2k) -> S = 2 k^{h+1}, the paper's formula.
+    * 50% depopulated (paper's ``FT(36, 104976) 50% pop.``): ``a1 = k`` —
+      half the pods built out, root level kept at full relative size.
+    """
+    k = radix // 2
+    if radix % 2:
+        raise ValueError("radix must be even")
+    A1 = radix if a1 is None else a1
+
+    # enumerate switches level by level; address -> id maps.
+    def level_count(l: int) -> int:
+        if l == h:
+            return k ** h
+        return A1 * k ** (h - 1)  # a_1 * k^(h-l-1) * k^l
+
+    offsets = np.cumsum([0] + [level_count(l) for l in range(h + 1)])
+    n = int(offsets[-1])
+
+    def sid(l: int, a_digits: tuple, p_digits: tuple) -> int:
+        # a_digits: (a_1..a_{h-l}); p_digits: (p_1..p_l)
+        idx = 0
+        if l < h:
+            idx = a_digits[0]
+            for d_ in a_digits[1:]:
+                idx = idx * k + d_
+        for d_ in p_digits:
+            idx = idx * k + d_
+        return int(offsets[l] + idx)
+
+    edges = []
+    for l in range(h):
+        a_len = h - l
+        a_space = itertools.product(range(A1), *([range(k)] * (a_len - 1)))
+        for a in a_space:
+            for p_ in itertools.product(*([range(k)] * l)):
+                me = sid(l, a, p_)
+                for p in range(k):
+                    up = sid(l + 1, a[:-1], p_ + (p,))
+                    edges.append((me, up))
+    edges = np.asarray(edges, np.int64)
+    is_leaf = np.zeros(n, bool)
+    is_leaf[: level_count(0)] = True
+    level = np.zeros(n, np.int32)
+    for l in range(h + 1):
+        level[offsets[l]: offsets[l + 1]] = l
+    return _from_edges(
+        f"FT(R={radix},h={h},S={level_count(0) * k})",
+        "indirect",
+        n,
+        edges,
+        is_leaf,
+        k,
+        level,
+        max_ports=radix,
+        meta={"radix": radix, "h": h, "k": k, "a1": A1},
     )

@@ -14,8 +14,10 @@ hand-written CUDA kernels, on the CPU (only when the caller asks for
 of output VC is the same masked argmax as VC pre-arbitration and runs
 through the same kernel.
 
-Policies of this slice: ``polarized``, ``minimal_adaptive``, ``ksp``;
-traffic: ``uniform``.  No failure schedule.
+Policies: ``polarized``, ``minimal_adaptive``, ``ksp``; traffic:
+``uniform`` (Bernoulli, measured by ``run_throughput``/``run_latency``)
+and ``all2all`` (a finite program, measured by ``run_completion``).  No
+failure schedule.
 
 State and its lifetime:
 
@@ -31,7 +33,8 @@ State and its lifetime:
   same dict.  A state passed to them is consumed, as a donated state is
   in the reference; clone what you need to keep first.
 * The step makes no host synchronisation: no ``.item()``, no
-  ``nonzero``, no boolean-mask indexing.
+  ``nonzero``, no boolean-mask indexing.  ``run_completion`` syncs once
+  per chunk, to test whether to run the next one.
 """
 from __future__ import annotations
 
@@ -47,8 +50,8 @@ from ..core.routing import RoutingTables
 from ..kernels.switch_arb.ops import switch_arbitrate_flat, vc_prearb
 from ..workloads.patterns import check_engine_pattern
 
-__all__ = ["SimConfig", "Traffic", "Simulator", "percentiles", "POLICIES",
-           "POOL_KEYS", "LATENCY_QS"]
+__all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
+           "percentiles", "POLICIES", "POOL_KEYS", "LATENCY_QS"]
 
 POLICIES = ("polarized", "minimal_adaptive", "ksp")
 _LATER_POLICIES = ("ugal", "valiant", "degraded")
@@ -83,11 +86,17 @@ class SimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Traffic:
-    """Bernoulli traffic: each idle endpoint starts a one-packet message
-    with probability ``load`` per slot.  This slice runs ``uniform``
-    (destinations drawn uniformly over all endpoints)."""
+    """Traffic program, with the reference's field order.
+
+    * ``uniform``: each idle endpoint starts a one-packet message with
+      probability ``load`` per slot, to a destination drawn uniformly
+      over all endpoints.
+    * ``all2all``: each endpoint sends ``rounds`` single-packet messages
+      to ``(e + r + 1) mod S``, free-running (no round synchronization).
+    """
     pattern: str = "uniform"
     load: float = 1.0
+    rounds: int = 0
 
     def __post_init__(self):
         check_engine_pattern(self.pattern)
@@ -105,8 +114,8 @@ class Simulator:
         if cfg.policy in _LATER_POLICIES:
             raise NotImplementedError(
                 f"policy {cfg.policy!r} is not ported yet: ugal and valiant "
-                "come with the next slice, with the Dragonfly and Fat-Tree "
-                "topologies; degraded with the failure schedules")
+                "come with the Dragonfly topology; degraded with the failure "
+                "schedules")
         if cfg.policy not in POLICIES:
             raise ValueError(f"unknown policy {cfg.policy!r}; expected one "
                              f"of {POLICIES + _LATER_POLICIES}")
@@ -173,19 +182,25 @@ class Simulator:
 
     def _build_device_masks(self, tables: RoutingTables):
         """Device mask tables ``[N1*N, W]`` as int32 views of the uint32
-        words, assembled from streamed leaf blocks.  Only Polarized keeps
-        the away bits."""
+        words, packed on the device from the int16 distances in leaf
+        blocks of ``tables.leaf_block`` rows.  Only Polarized keeps the
+        away bits."""
+        n, n1, w = self.N, self.n1, self.W
         need_away = self.cfg.policy == "polarized"
-        mins, aways = [], []
-        for _lo, _hi, min_b, away_b in tables.mask_blocks():
-            mins.append(torch.from_numpy(np.ascontiguousarray(
-                min_b.reshape(-1, self.W)).view(np.int32)).to(self.device))
+        nbrs = np.asarray(tables.topo.nbrs)
+        valid = torch.as_tensor(nbrs >= 0, device=self.device)
+        nbr_safe = torch.as_tensor(np.maximum(nbrs, 0).astype(np.int64),
+                                   device=self.device)
+        dist = self.dist.reshape(n1, n)
+        min_mask = torch.empty((n1 * n, w), dtype=_I32, device=self.device)
+        away_mask = torch.empty_like(min_mask) if need_away else None
+        for lo in range(0, n1, tables.leaf_block):
+            hi = min(lo + tables.leaf_block, n1)
+            min_b, away_b = pack_mask_block(dist[lo:hi], valid, nbr_safe,
+                                            away=need_away)
+            min_mask[lo * n:hi * n] = min_b.reshape(-1, w)
             if need_away:
-                aways.append(torch.from_numpy(np.ascontiguousarray(
-                    away_b.reshape(-1, self.W)).view(np.int32)).to(
-                        self.device))
-        min_mask = torch.cat(mins)
-        away_mask = torch.cat(aways) if need_away else None
+                away_mask[lo * n:hi * n] = away_b.reshape(-1, w)
         return min_mask, away_mask
 
     def _init_requester_geometry(self, topo) -> None:
@@ -272,8 +287,8 @@ class Simulator:
     def make_state(self, traffic: Traffic, seed: int = 0) -> dict:
         """A fresh state; a non-zero ``seed`` is folded into the key of
         ``cfg.seed`` (seed 0 keeps the plain key), as in the reference.
-        Uniform traffic needs no seeded arrays, so ``traffic`` only keeps
-        the reference's signature."""
+        Neither ported pattern needs seeded arrays, so ``traffic`` only
+        keeps the reference's signature."""
         st = self.init_state()
         if seed:
             st["key"] = prng.fold_in(st["key"], seed)
@@ -293,11 +308,16 @@ class Simulator:
         k1, k2, _k3, _k4 = prng.split(key, 4, partitionable=self._pt)
 
         idle = st["msg_rem"] == 0
-        # the reference compares against the float32 rounding of the load
-        threshold = float(np.float32(traffic.load))
-        u = prng.uniform(k1, (S,), partitionable=self._pt)
-        start = idle & (u < threshold)
-        dst = prng.randint(k2, (S,), 0, S, partitionable=self._pt)
+        if traffic.pattern == "all2all":
+            start = idle & (st["prog"] < traffic.rounds)
+            dst = (e + st["prog"] + 1) % S
+        else:   # uniform
+            # the reference compares against the float32 rounding of the
+            # load
+            threshold = float(np.float32(traffic.load))
+            u = prng.uniform(k1, (S,), partitionable=self._pt)
+            start = idle & (u < threshold)
+            dst = prng.randint(k2, (S,), 0, S, partitionable=self._pt)
 
         msg_rem = torch.where(start, 1, st["msg_rem"])
         msg_dst = torch.where(start, dst, st["msg_dst"])
@@ -540,6 +560,36 @@ class Simulator:
             "state": st,
         }
 
+    def run_completion(self, traffic: Traffic, expected: int,
+                       chunk: int = 128, max_slots: int = 100_000,
+                       seed: int = 0) -> dict:
+        """Run until ``expected`` packets are delivered (collectives).
+
+        ``slots`` is the exact slot at which the ejection counter first
+        reached ``expected``: a ``done`` tensor on the device records it
+        after every step, with no sync.  Whether to run the next chunk of
+        ``chunk`` slots is tested before each chunk, and only there (one
+        host sync per chunk), so the run ends on a chunk boundary and
+        ``pool_stall`` and ``state`` are read there.  A run that reaches
+        ``max_slots`` first reports the final slot and
+        ``completed=False``.
+        """
+        # p_bh packs the born slot above the hop byte; past 2^23 slots the
+        # shifted value would wrap int32 and corrupt latency measurement
+        assert max_slots < (1 << 23), \
+            "max_slots overflows the p_bh born-slot packing (< 2^23)"
+        st = self.make_state(traffic, seed)
+        done = torch.full((), -1, dtype=_I32, device=self.device)
+        while bool(((done < 0) & (st["slot"] < max_slots)).item()):
+            for _ in range(chunk):
+                self._step(st, traffic)
+                newly = (st["ejected"] >= expected) & (done < 0)
+                done = torch.where(newly, st["slot"], done)
+        done, final, stall = torch.stack(
+            [done, st["slot"], st["pool_stall"]]).cpu().tolist()
+        return {"slots": done if done >= 0 else final,
+                "completed": done >= 0, "pool_stall": stall, "state": st}
+
     def run_latency(self, traffic: Traffic, warm: int = 200,
                     measure: int = 600, seed: int = 0) -> dict:
         st = self.make_state(traffic, seed)
@@ -548,6 +598,35 @@ class Simulator:
         self.run_chunk(st, traffic, measure)
         hist = (st["lat_hist"] - base).cpu().numpy()
         return {"hist": hist, **percentiles(hist, LATENCY_QS)}
+
+
+def pack_mask_block(dist_block: torch.Tensor, valid: torch.Tensor,
+                    nbr_safe: torch.Tensor, *, away: bool = True):
+    """``(min, away)`` int32 words [B, N, W] for a block of int16 leaf
+    distance rows ``dist_block`` [B, N]: the reference's
+    ``core.routing._pack_mask_block`` on the device, as int32 views of
+    its uint32 words (``away`` is None unless asked for).
+
+    ``valid`` [N, P] bool marks the ports with a link, ``nbr_safe``
+    [N, P] int64 is the neighbour with -1 mapped to 0.  Port ``j`` sets
+    bit ``j % 32`` of word ``j // 32``; the words are built with
+    ``bitwise_or`` on int32, where bit 31 is -2**31, so no sum ever
+    wraps.  One port at a time keeps the temporaries at [B, N].
+    """
+    d = dist_block
+    p = valid.shape[1]
+    min_w = torch.zeros(d.shape + ((p + 31) // 32,), dtype=_I32,
+                        device=d.device)
+    away_w = torch.zeros_like(min_w) if away else None
+    for j in range(p):
+        dn = d[:, nbr_safe[:, j]]                               # [B, N]
+        bit = np.uint32(1 << (j % 32)).view(np.int32).item()
+        min_w[:, :, j // 32].bitwise_or_(
+            (valid[:, j] & (dn == d - 1)).to(_I32) * bit)
+        if away:
+            away_w[:, :, j // 32].bitwise_or_(
+                (valid[:, j] & (dn == d + 1)).to(_I32) * bit)
+    return min_w, away_w
 
 
 def percentiles(hist: np.ndarray, qs) -> dict:

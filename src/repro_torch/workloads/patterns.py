@@ -2,8 +2,8 @@
 
 The port's own copy of the reference registry, so a spec file names the
 same patterns and fails with the same errors in both packages.  The
-engine of this slice runs ``uniform`` only; :func:`check_engine_pattern`
-says which later slice brings the others.
+engine runs ``uniform`` and ``all2all``; :func:`check_engine_pattern`
+says what is still to come.
 """
 from __future__ import annotations
 
@@ -36,8 +36,8 @@ ENGINE_ONLY_PATTERNS = ("phase", "program", "arrival")
 # collective execution schedules ("" = per-pattern default)
 SCHEDULES = ("", "barrier", "window")
 
-# what the port's engine runs in this slice
-ENGINE_PATTERNS = ("uniform",)
+# what the port's engine runs
+ENGINE_PATTERNS = ("uniform", "all2all")
 
 _KINDS = (
     {p: "bernoulli" for p in BERNOULLI_PATTERNS}
@@ -80,13 +80,13 @@ def check_pattern(name: str, *, engine: bool = False) -> str:
 
 
 def check_engine_pattern(name: str) -> None:
-    """Raise unless this slice's engine runs ``name``."""
+    """Raise unless the port's engine runs ``name``."""
     check_pattern(name, engine=True)
     if name not in ENGINE_PATTERNS:
         raise NotImplementedError(
             f"pattern {name!r} is not ported yet: the PyTorch engine runs "
-            f"{ENGINE_PATTERNS} only; the other traffic families come with "
-            "the next slice, together with run_completion")
+            f"{ENGINE_PATTERNS} only; the other Bernoulli families, the "
+            "workload programs and the arrival processes come later")
 
 
 def bounded_pareto_mean(alpha: float, cap: int) -> float:

@@ -74,16 +74,25 @@ def test_cli_run_writes_the_result(tmp_path, capsys):
 
 def test_unported_specs_raise():
     d = _spec("tiny_mrls.json")
-    with pytest.raises(NotImplementedError, match="completion"):
+    for workload in ({"pattern": "all2all", "rounds": 2,
+                      "schedule": "barrier"},
+                     {"pattern": "allreduce"}):
+        with pytest.raises(NotImplementedError, match="programs"):
+            port_api.run(port_api.Experiment.from_dict(
+                dict(d, workload=workload)), device="cpu")
+    with pytest.raises(NotImplementedError, match="serving"):
         port_api.run(port_api.Experiment.from_dict(
-            dict(d, workload={"pattern": "all2all", "rounds": 2})),
+            dict(d, workload={"pattern": "poisson", "load": 0.5})),
             device="cpu")
+    with pytest.raises(ValueError, match="collective"):
+        port_api.run(port_api.Experiment.from_dict(
+            dict(d, metric="completion")), device="cpu")
     with pytest.raises(NotImplementedError, match="replicated"):
         port_api.run(port_api.Experiment.from_dict(dict(d, replicas=2)),
                      device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_api.build_network(port_api.NetworkSpec("fat_tree",
-                                                    {"radix": 4}))
+        port_api.build_network(port_api.NetworkSpec("dragonfly",
+                                                    {"p": 2}))
     failing = dict(d["network"], failures={"events": []})
     with pytest.raises(NotImplementedError, match="failure"):
         port_api.Experiment.from_dict(dict(d, network=failing))

@@ -98,7 +98,7 @@ def test_unported_policies_and_patterns_raise(port_sim):
             Simulator(tables, SimConfig(policy=policy), device="cpu")
     with pytest.raises(ValueError, match="unknown policy"):
         Simulator(tables, SimConfig(policy="shortest"), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="Bernoulli families"):
         Traffic("tornado")
     with pytest.raises(ValueError, match="unknown pattern"):
         Traffic("nonsense")

@@ -1,17 +1,23 @@
 """The port's topology and routing tables against the reference's.
 
 Same constructor arguments and seed -> identical ``nbrs``/``nbr_port``,
-identical int16 leaf distances, and identical packed port masks, block
-by block, in both the dense and the blocked layout.  Fabrics: the
+identical int16 leaf distances, and identical packed port masks: the
+simulator's words, packed on its device from the distances in blocks of
+leaf rows, and the host packing ``_pack_mask_block`` they are checked
+against on the card, each against the reference's ``mask_blocks()`` in
+its dense and its blocked layout.  Fabrics: the
 engine-parity golden ``mrls(14, 3, 3, seed=0)``, the Figure-5 scaled
 ``mrls(62, 6, 6, seed=1)`` and the paper's 11k-endpoint
 ``mrls(614, 18, 18, seed=1)``.  Tolerance: zero.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jax_core
 import repro_torch.core as port_core
+from repro_torch.core.routing import _pack_mask_block
+from repro_torch.simulator.engine import SimConfig, Simulator
 
 FABRICS = {
     "golden": dict(n_leaves=14, u=3, d=3, seed=0),
@@ -51,17 +57,26 @@ def test_leaf_distances_match_reference(both):
 def test_mask_blocks_match_reference(both, layout, block):
     ref, port = both
     want_t = jax_core.build_tables(ref, masks=layout, leaf_block=block)
-    got_t = port_core.build_tables(port, masks=layout, leaf_block=block)
-    assert got_t.mask_layout == want_t.mask_layout == layout
-    np.testing.assert_array_equal(got_t.dist_leaf, want_t.dist_leaf)
+    got_t = port_core.build_tables(port, leaf_block=block, device="cpu")
+    assert want_t.mask_layout == layout and got_t.leaf_block == block
+    assert got_t.dist_leaf.dtype == torch.int16
+    np.testing.assert_array_equal(got_t.dist_leaf.numpy(), want_t.dist_leaf)
     np.testing.assert_array_equal(got_t.leaf_rank, want_t.leaf_rank)
+    sim = Simulator(got_t, SimConfig(policy="polarized"), device="cpu")
+    n, w = port.n_switches, sim.W
+    dist = got_t.dist_leaf.numpy()
+    valid = port.nbrs >= 0
+    nbr_safe = np.where(valid, port.nbrs, 0)
     n_blocks = 0
-    for want, got in zip(want_t.mask_blocks(), got_t.mask_blocks(),
-                         strict=True):
-        assert got[:2] == want[:2]
-        for w, g in zip(want[2:], got[2:]):
-            assert g.dtype == w.dtype == np.uint32
-            np.testing.assert_array_equal(g, w)
+    for lo, hi, want_min, want_away in want_t.mask_blocks():
+        host = _pack_mask_block(dist[lo:hi], port.nbrs, valid, nbr_safe)
+        for want, got, dev in ((want_min, host[0], sim.min_mask),
+                               (want_away, host[1], sim.away_mask)):
+            assert got.dtype == want.dtype == np.uint32
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(
+                dev[lo * n:hi * n].numpy(),
+                want.reshape(-1, w).view(np.int32))
         n_blocks += 1
     assert n_blocks == -(-ref.n_leaves // block)
 
@@ -70,5 +85,3 @@ def test_unbuildable_mrls_raises_like_reference():
     for mod in (jax_core, port_core):
         with pytest.raises(ValueError, match="divisible"):
             mod.mrls(n_leaves=5, u=3, d=4)
-    with pytest.raises(ValueError, match="mask layout"):
-        port_core.build_tables(port_core.mrls(14, 3, 3), masks="sparse")
