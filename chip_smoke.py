@@ -39,10 +39,26 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the 50 %-depopulated Fat-Tree, 104,976 endpoints each) run an
    All2All of 16 rounds to completion through ``repro_torch.api.run``;
    each Result equals its ``tests/golden/torch_a2a_*.json`` field for
-   field, and every kernel launched the expected number of times.
+   field, and every kernel launched the expected number of times;
+9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
+   ragged shapes) and ``selective_scan`` (at ``[4, 4096, 3200, 16]`` and
+   ragged shapes) against their plain PyTorch versions at the Hymba
+   serving slice's shapes; kernel, plain and library (SDPA) times with
+   CUDA events, and the bound;
+10. Hymba golden — the full-width ``hymba-1.5b`` (weights from the seeded
+   numpy synthesis), teacher-forced on the prompt and tokens of
+   ``tests/golden/torch_hymba_1p5b_s4096.json``: the prefill's and 16
+   decode steps' top-8 logits and logsumexp against the JAX reference's,
+   and the top-1 wherever the reference's margin is clear;
+11. serving — ``ServeSession.generate`` answers 4 requests of 4,096 tokens
+   with 32 new tokens each (row 0 is the golden's prompt and must give its
+   tokens); prefill seconds, decode ms per token, tokens/s, peak device
+   memory, the kernels' launches (32 + 32 per prefill, none per decode
+   step), and where a prefill's time goes from ``torch.profiler``.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's
-``nvidia-smi`` name and power limit, and the result line
+Each phase prints its wall seconds.  The last lines are a
+``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
+power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's ``src/`` beside it, the script exits with code 2 and
 prints no result.
@@ -66,8 +82,11 @@ A2A_GOLDENS = {
                         ("fig6.mrls_f1", "fig6_mrls_f1"),
                         ("fig6.ft50", "fig6_ft50"))}
 
+HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32, outside tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "vc_prearb": ("src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
@@ -77,11 +96,27 @@ KERNELS = {
         "src/repro/kernels/switch_arb/kernel.py:113"),
     "minplus": ("src/repro_torch/kernels/minplus/csrc/minplus.cu",
                 "src/repro/kernels/minplus/kernel.py:42"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:73"),
+    "selective_scan": (
+        "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+        "src/repro/kernels/selective_scan/kernel.py:39"),
 }
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_PHASE = {"name": None, "t0": 0.0}
 
 
-def phase(name: str) -> None:
-    print(f"\n== {name} ==", flush=True)
+def phase(name=None) -> None:
+    """Print the wall seconds of the phase that ends, then start ``name``."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"-- {_PHASE['name']}: {now - _PHASE['t0']:.3f} s wall",
+              flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"\n== {name} ==", flush=True)
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -100,25 +135,33 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: int, fp32_ops: int) -> tuple:
+def bound_ms(n_bytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
+    """(least ms, "bytes" or "operations") at the card's peak rates."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = fp32_ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_modules() -> list:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.minplus import kernel as mp
+    from repro_torch.kernels.selective_scan import kernel as ss
+    from repro_torch.kernels.switch_arb import kernel as arb
+    return [arb, mp, fa, ss]
 
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from repro_torch.kernels.minplus import kernel as mp
-    from repro_torch.kernels.switch_arb import kernel as arb
-    arb.reset_launch_counts()
-    mp.reset_launch_counts()
+    for m in _kernel_modules():
+        m.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last :func:`reset_counts`."""
-    from repro_torch.kernels.minplus import kernel as mp
-    from repro_torch.kernels.switch_arb import kernel as arb
-    return {**arb.launch_counts(), **mp.launch_counts()}
+    out = {}
+    for m in _kernel_modules():
+        out.update(m.launch_counts())
+    return out
 
 
 def check_counts(counts: dict, expected: dict, path: str) -> None:
@@ -430,7 +473,7 @@ def run_full_width(squarings: int) -> dict:
 
 def expected_counts(exp, slots: int, squarings: int) -> dict:
     speedup = exp.route.speedup
-    return {"vc_prearb": (speedup + 1) * slots,
+    return {**NO_LAUNCHES, "vc_prearb": (speedup + 1) * slots,
             "switch_arbitrate": speedup * slots, "minplus": squarings}
 
 
@@ -575,7 +618,7 @@ def run_tables(points: dict) -> dict:
         sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
         torch.cuda.synchronize()
         t_sim = time.perf_counter() - t0 - t_tab
-        check_counts(read_counts(), {"vc_prearb": 0, "switch_arbitrate": 0,
+        check_counts(read_counts(), {**NO_LAUNCHES,
                                      "minplus": tables.squarings},
                      f"the {label} table build")
         squarings[label] = tables.squarings
@@ -700,6 +743,386 @@ def run_all2all(points: dict, squarings: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------- #
+# LM serving slice: Hymba-1.5B
+# ---------------------------------------------------------------------- #
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
+# selective_scan's: the same float32 operations in the same order; only
+# expf, taken from CUDA's math library by both but compiled separately,
+# may differ by an ulp, which the contracting recurrence (|exp(dt A)| <= 1)
+# does not grow
+SCAN_TOL = 1e-5
+
+
+def _flash_bound(b, sq, skv, h, hkv, d, window) -> tuple:
+    """q, k, v read once and o written once; 4 d operations per live
+    (query, key) pair, at the bf16 tensor-core rate."""
+    from repro_torch.kernels.flash_attention import live_pairs
+    n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * hkv * d)
+    ops = 4 * d * b * h * live_pairs(sq, skv, window)
+    return bound_ms(n_bytes, ops, BF16_OPS_PER_S)
+
+
+def _scan_bound(b, t, di, n) -> tuple:
+    """u, dt, A, B, C, h0 read once, y and h_T written once; 7 float32
+    operations per (b, t, channel, state)."""
+    n_bytes = 4 * (3 * b * t * di + di * n + 2 * b * t * n + 2 * b * di * n)
+    return bound_ms(n_bytes, 7 * b * t * di * n)
+
+
+def run_lm_kernels(cfg) -> dict:
+    """Both LM kernels against their plain versions at the serving slice's
+    shapes and at ragged ones; returns each kernel's record for one
+    prefill launch (flash_attention averaged over the prefill's full and
+    windowed layers)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import compare_bf16
+    from repro_torch.kernels.selective_scan import kernel as ss
+    from repro_torch.kernels.selective_scan import selective_scan_ref
+    phase("9. LM kernels vs plain, on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.sliding_window
+    n_full = len(cfg.full_attn_layers)
+    n_win = cfg.n_layers - n_full
+
+    def qkv(b, sq, skv, h, hkv, d):
+        return [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+                for shape in ((b, sq, h, d), (b, skv, hkv, d),
+                              (b, skv, hkv, d))]
+
+    flash = {}
+    errs = []
+    cases = [(B, S, S, H, Hkv, D, None), (B, S, S, H, Hkv, D, W),
+             (1, 1000, 1000, H, Hkv, D, 300), (2, 77, 333, H, Hkv, D, None),
+             (1, 130, 130, 5, 1, 16, 5), (3, 200, 200, 5, 1, 16, 64)]
+    for i, (b, sq, skv, h, hkv, d, win) in enumerate(cases):
+        q, k, v = qkv(b, sq, skv, h, hkv, d)
+        got = fa.flash_attention(q, k, v, window=win)
+        want = flash_attention_ref(q, k, v, window=win)
+        torch.cuda.synchronize()
+        # each element within one bf16 ulp of its own value plus one flip
+        # of one p's rounding in its row, and few elements differing at all
+        # (compare_bf16 gives the reasons)
+        cmp = compare_bf16(got, want, q, k, v, window=win)
+        label = f"[{b},{sq},{skv},{h},{hkv},{d}] window {win}"
+        print(f"flash_attention {label}: max_abs_err {cmp['max_abs_err']!r}"
+              f", worst error {cmp['worst']!r} of its element's bound, "
+              f"{cmp['n_diff']} of {got.numel()} outputs differ (at most "
+              f"{cmp['n_allowed']})")
+        if not cmp["ok"]:
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version at {label}")
+        errs.append(cmp["max_abs_err"])
+        if i >= 2:
+            continue
+        # timings at the slice's shapes; the library call is PyTorch's
+        # fused attention with the window as a boolean mask
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if win is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - (win + 1))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=win),
+                     iters=10, warmup=2)
+        plain = cuda_ms(lambda: flash_attention_ref(q, k, v, window=win),
+                        iters=3, warmup=1)
+        lib_ms = cuda_ms(lib, iters=10, warmup=2)
+        bnd, by = _flash_bound(b, sq, skv, h, hkv, d, win)
+        flash[win] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                          bound_ms=bnd, bound_by=by)
+        print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms ({by}, "
+              f"{100 * bnd / ms:.2f}% of the bound); plain {plain:.6f} ms; "
+              f"SDPA {lib_ms:.6f} ms (max_abs_err against the plain "
+              f"version {lib_err!r})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    # one prefill launch on average: n_full full layers, n_win windowed
+    fa_rec = {key: (n_full * flash[None][key] + n_win * flash[W][key])
+              / cfg.n_layers
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    fa_rec.update(bound_by=flash[W]["bound_by"], max_abs_err=max(errs))
+
+    Di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    scan_errs, scan = [], {}
+    for i, (b, t, di, h0_zero) in enumerate(
+            [(B, S, Di, True), (3, 77, 50, False), (1, 1000, 3211, False)]):
+        u = torch.randn((b, t, di), generator=gen, device=dev)
+        dt = torch.rand((b, t, di), generator=gen, device=dev) * 0.099 + 1e-3
+        A = -torch.exp(torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=dev))).expand(di, N)
+        A = A.contiguous()
+        Bc, Cc = (torch.randn((b, t, N), generator=gen, device=dev)
+                  for _ in range(2))
+        h0 = torch.zeros((b, di, N), device=dev) if h0_zero else \
+            torch.randn((b, di, N), generator=gen, device=dev)
+        args = (u, dt, A, Bc, Cc, h0)
+        y, h = ss.selective_scan(*args)
+        yr, hr = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+        tol = SCAN_TOL * max(float(yr.abs().max()), float(hr.abs().max()))
+        same = torch.equal(y, yr) and torch.equal(h, hr)
+        label = f"[{b},{t},{di},{N}]"
+        print(f"selective_scan {label}: max_abs_err {err!r} (tolerance "
+              f"{tol!r}), {'bitwise equal' if same else 'NOT bitwise equal'}")
+        if not err <= tol:
+            raise AssertionError(f"selective_scan differs from its plain "
+                                 f"version at {label}")
+        scan_errs.append(err)
+        if i == 0:
+            ms = cuda_ms(lambda: ss.selective_scan(*args), iters=10,
+                         warmup=2)
+            plain = cuda_ms(lambda: selective_scan_ref(*args), iters=1,
+                            warmup=1)
+            bnd, by = _scan_bound(b, t, di, N)
+            scan = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                        bound_by=by)
+            print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms "
+                  f"({by}, {100 * bnd / ms:.2f}% of the bound); plain "
+                  f"{plain:.6f} ms; no PyTorch call computes this scan")
+        del args, u, dt, Bc, Cc, h0, y, yr
+    scan["max_abs_err"] = max(scan_errs)
+    torch.cuda.empty_cache()
+    return {"flash_attention": fa_rec, "selective_scan": scan}
+
+
+# the golden's logits against the card's, within these, with reasons: the
+# card's bf16 products (cuBLAS) and attention and scan kernels sum in
+# other orders than the reference's XLA on a CPU, so single bf16 values
+# flip by one ulp in every layer and the flips add up over 32 layers; the
+# top-8 logits (about 3 here, bf16 ulp 2^-6) are held to 4 ulps of the top
+# logit; the logsumexp, a softmax-weighted mean of the logits' errors over
+# the vocabulary, to a quarter of one ulp
+LOGIT_TOL = 2 ** -4
+LSE_TOL = 2 ** -8
+
+
+def _check_step(label: str, logits, ref: dict, vocab: int) -> dict:
+    """Hold one position's logits [V] to a golden step record; returns
+    the errors."""
+    import numpy as np
+    x = logits[:vocab].float().cpu().numpy().astype(np.float64)
+    top_err = float(max(abs(x[t] - v) for t, v in ref["top"]))
+    lse = float(x.max() + np.log(np.exp(x - x.max()).sum()))
+    lse_err = abs(lse - ref["lse"])
+    top1 = int(np.argmax(x))
+    decisive = ref["margin"] > 2 * LOGIT_TOL
+    ok = top_err <= LOGIT_TOL and lse_err <= LSE_TOL and \
+        (top1 == ref["top"][0][0] or not decisive)
+    print(f"{label}: top-8 max_abs_err {top_err!r}, logsumexp err "
+          f"{lse_err!r}, top-1 {top1} (golden {ref['top'][0][0]}, margin "
+          f"{ref['margin']!r}{'' if decisive else ', a near tie'})"
+          f"{'' if ok else '  <-- FAILS'}")
+    if not ok:
+        raise AssertionError(f"Hymba {label} differs from the JAX golden")
+    return {"top": top_err, "lse": lse_err}
+
+
+def golden_prompt(golden: dict):
+    import numpy as np
+    return np.random.default_rng(golden["prompt_seed"]).integers(
+        0, golden["vocab"], (1, golden["prompt_len"]), dtype=np.int32)
+
+
+def run_hymba_golden(cfg, params) -> None:
+    """The full config teacher-forced on the golden's prompt and tokens."""
+    import torch
+    from repro_torch.models.model import decode_step, prefill
+    phase("10. Hymba-1.5B golden on the card")
+    golden = json.loads(HYMBA_GOLDEN.read_text())
+    dev = torch.device("cuda")
+    toks = torch.as_tensor(golden_prompt(golden), device=dev)
+    errs = []
+    with torch.inference_mode():
+        logits, cache = prefill(params, toks, cfg)
+        errs.append(_check_step("prefill", logits[0, -1], golden["steps"][0],
+                                cfg.vocab))
+        for i, tok in enumerate(golden["tokens"][:-1]):
+            logits, cache = decode_step(
+                params, cache, torch.tensor([[tok]], device=dev),
+                golden["prompt_len"] + i, cfg)
+            errs.append(_check_step(f"decode step {i}", logits[0, -1],
+                                    golden["steps"][i + 1], cfg.vocab))
+    print(f"{len(errs)} positions within tolerance: top-8 max_abs_err "
+          f"{max(e['top'] for e in errs)!r} (tolerance {LOGIT_TOL}), "
+          f"logsumexp {max(e['lse'] for e in errs)!r} (tolerance {LSE_TOL})")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def _kind(key: str) -> str:
+    """The class of a device kernel, by its name."""
+    low = key.lower()
+    if "flash_attention_kernel" in key:
+        return "flash_attention"
+    if "selective_scan_kernel" in key:
+        return "selective_scan"
+    if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "gemm"
+    if "copy" in low:
+        return "copy/cast"
+    return "other elementwise/reduction"
+
+
+def _profile(fn) -> tuple:
+    """(device rows sorted by time, device busy s, wall s) of ``fn()``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0), e.count,
+                    e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    return rows, sum(r[0] for r in rows) / 1e6, wall
+
+
+def run_serving(cfg, params) -> dict:
+    """4 requests of 4,096 tokens, 32 new tokens each, through
+    ``ServeSession.generate``; returns the main path's launches and each
+    LM kernel's device ms per launch from the profiler."""
+    import numpy as np
+    import torch
+    import repro_torch.launch.serve as serve
+    phase("11. serving: ServeSession.generate, 4 x 4,096 tokens + 32")
+    golden = json.loads(HYMBA_GOLDEN.read_text())
+    prompts = np.concatenate([golden_prompt(golden),
+                              np.random.default_rng(11).integers(
+                                  0, cfg.vocab,
+                                  (SERVE_BATCH - 1, SERVE_PROMPT),
+                                  dtype=np.int32)])
+    sess = serve.ServeSession(cfg, params=params, device="cuda")
+
+    # the prefill's time and the launches of prefill and decode, read
+    # around the user's call without changing it
+    seen = {"decode_launches": []}
+    prefill_fn, decode_fn = serve.prefill, serve.decode_step
+
+    def timed_prefill(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill_fn(*args, **kw)
+        torch.cuda.synchronize()
+        seen["prefill_s"] = time.perf_counter() - t0
+        seen["prefill_launches"] = read_counts()
+        return out
+
+    def counted_decode(*args, **kw):
+        before = read_counts()
+        out = decode_fn(*args, **kw)
+        after = read_counts()
+        seen["decode_launches"].append(
+            {k: after[k] - before[k] for k in after})
+        return out
+
+    serve.prefill, serve.decode_step = timed_prefill, counted_decode
+    try:
+        sess.generate(prompts[:, :64], 2)            # warm-up, short
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        seen["decode_launches"].clear()
+        t0 = time.perf_counter()
+        toks = sess.generate(prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serve.prefill, serve.decode_step = prefill_fn, decode_fn
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_s = wall - seen["prefill_s"]
+    n_tok = SERVE_BATCH * SERVE_NEW
+    print(f"generated {toks.shape}; wall {wall:.3f} s = prefill "
+          f"{seen['prefill_s']:.3f} s + {SERVE_NEW - 1} decode steps "
+          f"{decode_s:.3f} s ({1e3 * decode_s / (SERVE_NEW - 1):.3f} ms per "
+          f"step of {SERVE_BATCH} tokens); {n_tok / wall:.2f} generated "
+          f"tokens/s end to end, {SERVE_BATCH * (SERVE_NEW - 1) / decode_s:.2f}"
+          f" tokens/s in decode, "
+          f"{SERVE_BATCH * SERVE_PROMPT / seen['prefill_s']:.1f} prompt "
+          f"tokens/s in prefill; peak device memory {peak} bytes")
+    per_prefill = {**NO_LAUNCHES, "flash_attention": cfg.n_layers,
+                   "selective_scan": cfg.n_layers}
+    check_counts(seen["prefill_launches"], per_prefill, "the prefill")
+    for i, d in enumerate(seen["decode_launches"]):
+        if any(d.values()):
+            raise AssertionError(f"decode step {i} launched kernels: {d}")
+    print(f"{len(seen['decode_launches'])} decode steps launched no kernel "
+          "of the port")
+    check_counts(launches, per_prefill, "the serving run")
+
+    # row 0 must give the golden's tokens, up to a near tie of the golden
+    want = golden["tokens"]
+    for i, (got, ref) in enumerate(zip(toks[0].tolist(), want)):
+        if got != ref:
+            margin = golden["steps"][i]["margin"]
+            print(f"row 0 leaves the golden at token {i} (margin {margin})")
+            if margin > 2 * LOGIT_TOL:
+                raise AssertionError(f"row 0 token {i}: {got} != {ref} at a "
+                                     f"clear margin {margin}")
+            break
+    else:
+        print(f"row 0's first {len(want)} tokens equal the golden's")
+
+    # where a prefill's time goes, and the device's busy share in a
+    # prefill and in decode steps, from the profiler
+    per_launch = {}
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        rows, busy_s, wall = _profile(lambda: prefill_fn(sess.params, toks,
+                                                         cfg))
+        if not rows:
+            print("profiler: device time not measured (no device events)")
+            return {"launches": launches, "per_launch": per_launch}
+        print(f"profiler, one prefill of {SERVE_BATCH} x {SERVE_PROMPT}: "
+              f"wall {wall:.4f} s, device busy {busy_s:.4f} s, idle share "
+              f"{100 * (1 - busy_s / wall):.1f}%")
+        kinds = {}
+        for dev_us, count, key in rows:
+            kind = _kind(key)
+            kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e6
+            if kind in ("flash_attention", "selective_scan"):
+                per_launch[kind] = dev_us / count / 1e3
+                print(f"  {kind}: {dev_us / count / 1e3:.6f} ms per launch "
+                      f"on the main path ({count} launches)")
+        print("prefill device time by kind: " + ", ".join(
+            f"{k} {v:.4f} s ({100 * v / busy_s:.1f}%)"
+            for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+        for dev_us, count, key in rows[:12]:
+            print(f"  {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
+        _, cache = prefill_fn(sess.params, toks, cfg)
+        tok = toks[:, -1:]
+        n_dec = 4
+        rows, busy_s, wall = _profile(lambda: [
+            decode_fn(sess.params, cache, tok, SERVE_PROMPT + i, cfg)
+            for i in range(n_dec)])
+        n_ops = sum(r[1] for r in rows) / n_dec
+        print(f"profiler, {n_dec} decode steps: wall {1e3 * wall / n_dec:.3f}"
+              f" ms per step, device busy {1e3 * busy_s / n_dec:.3f} ms per "
+              f"step in {n_ops:.0f} device operations, idle share "
+              f"{100 * (1 - busy_s / wall):.1f}%")
+    return {"launches": launches, "per_launch": per_launch}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -742,10 +1165,30 @@ def main() -> int:
     for k, n in run_all2all(points, squarings).items():
         launches[k] += n
 
+    # the LM serving slice: Hymba-1.5B at full width
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.model import build_specs
+    cfg = get_config("hymba-1.5b")
+    records.update(run_lm_kernels(cfg))
+    t0 = time.perf_counter()
+    params = init_params(build_specs(cfg), 0, "cuda")
+    torch.cuda.synchronize()
+    print(f"hymba-1.5b weights from the seeded numpy synthesis: "
+          f"{cfg.param_count()} parameters on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    run_hymba_golden(cfg, params)
+    serving = run_serving(cfg, params)
+    phase()
+    for k in ("flash_attention", "selective_scan"):
+        launches[k] += serving["launches"][k]
+    per_launch.update(serving["per_launch"])
+
     # a kernel's time is its device time per launch on the main path where
-    # the profiler saw it; else the back-to-back launch time of phase 3
-    # (an upper bound: Python launches no faster than a few microseconds).
-    # Launches are summed over the main-path runs of phases 5 and 8.
+    # the profiler saw it, else the back-to-back launch time of phase 3 or
+    # 9 (an upper bound: Python launches no faster than a few
+    # microseconds).  Launches are summed over the main-path runs of
+    # phases 5, 8 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])
@@ -753,12 +1196,13 @@ def main() -> int:
             "replaces": KERNELS[k][1], "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None}
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms")}
            for k, rec in records.items()]
     print("\nkernels: " + "; ".join(
-        f"{r['name']} launches {r['launches']} bitwise "
-        f"{'ok' if r['max_abs_err'] == 0 else 'FAILED'} {r['ms']:.6f} ms "
-        f"(bound {r['bound_ms']:.6f} ms)" for r in out))
+        f"{r['name']} launches {r['launches']} max_abs_err "
+        f"{r['max_abs_err']!r} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} "
+        f"ms)" for r in out))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

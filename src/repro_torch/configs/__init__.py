@@ -1,0 +1,48 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig.
+
+Only the architectures the port runs are registered; every other arch of
+the reference's registry raises and names the ROADMAP item that ports it.
+``reduced(cfg)`` gives the reference's tiny config of the same family for
+CPU tests (few layers, narrow width, tiny vocab).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..models.model import ModelConfig
+from . import hymba_1_5b
+
+REGISTRY: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (hymba_1_5b,)}
+
+ARCHS = tuple(REGISTRY)
+
+# archs of the reference's registry that the port does not run yet
+_NOT_PORTED = ("nemotron-4-15b", "qwen3-1.7b", "starcoder2-15b",
+               "command-r-plus-104b", "qwen3-moe-235b-a22b",
+               "deepseek-v3-671b", "llama-3.2-vision-90b",
+               "seamless-m4t-medium", "falcon-mamba-7b")
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP queue 1 item 13); "
+            f"the port runs {sorted(REGISTRY)}")
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """The reference's ``reduced`` of a hybrid: 4 layers, width 128, GQA
+    5 heads on 1 of dim 16, a 32-key window with full attention in layers
+    0 and 3, vocab 512."""
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-smoke", n_layers=4, d_model=128, n_heads=5,
+        n_kv_heads=1, head_dim=16, d_ff=256, vocab=512,
+        sliding_window=32 if cfg.sliding_window else None,
+        full_attn_layers=(0, 3) if cfg.full_attn_layers else ())
+
+
+__all__ = ["REGISTRY", "ARCHS", "get_config", "reduced"]

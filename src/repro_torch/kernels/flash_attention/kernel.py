@@ -1,0 +1,87 @@
+"""ctypes wrapper of the CUDA kernel in ``csrc/flash_attention.cu``.
+
+The wrapper checks device, dtype, shape, alignment and contiguity,
+allocates the output with ``torch.empty``, launches on the current CUDA
+stream of the inputs' device and raises if the launch was refused.  It
+does not synchronise.  It adds one to its launch count where it
+launches, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .ref import check_shapes
+
+__all__ = ["flash_attention", "launch_counts", "reset_launch_counts",
+           "HEAD_DIMS"]
+
+_launches = {"flash_attention": 0}
+
+HEAD_DIMS = (16, 64)     # the kernel's instantiations: Hymba, reduced Hymba
+_MAX_GRID_YZ = 65535
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches since the last reset}``."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = [
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+        lib.flash_attention_launch.restype = _I
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """CUDA causal flash attention forward: bf16 q [B,Sq,H,D], k, v
+    [B,Skv,Hkv,D] -> bf16 [B,Sq,H,D] (see ``ref.flash_attention_ref``)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected "
+                            "torch.bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    check_shapes(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
+        raise ValueError(f"B={B} or H={H} exceeds the kernel's grid")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, Sq, Skv, H, Hkv, D, -1 if window is None else window,
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed with CUDA error "
+                           f"{err}")
+    _launches["flash_attention"] += 1
+    return o

@@ -1,0 +1,152 @@
+"""Plain PyTorch version of the flash-attention forward kernel.
+
+``flash_attention_ref`` computes what the hand-written kernel in
+``csrc/flash_attention.cu`` computes, in the kernel's order: keys in tiles
+of ``BLOCK_K`` = 64, ``s = (q·kᵀ) * scale`` in float32 (bf16 products are
+exact), a running max ``m`` and sum ``l`` in float32, ``p = exp(s - m)``
+rounded to the values' dtype before ``p·v``, and ``acc / max(l, 1e-30)``
+at the end.  This is the reference's Pallas kernel
+(``repro/kernels/flash_attention/kernel.py``) with a sliding window
+added, for causal attention: the mask keeps ``kpos <= qpos`` and, with a
+window, ``kpos > qpos - (window + 1)``, so a query sees ``window + 1``
+keys (the reference's ``attention_core`` and ``attention_ref``).  Queries
+sit at the end of the keys: query ``i`` is at position ``i + Skv - Sq``.
+
+The kernel skips key tiles that are masked for a whole tile of queries;
+this version does not, and gets the same numbers: a masked entry adds
+``exp(NEG - m) = 0`` once a row has met a live key, and the ``1``\\ s that
+``exp(NEG - NEG)`` leaves in a row that has not are cleared by the next
+tile's ``alpha = exp(NEG - m) = 0``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+__all__ = ["NEG", "BLOCK_K", "MAX_DIFF_SHARE", "check_shapes",
+           "flash_attention_ref", "live_pairs", "max_weight",
+           "compare_bf16"]
+
+NEG = -1e30
+BLOCK_K = 64        # keys per tile (the CUDA kernel's)
+# share of bf16 outputs that may differ at all between the kernel and this
+# version: rare one-ulp flips (about 0.03 % measured on an H100 at
+# Hymba's prefill shapes, chip_smoke.py phase 9), while a key dropped from
+# or added to every row flips most outputs
+MAX_DIFF_SHARE = 1e-3
+
+
+def check_shapes(q, k, v) -> None:
+    """Raise on shapes the kernel and this version do not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q [B,Sq,H,D] and k, v [B,Skv,Hkv,D] of "
+                         f"one shape, got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not match k "
+                         f"{tuple(k.shape)} (H must be a multiple of Hkv)")
+    if Sq > k.shape[1]:
+        raise ValueError(f"causal attention needs Sq <= Skv (every query "
+                         f"has a key), got Sq={Sq}, Skv={k.shape[1]}")
+
+
+def _mask(sq: int, skv: int, window: Optional[int], device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - (window + 1)
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention.  q: [B,Sq,H,D]; k, v: [B,Skv,Hkv,D]; returns
+    [B,Sq,H,D] in q's dtype.  Query head ``h`` reads key head
+    ``h // (H // Hkv)``."""
+    check_shapes(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qf = q.float().transpose(1, 2)                              # [B,H,Sq,D]
+    kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)  # [B,H,Skv,D]
+    vr = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    live = _mask(Sq, Skv, window, dev)
+    m = torch.full((B, H, Sq), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    for k0 in range(0, Skv, BLOCK_K):
+        kb, vb = kf[:, :, k0:k0 + BLOCK_K], vr[:, :, k0:k0 + BLOCK_K]
+        s = (qf @ kb.transpose(-1, -2)) * scale                 # [B,H,Sq,bk]
+        s = torch.where(live[:, k0:k0 + BLOCK_K], s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.to(v.dtype).float() @ vb.float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def live_pairs(sq: int, skv: int, window: Optional[int] = None) -> int:
+    """(query, key) pairs the causal mask keeps, per batch row and head."""
+    qpos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    hi = qpos + 1
+    lo = torch.clamp(qpos - window, min=0) if window is not None else \
+        torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def max_weight(q: torch.Tensor, k: torch.Tensor,
+               window: Optional[int] = None) -> torch.Tensor:
+    """The largest softmax weight of each query row, ``[B,Sq,H]`` float32:
+    ``1 / sum exp(s - max s)`` over the row's live keys.  One batch row and
+    one key head at a time, so the scores take ``[H/Hkv, Sq, Skv]``."""
+    check_shapes(q, k, k)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    live = _mask(Sq, Skv, window, q.device)
+    out = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for j in range(Hkv):
+            qs = q[b, :, j * g:(j + 1) * g].float().transpose(0, 1)
+            s = (qs @ k[b, :, j].float().T) * (1.0 / math.sqrt(D))
+            s = s.masked_fill(~live, -math.inf)
+            out[b, j * g:(j + 1) * g] = torch.exp(
+                s.amax(-1) - torch.logsumexp(s, -1))
+    return out.transpose(1, 2)
+
+
+def compare_bf16(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int] = None) -> dict:
+    """Hold a bf16 kernel output ``got`` to this version's ``want`` on the
+    same inputs, element by element.
+
+    The two sum in float32 in other orders, which moves two things:
+    the output's own bf16 rounding (one ulp, at most ``2^-7 |want|``) and,
+    rarely, the bf16 rounding of one ``p`` before ``p·v``, which moves the
+    row's outputs by one ulp of that ``p`` times its value, at most
+    ``2^-7 * max_weight(row) * max|v|``.  Each element is held to the sum
+    of the two, and at most ``MAX_DIFF_SHARE`` of the outputs (and never
+    fewer than two query rows' worth, ``2 D``) may differ at all.
+    Returns ``max_abs_err``, ``worst`` (the largest error over its
+    element's bound), ``n_diff``, ``n_allowed`` and ``ok``."""
+    w = max_weight(q, k, window)[..., None]
+    want_f, got_f = want.float(), got.float()
+    err = (got_f - want_f).abs()
+    bound = 2 ** -7 * (want_f.abs() + w * float(v.float().abs().max()))
+    ratio = torch.where(err > 0, err / bound, torch.zeros_like(err))
+    worst = float(ratio.max()) if err.numel() else 0.0
+    n_diff = int((got != want).sum())
+    n_allowed = max(int(MAX_DIFF_SHARE * got.numel()), 2 * got.shape[-1])
+    return dict(max_abs_err=float(err.max()) if err.numel() else 0.0,
+                worst=worst, n_diff=n_diff, n_allowed=n_allowed,
+                ok=worst <= 1.0 and n_diff <= n_allowed)

@@ -1,0 +1,160 @@
+"""The port's selective scan against the reference's.
+
+``selective_scan_ref`` (the plain version of the CUDA kernel) is held to
+the reference's Pallas kernel run in interpret mode and to its
+sequential jnp oracle ``selective_scan_ref``, and the port's
+``ssm_prefill`` (one scan over the prompt) to the reference's
+``ssm_prefill`` (chunks of ``lax.associative_scan``) at a length that is
+not a multiple of the chunk.  Tolerances, with reasons:
+
+* the scans: all float32, the same recurrence; the sum over the state
+  runs in another order and ``exp`` is another implementation, so
+  values agree to 1e-5 relative and absolute (the reference's own
+  kernel test uses the same);
+* ``ssm_prefill``: the bf16 projections and the conv may round one ulp
+  apart, so the bf16 output agrees to 2^-7 of its largest value and
+  the float32 state to 1e-3 of its largest value; the conv state, taken
+  straight from the bf16 input projection, to 2^-7 of its largest value.
+
+The CUDA kernel against its plain version runs only on a host with a
+card (marked ``gpu``), where it should be bitwise equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.kernels.selective_scan.kernel import selective_scan as jax_scan
+from repro.kernels.selective_scan.ref import selective_scan_ref as jax_ref
+from repro.models.common import init_params as jax_init_params
+from repro.models.model import build_specs as jax_build_specs
+from repro.models.ssm import ssm_prefill as jax_ssm_prefill
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels.selective_scan import (kernel, selective_scan_op,
+                                                selective_scan_ref, state_sum)
+from repro_torch.models.ssm import ssm_prefill
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread is faster and leaves the
+    other cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(seed, B, T, Di, N):
+    """Seeded float32 u, dt, A, B, C, h0 as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, T, Di)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (B, T, Di)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (Di, N)).astype(np.float32),
+            rng.normal(size=(B, T, N)).astype(np.float32),
+            rng.normal(size=(B, T, N)).astype(np.float32),
+            rng.normal(size=(B, Di, N)).astype(np.float32)]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("B,T,Di,N,bd", [
+    (2, 32, 64, 16, 32),
+    (1, 50, 48, 16, 16),        # ragged T
+    (3, 16, 32, 8, 32),
+])
+def test_plain_matches_pallas_kernel(B, T, Di, N, bd):
+    args = _inputs(B * T + Di, B, T, Di, N)
+    y, h = selective_scan_ref(*map(torch.from_numpy, args))
+    yj, hj = jax_scan(*map(jnp.asarray, args), bd=bd, interpret=True)
+    _close(y, yj, 1e-5)
+    _close(h, hj, 1e-5)
+
+
+@pytest.mark.parametrize("B,T,Di,N", [(2, 40, 24, 16), (1, 7, 5, 4)])
+def test_plain_matches_sequential_oracle(B, T, Di, N):
+    args = _inputs(T + Di, B, T, Di, N)
+    y, h = selective_scan_ref(*map(torch.from_numpy, args))
+    u, dt, A, Bc, Cc, h0 = map(jnp.asarray, args)
+    for i in range(B):
+        yr, hr = jax_ref(u[i], dt[i], A, Bc[i], Cc[i], h0[i])
+        _close(y[i], yr, 1e-5)
+        _close(h[i], hr, 1e-5)
+
+
+@pytest.mark.parametrize("n", [16, 8, 6, 1])
+def test_state_sum_is_the_halving_tree(n):
+    x = torch.from_numpy(np.random.default_rng(n).normal(size=(3, n))
+                         .astype(np.float32))
+    want = x.clone()
+    while want.shape[-1] % 2 == 0 and want.shape[-1] > 1:
+        h = want.shape[-1] // 2
+        want = torch.stack([want[:, i] + want[:, i + h] for i in range(h)],
+                           dim=1)
+    want = want.sum(-1) if want.shape[-1] <= 1 else \
+        want[:, 0] + want[:, 1] + want[:, 2]
+    assert torch.equal(state_sum(x), want)
+
+
+def test_ssm_prefill_matches_the_chunked_reference():
+    """S = 40 with chunks of 16: two full chunks and a padded one."""
+    cfg = reduced(get_config("hymba-1.5b"))
+    jcfg = jax_reduced(jax_get_config("hymba-1.5b"))
+    np_params = jax.device_get(jax_init_params(jax_build_specs(jcfg),
+                                               jax.random.PRNGKey(3)))
+    p = params_from_jax(np_params, cfg, "cpu")["groups"]["h1"]["ssm"]
+    jp = jax.tree.map(lambda a: jnp.asarray(a[0]),
+                      np_params["groups"]["h1"]["ssm"])
+    p = {k: v[0] for k, v in p.items()}
+    S = 40
+    assert S % jcfg.ssm_chunk
+    x = np.random.default_rng(4).normal(size=(2, S, cfg.d_model)) \
+        .astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    want, (wconv, wh) = jax_ssm_prefill(jp, jx, jcfg, jcfg.ssm_chunk)
+    got, (gconv, gh) = ssm_prefill(
+        p, torch.from_numpy(np.array(jx, np.float32)).bfloat16(), cfg)
+    want, wconv, wh = (np.asarray(a, np.float32) for a in (want, wconv, wh))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 ** -7 * np.abs(want).max())
+    np.testing.assert_allclose(gconv.float().numpy(), wconv, rtol=0,
+                               atol=2 ** -7 * np.abs(wconv).max())
+    np.testing.assert_allclose(gh.numpy(), wh, rtol=0,
+                               atol=1e-3 * np.abs(wh).max())
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    args = [torch.from_numpy(a) for a in _inputs(0, 1, 8, 16, 16)]
+    before = kernel.launch_counts()["selective_scan"]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.selective_scan(*args)
+    selective_scan_op(*args)
+    assert kernel.launch_counts()["selective_scan"] == before
+
+
+def test_shapes_the_scan_does_not_take_raise():
+    args = [torch.from_numpy(a) for a in _inputs(0, 1, 8, 16, 16)]
+    args[3] = args[3][:, :4]
+    with pytest.raises(ValueError, match="Bc"):
+        selective_scan_ref(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,Di", [(2, 300, 3200), (1, 77, 50),
+                                    (3, 1, 17)])
+def test_cuda_kernel_matches_plain_version(B, T, Di):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = [torch.from_numpy(a).cuda() for a in _inputs(B + T, B, T, Di, 16)]
+    y, h = kernel.selective_scan(*args)
+    yr, hr = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yr) and torch.equal(h, hr)
