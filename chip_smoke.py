@@ -41,10 +41,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    each Result equals its ``tests/golden/torch_a2a_*.json`` field for
    field, and every kernel launched the expected number of times;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
-   ragged shapes) and ``selective_scan`` (at ``[4, 4096, 3200, 16]`` and
-   ragged shapes) against their plain PyTorch versions at the Hymba
-   serving slice's shapes; kernel, plain and library (SDPA) times with
-   CUDA events, and the bound;
+   ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
+   its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (at
+   ``[4, 4096, 3200, 16]`` and ragged shapes) against their plain PyTorch
+   versions at the Hymba serving slice's shapes; kernel, plain and
+   library (SDPA) times with CUDA events, and the bound;
 10. Hymba golden — the full-width ``hymba-1.5b`` (weights from the seeded
    numpy synthesis), teacher-forced on the prompt and tokens of
    ``tests/golden/torch_hymba_1p5b_s4096.json``: the prefill's and 16
@@ -86,7 +87,6 @@ HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32, outside tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "vc_prearb": ("src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
@@ -135,10 +135,11 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
-    """(least ms, "bytes" or "operations") at the card's peak rates."""
+def bound_ms(n_bytes: int, ops: int):
+    """(least ms, "bytes" or "operations") at the card's memory rate and
+    float32 rate (the attention kernel's bound is its bench module's)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -754,15 +755,6 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 SCAN_TOL = 1e-5
 
 
-def _flash_bound(b, sq, skv, h, hkv, d, window) -> tuple:
-    """q, k, v read once and o written once; 4 d operations per live
-    (query, key) pair, at the bf16 tensor-core rate."""
-    from repro_torch.kernels.flash_attention import live_pairs
-    n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * hkv * d)
-    ops = 4 * d * b * h * live_pairs(sq, skv, window)
-    return bound_ms(n_bytes, ops, BF16_OPS_PER_S)
-
-
 def _scan_bound(b, t, di, n) -> tuple:
     """u, dt, A, B, C, h0 read once, y and h_T written once; 7 float32
     operations per (b, t, channel, state)."""
@@ -776,85 +768,30 @@ def run_lm_kernels(cfg) -> dict:
     prefill launch (flash_attention averaged over the prefill's full and
     windowed layers)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_ref
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.flash_attention.ref import compare_bf16
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import bench as fa_bench
     from repro_torch.kernels.selective_scan import kernel as ss
     from repro_torch.kernels.selective_scan import selective_scan_ref
     phase("9. LM kernels vs plain, on the card")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     B, S = SERVE_BATCH, SERVE_PROMPT
-    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
-        cfg.sliding_window
+    W = cfg.sliding_window
     n_full = len(cfg.full_attn_layers)
     n_win = cfg.n_layers - n_full
 
-    def qkv(b, sq, skv, h, hkv, d):
-        return [torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32).to(torch.bfloat16)
-                for shape in ((b, sq, h, d), (b, skv, hkv, d),
-                              (b, skv, hkv, d))]
-
-    flash = {}
-    errs = []
-    cases = [(B, S, S, H, Hkv, D, None), (B, S, S, H, Hkv, D, W),
-             (1, 1000, 1000, H, Hkv, D, 300), (2, 77, 333, H, Hkv, D, None),
-             (1, 130, 130, 5, 1, 16, 5), (3, 200, 200, 5, 1, 16, 64)]
-    for i, (b, sq, skv, h, hkv, d, win) in enumerate(cases):
-        q, k, v = qkv(b, sq, skv, h, hkv, d)
-        got = fa.flash_attention(q, k, v, window=win)
-        want = flash_attention_ref(q, k, v, window=win)
-        torch.cuda.synchronize()
-        # each element within one bf16 ulp of its own value plus one flip
-        # of one p's rounding in its row, and few elements differing at all
-        # (compare_bf16 gives the reasons)
-        cmp = compare_bf16(got, want, q, k, v, window=win)
-        label = f"[{b},{sq},{skv},{h},{hkv},{d}] window {win}"
-        print(f"flash_attention {label}: max_abs_err {cmp['max_abs_err']!r}"
-              f", worst error {cmp['worst']!r} of its element's bound, "
-              f"{cmp['n_diff']} of {got.numel()} outputs differ (at most "
-              f"{cmp['n_allowed']})")
-        if not cmp["ok"]:
-            raise AssertionError(f"flash_attention differs from its plain "
-                                 f"version at {label}")
-        errs.append(cmp["max_abs_err"])
-        if i >= 2:
-            continue
-        # timings at the slice's shapes; the library call is PyTorch's
-        # fused attention with the window as a boolean mask
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if win is None:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            pos = torch.arange(S, device=dev)
-            mask = (pos[None, :] <= pos[:, None]) & \
-                (pos[None, :] > pos[:, None] - (win + 1))
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        lib_err = float((lib().transpose(1, 2).float() - want.float())
-                        .abs().max())
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=win),
-                     iters=10, warmup=2)
-        plain = cuda_ms(lambda: flash_attention_ref(q, k, v, window=win),
-                        iters=3, warmup=1)
-        lib_ms = cuda_ms(lib, iters=10, warmup=2)
-        bnd, by = _flash_bound(b, sq, skv, h, hkv, d, win)
-        flash[win] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                          bound_ms=bnd, bound_by=by)
-        print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms ({by}, "
-              f"{100 * bnd / ms:.2f}% of the bound); plain {plain:.6f} ms; "
-              f"SDPA {lib_ms:.6f} ms (max_abs_err against the plain "
-              f"version {lib_err!r})")
-        del q, k, v, got, want
-        torch.cuda.empty_cache()
+    # flash_attention: the six cases, their check (compare_bf16) and the
+    # timings of the serving shapes live in the kernel's bench module
+    lib = _build.build_all(["flash_attention"])["flash_attention"]["path"]
+    print(f"SASS of flash_attention_kernel: {fa_bench.sass_counts(lib)}")
+    out = fa_bench.run_cases(cfg, gen, B, S)
+    flash = out["timed"]
     # one prefill launch on average: n_full full layers, n_win windowed
     fa_rec = {key: (n_full * flash[None][key] + n_win * flash[W][key])
               / cfg.n_layers
               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    fa_rec.update(bound_by=flash[W]["bound_by"], max_abs_err=max(errs))
+    fa_rec.update(bound_by=flash[W]["bound_by"],
+                  max_abs_err=out["max_abs_err"])
 
     Di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
     scan_errs, scan = [], {}

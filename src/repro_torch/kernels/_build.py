@@ -4,8 +4,9 @@ Every ``kernels/<family>/csrc/<name>.cu`` compiles with ``nvcc`` into one
 shared library ``build/kernels/<name>-<hash>.so`` at the root of the
 checkout (the directory is git-ignored).  The sources expose plain C
 entry points, so no PyTorch header is compiled and a build takes
-seconds.  The hash covers the source, the flags and the compiler path:
-an unchanged source is loaded again without a rebuild.  Several sources
+seconds.  The hash covers every file in the source's ``csrc/`` (the
+headers it includes too), the flags and the compiler path: unchanged
+sources are loaded again without a rebuild.  Several sources
 compile in parallel, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU-only hosts that run the tests have
@@ -47,14 +48,22 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _target(name: str, src: Path, nvcc: str) -> Path:
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
+def _target(name: str, src: Path, nvcc: str, defines=()) -> Path:
+    """The library built from ``src``: named by a hash of every file in
+    its directory (name and bytes), the flags, the extra ``-D`` defines
+    and the compiler path."""
+    h = hashlib.sha256()
+    for p in sorted(q for q in src.parent.rglob("*") if q.is_file()):
+        h.update(str(p.relative_to(src.parent)).encode() + b"\0")
+        h.update(p.read_bytes())
+    h.update(" ".join((nvcc,) + NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=None) -> dict:
-    """Compile the named sources (default: all) that are not built yet.
+def build_all(names=None, defines=()) -> dict:
+    """Compile the named sources (default: all) that are not built yet,
+    with ``-D`` flags ``defines`` (a build of its own; none for the
+    kernels the port runs).
 
     Returns ``{name: {"path", "seconds", "log"}}``; ``log`` is nvcc's
     output (``-Xptxas -v`` register and shared-memory report), empty and
@@ -68,13 +77,14 @@ def build_all(names=None) -> dict:
     out, running = {}, []
     t0 = time.perf_counter()
     for name in names:
-        target = _target(name, srcs[name], nvcc)
+        target = _target(name, srcs[name], nvcc, defines)
         if target.exists():
             out[name] = {"path": target, "seconds": 0.0, "log": ""}
             continue
         tmp = target.with_suffix(f".tmp{os.getpid()}")
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])],
+            [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+             str(tmp), str(srcs[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, target, tmp, proc))
     for name, target, tmp, proc in running:

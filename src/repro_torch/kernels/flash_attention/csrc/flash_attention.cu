@@ -1,5 +1,5 @@
 // Causal flash attention forward (GQA, sliding window) for Hopper
-// (sm_90a), bound through ctypes.
+// (sm_90a) on the tensor cores, bound through ctypes.
 //
 // Replaces the Pallas kernel flash_attention in
 // src/repro/kernels/flash_attention/kernel.py:73 (pallas_call at :89), and
@@ -12,262 +12,559 @@
 //   a window, j > qpos - (window + 1).
 //
 // Arithmetic, as in the Pallas kernel and the plain version in ../ref.py:
-// s = (q . k) * scale in float32 (bf16 products are exact), masked entries
-// set to NEG = -1e30, a running max m and sum l per row in float32,
-// p = exp(s - m_new) rounded to bf16 before p . v, acc rescaled by
-// alpha = exp(m - m_new), and o = acc / max(l, 1e-30).  Sums run in
-// another order than in the plain version, so a few outputs differ from
-// it by one bf16 rounding.
+// s = (q . k) * scale in float32 (bf16 products are exact; the scale is
+// applied after the sum), masked entries set to NEG = -1e30, a running max
+// m and sum l per row in float32, p = expf(s - m_new) (the accurate expf),
+// l summed from the unrounded p, p rounded to bf16 only as the A operand of
+// p . v, acc rescaled by alpha = expf(m - m_new), and
+// o = acc / max(l, 1e-30) rounded to bf16.  Sums run in another order than
+// in the plain version, so a few outputs differ from it by one bf16
+// rounding.
 //
-// Bound: operations.  A live (query, key) pair costs 4 D operations (q.k
-// and p.v); at the serving slice's shapes (B 4, S 4,096, H 25, Hkv 5,
-// D 64) that is 2.1e11 operations per causal layer against 126 MB of
-// q, k, v and o, far above the card's bf16 operations-per-byte balance.
-// The bound is the tensor cores' bf16 rate.
+// The plain version's s is a float32 matrix product, which sums each
+// q . k as one fmaf chain in d order.  The tensor cores' sum of the same
+// bf16 products differs from it in the last bits (they align the terms of
+// each k16 step and truncate).  That moves no output by itself, but where
+// it moves p's bf16 rounding, or the row max from which every p of the
+// row is taken, outputs move by one bf16 ulp, in far more places than the
+// check against the plain version allows (PERF.md; bench.py
+// --tc-sums-only builds the kernel without what follows).  So the kernel
+// takes the row max, and every p whose rounding is in doubt, from the
+// chain: where a tile may raise a row's max, the s within two bands of the
+// largest; and every p within its band of a bf16 rounding midpoint.  The
+// band bounds the difference of the two sums by
+// kBand * 2^-24 * scale * |q| |k|.  The chains are summed from the
+// swizzled tiles in shared memory, one per lane in each round, the whole
+// warp in step.
 //
-// Design: a simple kernel that is right first; this one uses no tensor
-// cores.  One block of 256 threads owns a tile of 64 queries of one
-// (batch, head) and walks the key tiles of 64 that its queries can see:
-// tiles wholly above the diagonal or wholly left of the window are
-// skipped, and tiles are taken from the right end of the sequence first
-// (the heaviest query tiles start first).  Q (once) and each K tile are
-// staged in shared memory transposed, [d][row], so that a thread reads
-// four rows with one float4; each thread computes a 4 x 4 block of S
-// (rows 4 ty.., columns 4 tx..) with scalar FMAs.  The 16 threads that
-// share a row are one half-warp, so row max and row sum are shuffles and
-// the bf16-rounded P tile goes through shared memory with only a warp
-// barrier before p . v, where each thread accumulates 4 rows x D/16
-// columns in registers.  Loads past the ragged edges read zero and are
-// masked.  Row ownership is fixed for the whole loop, so a row whose
-// first tile is wholly masked (possible with a window) takes
-// exp(NEG - NEG) = 1 there, as the Pallas kernel does, and the next
-// tile's alpha = exp(NEG - m) = 0 clears it.
+// Ceilings at the serving slice's shapes (B 4, S 4,096, H 25, Hkv 5, D 64,
+// one full causal layer; a 2,048-window layer is about 3/4 of it):
+// - tensor cores: 4 D operations per live (query, key) pair, 2.15e11, at
+//   989 TFLOP/s bf16: 0.217 ms.  This is the bound chip_smoke.py reports;
+//   q, k, v and o are 126 MB, 0.04 ms at 3.35 TB/s.
+// - MUFU ex2: one exponential per pair the kernel visits, the live pairs
+//   plus the masked halves of the diagonal tiles, about 8.5e8, at 16 per
+//   clock per SM: about 0.23 ms.
+// - the float32 pipe: scale, mask, max, subtract, the expf's range
+//   reduction, sum and rescale, about 8 operations per pair: about 0.2 ms.
 //
-// Later work: wgmma on bf16 tiles from shared memory, TMA loads of K and
-// V, and a K/V ring that overlaps the loads with the math.
+// Design.  One block is one warpgroup (128 threads) and owns a tile of 64
+// queries of one (batch, head), wgmma's M; blocks take the heaviest query
+// tiles first.  It walks the key tiles of 64 that its queries can see
+// (tiles wholly above the diagonal or wholly left of the window are
+// skipped; kernel.py's key_tiles mirrors the range for the CPU tests).
+// One thread loads Q once, and K and V tile by tile, with TMA into a ring
+// of kStages shared-memory stages, each completed on its own mbarrier;
+// TMA fills the rows past Skv (or Sq) with zeros.  Tiles are swizzled
+// (128-byte rows at D = 64, 32-byte rows at D = 16) as wgmma reads them.
+// S = Q K^T is D/16 wgmma m64n64k16 with both operands in shared memory; it
+// leaves each thread two rows (r and r + 8) of 16 columns each, so the
+// row max and row sum are four-lane shuffles.  The mask is applied only on
+// tiles that hold a masked pair.  P is computed in place in S's registers
+// and, rounded pairwise to bf16x2, is already the register A fragment of
+// O += P V (4 wgmma m64nDk16, V read N-major through the descriptor's
+// transpose bit), so P never goes through shared memory.  O stays in
+// float32 registers.  A stage is refilled after the block's barrier at the
+// end of the tile that used it, so the next tile's loads overlap this
+// tile's math, and the three or four blocks that fit on an SM overlap one
+// block's softmax with another's MMAs.
+//
+// The exact chains cost more than the rest of the softmax (PERF.md): a
+// warp needs a round in most tiles, and a round is a 64-step dependent
+// chain.  Rounds shared by the block, or chains that overlap the next
+// tile's tensor-core work, are left to later work, as are warp
+// specialisation (a producer warp, setmaxnreg), ping-pong of one
+// warpgroup's softmax against another's MMAs, a persistent grid, and
+// sharing each K/V tile across the g = 5 query heads of a KV head.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kBQ = 64;                 // queries per block
+constexpr int kBQ = 64;                 // queries per block (wgmma M)
 constexpr int kBK = 64;                 // keys per tile
-constexpr int kThreads = 256;
-constexpr int kRow = 68;                // row stride of the [d][row] tiles
+constexpr int kThreads = 128;           // one warpgroup
+constexpr int kStages = 2;              // K/V ring depth
+constexpr int kAlign = 1024;            // the 128-byte swizzle's repeat
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kBQ == kBK, "load_transposed stages 64-row tiles of Q and K");
+// |s from the tensor cores - s from the d-order float32 chain| is taken to
+// be at most kBand * 2^-24 * scale * |q| |k| (Euclidean norms of the query
+// and key rows): each sum is within a few of these units of the exact one
+// (the tensor cores truncate the aligned terms of a k16 step, the chain
+// rounds 64 times), and a difference past the band only leaves a p
+// rounded as the tensor cores have it
+constexpr float kBand = 2.f;
+// the ablation that shows what the chains are for: s, the row max and
+// every p from the tensor cores alone (bench.py --tc-sums-only)
+#ifdef FLASH_ATTENTION_TC_SUMS_ONLY
+constexpr bool kExactSums = false;
+#else
+constexpr bool kExactSums = true;
+#endif
+// expf's own rounding, as a share of p, added to the band of a p
+constexpr float kExpSlack = 0x1p-21f;
 
 template <int D>
-struct Smem {
-  static constexpr int kQ = D * kRow;   // q^T [D][kRow]
-  static constexpr int kK = D * kRow;   // k^T [D][kRow]
-  static constexpr int kV = kBK * D;    // v   [kBK][D]
-  static constexpr int kP = kBK * kRow; // p^T [kBK][kRow]
-  static constexpr size_t kBytes =
-      sizeof(float) * static_cast<size_t>(kQ + kK + kV + kP);
+struct Cfg {
+  static_assert(D == 16 || D == 64, "head dims 16 and 64");
+  static constexpr int kRowBytes = 2 * D;              // one bf16 row
+  static constexpr int kTileBytes = kBK * kRowBytes;   // a Q, K or V tile
+  static constexpr uint64_t kLayout =
+      D == 64 ? sm90::kSwizzle128 : sm90::kSwizzle32;
+  static constexpr CUtensorMapSwizzle kMapSwizzle =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  // eight rows of one swizzle atom: the stride between core-matrix groups
+  // along M or N (Q, K) and along K (V)
+  static constexpr uint32_t kSbo = 8 * kRowBytes;
+  static constexpr int kOregs = D / 2;                 // O fragment floats
+  // Q, K[kStages], V[kStages], 1 + 2 kStages mbarriers, then each
+  // stage's largest key norm of each warp's 16 keys
+  static constexpr int kBarOffset = (1 + 2 * kStages) * kTileBytes;
+  static constexpr int kNormOffset = kBarOffset + 8 * (1 + 2 * kStages);
+  static constexpr size_t kBytes = kNormOffset + 4 * kStages * 4 +
+                                   kAlign;             // + alignment slack
 };
 
-__device__ __forceinline__ float bf(const __nv_bfloat16 x) {
-  return __bfloat162float(x);
+// byte offset of the 16-byte chunk c (d = 8 c .. 8 c + 7) of row `row` in
+// a tile that TMA swizzled: the chunk index is XORed with row bits 0-2
+// (128-byte rows) or row bit 2 (32-byte rows)
+template <int D>
+__device__ __forceinline__ int chunk_offset(int row, int c) {
+  const int swz = D == 64 ? (row & 7) : ((row >> 2) & 1);
+  return row * Cfg<D>::kRowBytes + ((c ^ swz) << 4);
 }
 
-// rows [r0, r0 + 64) of one head's rows x (D bf16 each, `row_stride`
-// apart), transposed into dst[d * kRow + r]; rows past `n` read zero.  Thread t loads 8
-// consecutive d of one row: consecutive threads take consecutive rows.
+// sum over d of q[row][d] k[key][d] as one float32 fmaf chain in d order
+// from 0: the sum the plain version's float32 matrix product gives (cuBLAS
+// sums a dot product of 64 or 16 terms this way), from two swizzled tiles
 template <int D>
-__device__ __forceinline__ void load_transposed(
-    float* dst, const __nv_bfloat16* __restrict__ x, int r0, int n,
-    size_t row_stride, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int c = tid; c < kBQ * kChunks; c += kThreads) {
-    const int r = c % kBQ;
-    const int d0 = (c / kBQ) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      raw = *reinterpret_cast<const uint4*>(
-          x + static_cast<size_t>(r0 + r) * row_stride + d0);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+__device__ __forceinline__ float dot_chain(const uint8_t* q, int row,
+                                           const uint8_t* k, int key) {
+  float a = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(d0 + i) * kRow + r] = bf(e[i]);
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 qv =
+        *reinterpret_cast<const uint4*>(q + chunk_offset<D>(row, c));
+    const uint4 kv =
+        *reinterpret_cast<const uint4*>(k + chunk_offset<D>(key, c));
+    const __nv_bfloat16* qe = reinterpret_cast<const __nv_bfloat16*>(&qv);
+    const __nv_bfloat16* ke = reinterpret_cast<const __nv_bfloat16*>(&kv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a = fmaf(__bfloat162float(qe[i]), __bfloat162float(ke[i]), a);
   }
+  return a;
+}
+
+// sum of x[row][d]^2 over the 16-byte chunks c0 .. c0 + n - 1 (a bound: in
+// any order)
+template <int D>
+__device__ __forceinline__ float sum_squares(const uint8_t* x, int row,
+                                             int c0, int n) {
+  float a[2] = {0.f, 0.f};
+  for (int c = c0; c < c0 + n; ++c) {
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(x + chunk_offset<D>(row, c));
+    const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(e[i]);
+      a[0] = fmaf(f.x, f.x, a[0]);
+      a[1] = fmaf(f.y, f.y, a[1]);
+    }
+  }
+  return a[0] + a[1];
+}
+
+// this thread's S register c holds row r + 8 ((c >> 1) & 1), key
+// 8 (c >> 2) + col + (c & 1) of the tile
+template <int D>
+__device__ __forceinline__ float chain_at(const uint8_t* q, const uint8_t* k,
+                                          int r, int col, int c) {
+  return dot_chain<D>(q, r + 8 * ((c >> 1) & 1), k,
+                      8 * (c >> 2) + col + (c & 1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
+flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
                        __nv_bfloat16* __restrict__ o, int sq, int skv,
                        int n_heads, int n_kv_heads, int window,
                        float scale) {
-  constexpr int kDC = D / 16;           // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + Smem<D>::kQ;
-  float* vs = ks + Smem<D>::kK;
-  float* ps = vs + Smem<D>::kV;
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (sm90::smem_addr(smem_raw) + (kAlign - 1)) & ~uint32_t(kAlign - 1);
+  const uint32_t q_tile = base;
+  const uint32_t k_tile0 = base + C::kTileBytes;
+  const uint32_t v_tile0 = k_tile0 + kStages * C::kTileBytes;
+  const uint32_t q_bar = base + C::kBarOffset;
+  const uint32_t k_bar0 = q_bar + 8;
+  const uint32_t v_bar0 = k_bar0 + 8 * kStages;
+  // the same shared memory through generic pointers, for the exact sums
+  uint8_t* const smem = smem_raw + (base - sm90::smem_addr(smem_raw));
+  const uint8_t* q_gen = smem;
+  const uint8_t* k_gen0 = smem + C::kTileBytes;
+  float* k_norm0 = reinterpret_cast<float*>(smem + C::kNormOffset);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;              // S columns 4 tx.., O columns tx + 16 j
-  const int ty = tid / 16;              // rows 4 ty..
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (n_heads / n_kv_heads);
   const int q0 = qt * kBQ;
-  const int off = skv - sq;             // query i sits at position i + off
+  const int off = skv - sq;                   // query i sits at i + off
 
-  const size_t q_stride = static_cast<size_t>(n_heads) * D;
-  const size_t kv_stride = static_cast<size_t>(n_kv_heads) * D;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * sq * q_stride +
-                            static_cast<size_t>(h) * D;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * skv * kv_stride +
-                            static_cast<size_t>(hk) * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * skv * kv_stride +
-                            static_cast<size_t>(hk) * D;
-
-  // key tiles this query tile can see
+  // key tiles this query tile can see (kernel.py: key_tiles)
   const int qp_lo = q0 + off;
   const int qp_hi = min(q0 + kBQ, sq) - 1 + off;
   const int key_hi = min(qp_hi, skv - 1);
   const int key_lo = window >= 0 ? max(qp_lo - window, 0) : 0;
   const int t_lo = key_lo / kBK;
-  const int t_hi = key_hi / kBK;
+  const int n_tiles = key_hi / kBK - t_lo + 1;
 
-  load_transposed<D>(qs, qb, q0, sq, q_stride, tid);
+  auto issue_kv = [&](int i) {              // one thread: tile i's K and V
+    const int s = i % kStages;
+    const int k0 = (t_lo + i) * kBK;
+    sm90::mbar_arrive_expect_tx(k_bar0 + 8 * s, C::kTileBytes);
+    sm90::tma_load_4d(k_tile0 + s * C::kTileBytes, &k_map, k_bar0 + 8 * s, 0,
+                      hk, k0, b);
+    sm90::mbar_arrive_expect_tx(v_bar0 + 8 * s, C::kTileBytes);
+    sm90::tma_load_4d(v_tile0 + s * C::kTileBytes, &v_map, v_bar0 + 8 * s, 0,
+                      hk, k0, b);
+  };
 
-  float m[4], l[4], acc[4][kDC];
-  int qpos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-    qpos[i] = q0 + 4 * ty + i + off;
-#pragma unroll
-    for (int j = 0; j < kDC; ++j) acc[i][j] = 0.f;
+  if (tid == 0) {
+    sm90::tma_prefetch_map(&q_map);
+    sm90::tma_prefetch_map(&k_map);
+    sm90::tma_prefetch_map(&v_map);
+    for (int i = 0; i < 1 + 2 * kStages; ++i) sm90::mbar_init(q_bar + 8 * i);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_arrive_expect_tx(q_bar, C::kTileBytes);
+    sm90::tma_load_4d(q_tile, &q_map, q_bar, 0, h, q0, b);
+    for (int i = 0; i < kStages && i < n_tiles; ++i) issue_kv(i);
   }
 
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                    // the previous tile is consumed
-    load_transposed<D>(ks, kb, k0, skv, kv_stride, tid);
-    for (int c = tid; c < kBK * (D / 8); c += kThreads) {
-      const int r = c / (D / 8);
-      const int d0 = (c % (D / 8)) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (k0 + r < skv)
-        raw = *reinterpret_cast<const uint4*>(
-            vb + static_cast<size_t>(k0 + r) * kv_stride + d0);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  // this thread's rows of the tile: r and r + 8 of its warp's 16
+  const int r = 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);           // + 8 j + e for register 4 j + e
+  const int qpos[2] = {q0 + r + off, q0 + r + 8 + off};
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};
+  float acc[C::kOregs];                     // O, float32
+  float pv[C::kOregs];                      // one tile's P V
+  float s[32];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) vs[r * D + d0 + i] = bf(e[i]);
-    }
-    __syncthreads();
+  for (int i = 0; i < C::kOregs; ++i) acc[i] = pv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
-    // S = Q K^T for this thread's 4 x 4 block
-    float s[4][4];
+  const uint64_t q_desc = sm90::make_desc(q_tile, 0, C::kSbo, C::kLayout);
+  sm90::mbar_wait(q_bar, 0);
+  // the band of s for this thread's rows, short of the key norm
+  float qband[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int half = 0; half < 2; ++half)
+    qband[half] = kBand * 0x1p-24f * scale *
+                  sqrtf(sum_squares<D>(q_gen, r + 8 * half, 0, D / 8));
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int k0 = (t_lo + i) * kBK;
+
+    // S = Q K^T: D/16 steps of k16, 32 bytes along each K-major row
+    const uint64_t k_desc = sm90::make_desc(
+        k_tile0 + st * C::kTileBytes, 0, C::kSbo, C::kLayout);
+    const uint8_t* k_gen = k_gen0 + st * C::kTileBytes;
+    float* k_norm = k_norm0 + 4 * st;
+    sm90::mbar_wait(k_bar0 + 8 * st, parity);
+    sm90::fence_operands(s);
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    sm90::wgmma_commit();
+    // the tile's largest key norm, while the tensor cores work: two
+    // threads a key, then each warp's largest of its 16 keys
+    {
+      float kk2 = sum_squares<D>(k_gen, tid / 2, (tid % 2) * (D / 16),
+                                 D / 16);
+      kk2 += __shfl_xor_sync(kFull, kk2, 1);
+#pragma unroll
+      for (int w = 2; w < 32; w *= 2)
+        kk2 = fmaxf(kk2, __shfl_xor_sync(kFull, kk2, w));
+      if (lane == 0) k_norm[warp] = kk2;
     }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qs[d * kRow + 4 * ty]);
-      const float4 kv = *reinterpret_cast<const float4*>(&ks[d * kRow + 4 * tx]);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float kr[4] = {kv.x, kv.y, kv.z, kv.w};
+    sm90::wgmma_wait_all();
+    sm90::fence_operands(s);
+    __syncthreads();                        // the key norms are written
+    const float kn_max = sqrtf(fmaxf(fmaxf(k_norm[0], k_norm[1]),
+                                     fmaxf(k_norm[2], k_norm[3])));
+
+    // register 4 j + 2 half + e holds row r + 8 half, column 8 j + col + e;
+    // the mask is needed only where a key of the tile is masked for a row
+    if (k0 + kBK - 1 <= qp_lo && (window < 0 || k0 >= qp_hi - window)) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int c = 0; c < 32; ++c) s[c] *= scale;
+    } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
+      for (int c = 0; c < 32; ++c) {
+        const int kp = k0 + 8 * (c / 4) + col + c % 2;
+        const int qp = qpos[(c / 2) % 2];
+        bool live = kp < skv && kp <= qp;
+        if (window >= 0) live = live && kp > qp - (window + 1);
+        s[c] = live ? s[c] * scale : kNeg;
       }
     }
-
-    // mask, online softmax, P^T to shared memory
+    // The row max and p's bf16 rounding must be the plain version's: they
+    // are taken from the d-order chain wherever the tensor cores' s could
+    // decide them otherwise.  Chains are summed in rounds of one per lane,
+    // the whole warp in step, while a lane has one to do.
+    float band[2], mx[2], m_new[2];
+    uint32_t exact = 0;                     // bit c: s[c] is the chain's
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNeg;
+    for (int half = 0; half < 2; ++half) {
+      band[half] = qband[half] * kn_max;
+      mx[half] = kNeg;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + 4 * tx + j;
-        bool live = kp < skv && kp <= qpos[i];
-        if (window >= 0) live = live && kp > qpos[i] - (window + 1);
-        s[i][j] = live ? s[i][j] * scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < 8; ++j)
+        mx[half] = fmaxf(mx[half], fmaxf(s[4 * j + 2 * half],
+                                         s[4 * j + 2 * half + 1]));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFull, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFull, mx[half], 2));
+      // the tile may raise the row max: every s within two bands of the
+      // largest is summed again
+      if (kExactSums && mx[half] + band[half] >= m[half]) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 4 * j + 2 * half + e;
+            if (s[c] != kNeg && s[c] >= mx[half] - 2.f * band[half])
+              exact |= 1u << c;
+          }
+        }
+      }
+    }
+    if (__any_sync(kFull, exact)) {
+      for (uint32_t todo = exact; __any_sync(kFull, todo);
+           todo &= todo - 1) {
+        const int c = todo ? __ffs(todo) - 1 : 0;
+        const float v = chain_at<D>(q_gen, k_gen, r, col, c) * scale;
+#pragma unroll
+        for (int cc = 0; cc < 32; ++cc)
+          if (todo && cc == c) s[cc] = v;
       }
 #pragma unroll
-      for (int w = 8; w >= 1; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
-      const float m_new = fmaxf(m[i], mx);
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = kNeg;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx[half] = fmaxf(mx[half], fmaxf(s[4 * j + 2 * half],
+                                           s[4 * j + 2 * half + 1]));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFull, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(kFull, mx[half], 2));
+      }
+    }
+    // p, and the p within their band of a bf16 rounding midpoint: a p in
+    // [2^e, 2^(e+1)) moves by at most 2^24 (band + kExpSlack) of its ulps
+    // 2^(e-23), so its rounding is in doubt when its low 16 bits are
+    // within that many of 0x8000 (a masked p is 0 and an exact one needs
+    // no second sum, but testing them costs nothing)
+    uint32_t lo[2], width[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      m_new[half] = fmaxf(m[half], mx[half]);
+      const uint32_t t =
+          static_cast<uint32_t>((band[half] + kExpSlack) * 0x1p24f) + 1;
+      lo[half] = 0x8000u - t;
+      width[half] = 2 * t;
+    }
+    uint32_t doubt = 0;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int half = (c >> 1) & 1;
+      const float x = expf(s[c] - m_new[half]);
+      if (kExactSums &&
+          ((__float_as_uint(x) - lo[half]) & 0xffffu) <= width[half])
+        doubt |= 1u << c;
+      s[c] = x;
+    }
+    for (uint32_t todo = doubt; __any_sync(kFull, todo); todo &= todo - 1) {
+      const int c = todo ? __ffs(todo) - 1 : 0;
+      const float x = expf(chain_at<D>(q_gen, k_gen, r, col, c) * scale -
+                           ((c >> 1) & 1 ? m_new[1] : m_new[0]));
+#pragma unroll
+      for (int cc = 0; cc < 32; ++cc)
+        if (todo && cc == c) s[cc] = x;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
       float rs = 0.f;
-      float p[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = expf(s[i][j] - m_new);
-        rs += p[j];
+      for (int j = 0; j < 8; ++j) {
+        rs += s[4 * j + 2 * half];
+        rs += s[4 * j + 2 * half + 1];
       }
-#pragma unroll
-      for (int w = 8; w >= 1; w >>= 1) rs += __shfl_xor_sync(kFull, rs, w);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDC; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(4 * tx + j) * kRow + 4 * ty + i] =
-            __bfloat162float(__float2bfloat16_rn(p[j]));
+      rs += __shfl_xor_sync(kFull, rs, 1);
+      rs += __shfl_xor_sync(kFull, rs, 2);
+      alpha[half] = expf(m[half] - m_new[half]);
+      l[half] = __fadd_rn(__fmul_rn(l[half], alpha[half]), rs);
+      m[half] = m_new[half];
     }
-    // a row's P is written and read by the 16 threads of one half-warp
-    __syncwarp();
 
-    // O += P V for this thread's 4 rows x kDC columns
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(&ps[c * kRow + 4 * ty]);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    // P as bf16x2: S's registers 8 kk .. 8 kk + 7 are the A fragment of
+    // the k16 step over keys 16 kk .. 16 kk + 15
+    uint32_t p[4][4];
 #pragma unroll
-      for (int j = 0; j < kDC; ++j) {
-        const float vv = vs[c * D + tx + 16 * j];
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
-      }
+      for (int a = 0; a < 4; ++a)
+        p[kk][a] = pack_bf16x2(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
     }
-    __syncwarp();
+
+    // pv = P V: 4 steps of k16, 16 rows of V each
+    const uint64_t v_desc = sm90::make_desc(
+        v_tile0 + st * C::kTileBytes, 0, C::kSbo, C::kLayout);
+    sm90::mbar_wait(v_bar0 + 8 * st, parity);
+    sm90::fence_operands(pv);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(p[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t vk = v_desc + ((16 * kk * C::kRowBytes) >> 4);
+      if constexpr (D == 64)
+        sm90::wgmma_m64n64k16_rs_tb(pv, p[kk], vk, kk);
+      else
+        sm90::wgmma_m64n16k16_rs_tb(pv, p[kk], vk, kk);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_operands(pv);
+
+    // acc = acc * alpha + pv, rounded as the plain version rounds it: the
+    // tensor cores' sums truncate, which over a whole row of tiles would
+    // pull acc off by more than one rounding per tile
+#pragma unroll
+    for (int c = 0; c < C::kOregs; ++c)
+      acc[c] = __fadd_rn(__fmul_rn(acc[c], alpha[(c / 2) % 2]), pv[c]);
+
+    // every thread is done with stage st: refill it
+    __syncthreads();
+    if (tid == 0 && i + kStages < n_tiles) issue_kv(i + kStages);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r + 8 * half;
     if (row >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = o + static_cast<size_t>(b) * sq * q_stride +
-                          static_cast<size_t>(row) * q_stride +
+    const float denom = fmaxf(l[half], 1e-30f);
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * sq + row) *
+                                  n_heads * D +
                           static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int j = 0; j < kDC; ++j)
-      orow[tx + 16 * j] = __float2bfloat16_rn(acc[i][j] / denom);
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * half] / denom;
+      const float x1 = acc[4 * j + 2 * half + 1] / denom;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) =
+          __floats2bfloat162_rn(x0, x1);
+    }
   }
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query
+// so that the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D map over x [batch, seq, heads, D] (D innermost) whose box is one
+// head's tile of 64 rows, [64][D], swizzled as wgmma reads it
 template <int D>
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-           const __nv_bfloat16* v, __nv_bfloat16* o, int b, int sq, int skv,
-           int h, int hkv, int window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = Smem<D>::kBytes;
+CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* x,
+                  int batch, int seq, int heads) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = 2ull * D;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {D, 1, kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, Cfg<D>::kMapSwizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// tensor-map failures are returned as kMapError + the CUresult, apart
+// from the CUDA runtime's own error codes
+constexpr int kMapError = 100000;
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o,
+           int b, int sq, int skv, int h, int hkv, int window, float scale,
+           cudaStream_t stream) {
+  static_assert(kBQ == kBK, "one box shape serves Q, K and V");
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kMapError;
+  CUtensorMap q_map, k_map, v_map;
+  CUresult res = make_map<D>(&q_map, encode, q, b, sq, h);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&k_map, encode, k, b, skv, hkv);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&v_map, encode, v, b, skv, hkv);
+  if (res != CUDA_SUCCESS) return kMapError + static_cast<int>(res);
+  constexpr size_t bytes = Cfg<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, sq, skv, h, hkv, window, scale);
+      q_map, k_map, v_map, o, sq, skv, h, hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -276,22 +573,22 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
 extern "C" {
 
 // o = causal attention(q, k, v) on `stream`; window < 0 means none.
-// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
-// head dim without an instantiation (64 for Hymba, 16 for its reduced
-// test config).
+// q, k, v and o are contiguous and 16-byte aligned (TMA's condition; the
+// wrapper checks it).  Returns cudaGetLastError() of the launch,
+// cudaErrorInvalidValue for a head dim without an instantiation (64 for
+// Hymba, 16 for its reduced test config), or 100000 + the CUresult when a
+// tensor map cannot be made (100000 alone: CUDA offers no
+// cuTensorMapEncodeTiled).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int sq, int skv, int h, int hkv,
                            int d, int window, float scale, void* stream) {
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<16>(qq, kk, vv, oo, b, sq, skv, h, hkv, window, scale, s);
+      return launch<16>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
     case 64:
-      return launch<64>(qq, kk, vv, oo, b, sq, skv, h, hkv, window, scale, s);
+      return launch<64>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,10 +1,15 @@
 """ctypes wrapper of the CUDA kernel in ``csrc/flash_attention.cu``.
 
-The wrapper checks device, dtype, shape, alignment and contiguity,
-allocates the output with ``torch.empty``, launches on the current CUDA
-stream of the inputs' device and raises if the launch was refused.  It
-does not synchronise.  It adds one to its launch count where it
-launches, and nowhere else.
+The wrapper checks device, dtype, shape, alignment and contiguity (the
+kernel reads q, k and v with TMA, which takes 16-byte aligned rows and
+strides), allocates the output with ``torch.empty``, launches on the
+current CUDA stream of the inputs' device and raises if the launch was
+refused.  It does not synchronise.  It adds one to its launch count
+where it launches, and nowhere else.
+
+``key_tiles`` mirrors, in plain Python, the key tiles each block of the
+kernel visits and the order of its grid, so that the CPU tests can hold
+the schedule to the mask.
 """
 from __future__ import annotations
 
@@ -15,15 +20,17 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .ref import check_shapes
+from .ref import BLOCK_K, check_shapes
 
 __all__ = ["flash_attention", "launch_counts", "reset_launch_counts",
-           "HEAD_DIMS"]
+           "key_tiles", "HEAD_DIMS", "BLOCK_Q"]
 
 _launches = {"flash_attention": 0}
 
 HEAD_DIMS = (16, 64)     # the kernel's instantiations: Hymba, reduced Hymba
+BLOCK_Q = 64             # queries per block (the kernel's kBQ)
 _MAX_GRID_YZ = 65535
+_MAP_ERROR = 100000      # the kernel's kMapError: a tensor map was refused
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -38,8 +45,32 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
+def key_tiles(sq: int, skv: int, window: Optional[int] = None) -> list:
+    """``[(query tile, first key tile, last key tile)]`` in the order of
+    the kernel's grid (``blockIdx.x``), for one (batch, head): the blocks
+    take the query tiles from the last, the heaviest, to the first, and
+    each walks the key tiles (of ``ref.BLOCK_K``) between the first that
+    holds a key its first query sees and the last that holds a key its
+    last query sees (``flash_attention_kernel``'s ``t_lo`` and
+    ``n_tiles``)."""
+    n_qt = -(-sq // BLOCK_Q)
+    off = skv - sq
+    out = []
+    for x in range(n_qt):
+        qt = n_qt - 1 - x
+        qp_lo = qt * BLOCK_Q + off
+        qp_hi = min((qt + 1) * BLOCK_Q, sq) - 1 + off
+        key_hi = min(qp_hi, skv - 1)
+        key_lo = max(qp_lo - window, 0) if window is not None else 0
+        out.append((qt, key_lo // BLOCK_K, key_hi // BLOCK_K))
+    return out
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+    return _bind(_build.load("flash_attention"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = [
             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
@@ -80,6 +111,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, Sq, Skv, H, Hkv, D, -1 if window is None else window,
         1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _MAP_ERROR:
+        raise RuntimeError(f"flash_attention: CUDA refused a TMA tensor "
+                           f"map (CUresult {err - _MAP_ERROR}; 0: no "
+                           f"cuTensorMapEncodeTiled)")
     if err:
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")

@@ -33,7 +33,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                  flash_attention_ref,
                                                  kernel, live_pairs)
 from repro_torch.kernels.flash_attention import ref as fa_ref
-from repro_torch.kernels.flash_attention.ref import compare_bf16
+from repro_torch.kernels.flash_attention.ref import BLOCK_K, compare_bf16
 
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
@@ -172,6 +172,33 @@ def test_kernel_check_rejects_a_wrong_window(mutation, monkeypatch):
     assert res["ok"] == (mutation is None), res
 
 
+# (Sq, Skv, window) of chip_smoke.py's phase 9 and of the gpu test below
+SCHEDULE_SHAPES = [(4096, 4096, None), (4096, 4096, 2048), (1000, 1000, 300),
+                   (77, 333, None), (130, 130, 5), (200, 200, 64),
+                   (256, 256, None), (256, 256, 100), (77, 77, None),
+                   (150, 150, 5), (50, 130, 20), (100, 100, None)]
+
+
+@pytest.mark.parametrize("sq,skv,window", SCHEDULE_SHAPES)
+def test_key_tile_schedule_covers_the_mask_once(sq, skv, window):
+    """The CUDA kernel's tile schedule (mirrored by ``kernel.key_tiles``):
+    its grid takes the query tiles from the last to the first, the key
+    tiles its blocks visit hold every live (query, key) pair of the mask
+    exactly once, and no visited tile is wholly masked for its query
+    tile."""
+    live = fa_ref._mask(sq, skv, window, "cpu").numpy()
+    seen = np.zeros(live.shape, np.int16)
+    sched = kernel.key_tiles(sq, skv, window)
+    assert [qt for qt, _, _ in sched] == list(range(len(sched)))[::-1]
+    for qt, t_lo, t_hi in sched:
+        rows = slice(qt * kernel.BLOCK_Q, min((qt + 1) * kernel.BLOCK_Q, sq))
+        for t in range(t_lo, t_hi + 1):
+            cols = slice(t * BLOCK_K, min((t + 1) * BLOCK_K, skv))
+            assert live[rows, cols].any(), (qt, t)
+            seen[rows, cols] += 1
+    assert (seen[live] == 1).all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window", [
     (2, 256, 256, 25, 5, 64, None), (2, 256, 256, 25, 5, 64, 100),
@@ -189,3 +216,29 @@ def test_cuda_kernel_matches_plain_version(B, Sq, Skv, H, Hkv, D, window):
     # each element within its own bound, few elements differing at all
     # (compare_bf16 gives the reasons)
     assert compare_bf16(got, want, q, k, v, window)["ok"]
+
+
+def test_bench_cases_are_the_serving_slice_and_the_ragged_shapes():
+    """The on-card driver's cases (``chip_smoke.py`` phase 9 runs the
+    same): Hymba-1.5B's full and windowed layers of 4 x 4,096 tokens
+    first, then ragged and D = 16 shapes that every head dim the kernel
+    is built for covers; each bound is the tensor cores' time for the
+    live pairs, above the time to move q, k, v and o."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import bench
+    cfg = get_config("hymba-1.5b")
+    cases = bench.cases(cfg)
+    assert cases[:2] == [(4, 4096, 4096, 25, 5, 64, None),
+                         (4, 4096, 4096, 25, 5, 64, cfg.sliding_window)]
+    assert len(cases) == 6
+    assert {c[5] for c in cases} == set(kernel.HEAD_DIMS)
+    assert any(c[1] < c[2] for c in cases)
+    full, by = bench.bound_ms(*cases[0])
+    assert by == "operations"
+    assert full == pytest.approx(
+        4 * 64 * 4 * 25 * live_pairs(4096, 4096) / bench.BF16_OPS_PER_S * 1e3)
+    assert bench.bound_ms(*cases[1])[0] < full
+    # the MUFU ceiling counts whole visited tiles: 64 * 65 / 2 of them for
+    # each of the 100 (batch, head) pairs of the causal layer
+    assert bench.ex2_ms(4, 4096, 4096, 25, None) == pytest.approx(
+        100 * 2080 * 64 * 64 / bench.EX2_PER_S * 1e3)
