@@ -16,7 +16,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    adjacency, and on the adjacency of both 104,976-endpoint fabrics
    squared to the fixpoint through the wrapper, each squaring's first,
    middle and last row blocks held against the plain version); kernel
-   time, plain time and the bound, timed with CUDA events;
+   time, plain time and the bound, timed with CUDA events.  The int16
+   ``minplus_hops``: the DPX issue rate that sets its bound
+   (``kernels/minplus/bench.py``'s probe), its ``VIADDMNMX`` count, the
+   bench's ragged and odd cases at "no path" shares 0 to 1 and N = 921,
+   and every product of the Figure-5 and both Figure-6 table builds
+   (``core.routing.hop_distances``), each timed and its first, middle
+   and last row blocks held bitwise against the plain version;
 4. golden   — the polarized, minimal_adaptive and ksp entries of
    ``tests/golden/engine_parity.json`` reproduce exactly on the card;
 5. full width — the paper's Figure-5 MRLS (11,052 endpoints, Polarized,
@@ -30,11 +36,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    slots under ``torch.cuda.set_sync_debug_mode("error")`` to show that
    the step never synchronises with the host;
 7. tables   — the routing tables of the three All2All fabrics built on
-   the card (``minplus`` squarings, mask packing, simulator set-up);
-   for both 104,976-endpoint Figure-6 fabrics the card's distances
-   equal the host BFS, and for the Figure-6 MRLS its mask words equal
-   the host's numpy packing of the first, middle and last leaf blocks,
-   each host step timed;
+   the card (``minplus_hops`` products, mask packing, simulator set-up),
+   with the build's peak device bytes; the card's distances equal the
+   host BFS, the products number what the stopping rule predicts from
+   the BFS's leaf eccentricity, and for the Figure-6 MRLS the mask
+   words equal the host's numpy packing of the first, middle and last
+   leaf blocks, each host step timed;
 8. all2all  — the Figure-5 MRLS and both Figure-6 fabrics (MRLS f1 and
    the 50 %-depopulated Fat-Tree, 104,976 endpoints each) run an
    All2All of 16 rounds to completion through ``repro_torch.api.run``;
@@ -96,6 +103,8 @@ KERNELS = {
         "src/repro/kernels/switch_arb/kernel.py:113"),
     "minplus": ("src/repro_torch/kernels/minplus/csrc/minplus.cu",
                 "src/repro/kernels/minplus/kernel.py:42"),
+    "minplus_hops": ("src/repro_torch/kernels/minplus/csrc/minplus.cu",
+                     "src/repro/kernels/minplus/kernel.py:42"),
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:73"),
@@ -403,6 +412,91 @@ def run_minplus(fig5_nbrs, fabrics: dict) -> dict:
     return dict(max_abs_err=max(errs), **record)
 
 
+def rule_products(ecc: int, n: int, n_rows: int) -> int:
+    """``minplus_hops`` products of a table build whose needed rows (the
+    ``n_rows`` leaves of ``n`` switches) have eccentricity ``ecc``: K
+    squarings with ``ecc < 2**K``, each in two products (the needed rows,
+    rounded up to 8, then the others) but the last, which stops after
+    the needed rows."""
+    squarings = ecc.bit_length()
+    if not squarings:
+        return 0
+    split = min(-(-n_rows // 8) * 8, n)
+    return (1 if split >= n else 2) * (squarings - 1) + 1
+
+
+def run_minplus_hops(topos: dict) -> dict:
+    """The int16 ``minplus_hops`` kernel: DPX issue rate, SASS, bitwise
+    cases, times at N = 921 (the record), and every product of each
+    fabric's table build in ``topos`` through the wrapper the build calls,
+    timed with CUDA events and its first, middle and last row blocks
+    held bitwise against the plain version."""
+    import torch
+    from repro_torch.core.routing import hop_distances
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.minplus import bench, kernel, ref
+    dev = torch.device("cuda")
+    lib_path = _build.build_all(["minplus"])["minplus"]["path"]
+    sass = (bench.sass_counts(lib_path) or {}).get("minplus_hops_kernel")
+    print(f"SASS of minplus_hops_kernel: {sass}")
+    if sass is not None and not sass["VIADDMNMX"]:
+        raise AssertionError("minplus_hops_kernel has no VIADDMNMX")
+    rates = [bench.probe(op) for op in (0, 1)]
+    for r in rates:
+        print(f"DPX probe {r['op']}: {r['per_clock']:.3f} instructions per "
+              f"SM per clock = {r['triples_per_clock']:.3f} (min, +) "
+              f"triples; SM clock {r['sm_clock_ghz']:.4f} GHz")
+    tpc = rates[0]["triples_per_clock"]
+    err = bench.run_cases()
+    rec = bench.time_921(tpc)
+    print(f"minplus_hops N=921: kernel {rec['ms']:.6f} ms per launch (50 "
+          f"launches), bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}, "
+          f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; float32 "
+          f"kernel's bound {rec['fp32_bound_ms']:.6f} ms); plain "
+          f"{rec['plain_ms']:.6f} ms")
+
+    seen = []
+    wrapper = kernel.minplus_hops
+
+    def checked(at, b, out=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        c = wrapper(at, b, out)
+        ev[1].record()
+        torch.cuda.synchronize()
+        m, blk = c.shape[0], 128
+        rows = sorted({0, (m // 2) // blk * blk, max(m - blk, 0)})
+        for lo in rows:
+            if not torch.equal(c[lo:lo + blk],
+                               ref.minplus_hops_ref(at[:, lo:lo + blk], b)):
+                raise AssertionError(f"minplus_hops differs from its plain "
+                                     f"version at rows {lo}:{lo + blk} of "
+                                     f"product {len(seen) + 1}")
+        seen.append((m, b.shape[1], at.shape[0], ev[0].elapsed_time(ev[1]),
+                     [(r, min(r + blk, m)) for r in rows]))
+        return c
+
+    kernel.minplus_hops = checked
+    try:
+        for label, topo in topos.items():
+            seen.clear()
+            _, _, products = hop_distances(topo.nbrs, topo.leaf_ids, dev)
+            torch.cuda.synchronize()
+            for i, (m, n, k, ms, rows) in enumerate(seen):
+                bnd, by = bench.hops_bound_ms(m, n, k, tpc)
+                print(f"minplus_hops {label} product {i + 1} of {products}"
+                      f": [{k},{m}]^T x [{k},{n}] {ms:.6f} ms, bound "
+                      f"{bnd:.6f} ms ({by}, {100 * bnd / ms:.1f}% of it), "
+                      f"float32 kernel's bound "
+                      f"{bench.fp32_bound_ms(m, n, k):.6f} ms; rows {rows} "
+                      "bitwise equal to the plain version")
+            torch.cuda.empty_cache()
+    finally:
+        kernel.minplus_hops = wrapper
+    return dict(max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"])
+
+
 def run_golden():
     import numpy as np
     from repro_torch.core import build_tables, mrls
@@ -465,8 +559,8 @@ def run_full_width(squarings: int) -> dict:
     print("Result equals tests/golden/torch_fig5_mrls_u18.json field for "
           "field")
     # per slot: speedup crossbar rounds each launch both kernels once, and
-    # the link phase launches vc_prearb once more; the table build squares
-    # the adjacency matrix once per minplus launch
+    # the link phase launches vc_prearb once more; the table build runs
+    # one minplus_hops launch per product
     check_counts(launches, expected_counts(exp, slots, squarings),
                  "the Figure-5 uniform run")
     return launches
@@ -475,7 +569,7 @@ def run_full_width(squarings: int) -> dict:
 def expected_counts(exp, slots: int, squarings: int) -> dict:
     speedup = exp.route.speedup
     return {**NO_LAUNCHES, "vc_prearb": (speedup + 1) * slots,
-            "switch_arbitrate": speedup * slots, "minplus": squarings}
+            "switch_arbitrate": speedup * slots, "minplus_hops": squarings}
 
 
 def run_breakdown(tables, exp) -> dict:
@@ -597,7 +691,7 @@ def run_tables(points: dict) -> dict:
     """Routing tables of each All2All fabric built on the card, timed;
     the Figure-6 fabrics' distances against the host BFS, and the
     Figure-6 MRLS's mask words against the host packing.  Returns each
-    point's minplus squarings."""
+    point's minplus_hops products."""
     import numpy as np
     import torch
     from repro_torch.api import build_network
@@ -612,15 +706,18 @@ def run_tables(points: dict) -> dict:
         t_topo = time.perf_counter() - t0
         reset_counts()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         tables = build_tables(topo, device="cuda")
         torch.cuda.synchronize()
         t_tab = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
         sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
         torch.cuda.synchronize()
         t_sim = time.perf_counter() - t0 - t_tab
         check_counts(read_counts(), {**NO_LAUNCHES,
-                                     "minplus": tables.squarings},
+                                     "minplus_hops": tables.squarings},
                      f"the {label} table build")
         squarings[label] = tables.squarings
         t0 = time.perf_counter()
@@ -631,21 +728,29 @@ def run_tables(points: dict) -> dict:
               f"leaves, {topo.n_endpoints} endpoints, P={topo.max_ports}; "
               f"topology {t_topo:.3f} s on the host; set-up on the card "
               f"{t_tab + t_sim:.3f} s = tables {t_tab:.3f} s "
-              f"({tables.squarings} minplus squarings and the int16 leaf "
-              f"rows) + Simulator.__init__ {t_sim:.3f} s; the device mask "
+              f"({tables.squarings} minplus_hops products and the int16 "
+              f"leaf rows; peak device memory {peak} bytes above the "
+              f"{held} held before it) + "
+              f"Simulator.__init__ {t_sim:.3f} s; the device mask "
               f"packing alone, run again: {t_masks:.3f} s for "
               f"{-(-topo.n_leaves // tables.leaf_block)} leaf blocks")
-        if label.startswith("fig6."):
-            t0 = time.perf_counter()
-            bfs = bfs_distances(topo, topo.leaf_ids)
-            t_bfs = time.perf_counter() - t0
-            same = np.array_equal(bfs, tables.dist_leaf.cpu().numpy())
-            print(f"{label}: host BFS of the leaf rows {t_bfs:.3f} s; the "
-                  f"card's dist_leaf {'equals' if same else 'DIFFERS FROM'}"
-                  " it element for element")
-            if not same:
-                raise AssertionError(f"dist_leaf from minplus differs from "
-                                     f"the BFS on {label}")
+        t0 = time.perf_counter()
+        bfs = bfs_distances(topo, topo.leaf_ids)
+        t_bfs = time.perf_counter() - t0
+        same = np.array_equal(bfs, tables.dist_leaf.cpu().numpy())
+        ecc = int(bfs.max())
+        want = rule_products(ecc, topo.n_switches, topo.n_leaves)
+        print(f"{label}: host BFS of the leaf rows {t_bfs:.3f} s; the "
+              f"card's dist_leaf {'equals' if same else 'DIFFERS FROM'}"
+              f" it element for element; leaf eccentricity {ecc}, so the "
+              f"stopping rule takes {want} products (the build took "
+              f"{tables.squarings})")
+        if not same:
+            raise AssertionError(f"dist_leaf from minplus_hops differs from "
+                                 f"the BFS on {label}")
+        if tables.squarings != want:
+            raise AssertionError(f"{label}: {tables.squarings} products, "
+                                 f"the stopping rule predicts {want}")
         if label == "fig6.mrls_f1":
             nbrs = topo.nbrs
             valid = nbrs >= 0
@@ -1083,17 +1188,19 @@ def main() -> int:
     geo = Simulator(tables, SimConfig(), device="cuda")
     shapes = {"N": geo.N, "P": geo.P, "V": geo.V, "R": geo.R_max}
     del geo
-    print(f"Fig-5 shapes: {shapes}; {tables.squarings} minplus squarings "
-          "build its tables")
+    print(f"Fig-5 shapes: {shapes}; {tables.squarings} minplus_hops "
+          "products build its tables")
 
     points = {label: Experiment.from_dict(json.loads(path.read_text())
                                           ["experiment"])
               for label, path in A2A_GOLDENS.items()}
     records = run_kernels(shapes)
+    topos = {label: build_network(p.network) for label, p in points.items()}
     records["minplus"] = run_minplus(
-        tables.topo.nbrs, {label: build_network(p.network).nbrs
-                           for label, p in points.items()
+        tables.topo.nbrs, {label: t.nbrs for label, t in topos.items()
                            if label.startswith("fig6.")})
+    records["minplus_hops"] = run_minplus_hops(topos)
+    del topos
     run_golden()
     launches = run_full_width(tables.squarings)
     per_launch = run_breakdown(tables, exp)

@@ -4,9 +4,12 @@ The port's own copy of the reference's table build: hop distances from
 every leaf, as int16 rows equal to the reference's ``dist_leaf``.  The
 device picks how they are computed.  On the host (no device, or the
 CPU) they come from a BFS over blocks of sources; on the card from
-min-plus powering of the adjacency matrix through the CUDA ``minplus``
-kernel (``repro_torch.kernels.minplus``), which gives the same table and
-leaves it on the card.  The simulator packs its port-mask words from
+min-plus squaring of the int16 hop adjacency through the CUDA
+``minplus_hops`` kernel (:func:`hop_distances`,
+``repro_torch.kernels.minplus``), which gives the same table and leaves
+it on the card.  :func:`minplus_distances` is the float32 form of the
+same powering, the counterpart of the reference's
+``all_pairs_distances``.  The simulator packs its port-mask words from
 these rows on its own device (``simulator.engine.pack_mask_block``);
 :func:`_pack_mask_block` is the reference's numpy packing, kept as the
 host version that the device words are checked against.
@@ -19,13 +22,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.minplus.ops import INF, minplus_op
-from ..kernels.minplus.ref import adjacency_matrix, minplus_powers
+from ..kernels.minplus.ops import INF, minplus_hops_op, minplus_op
+from ..kernels.minplus.ref import (HOPS_INF, HOPS_LIMIT, adjacency_matrix,
+                                   hops_adjacency, minplus_powers,
+                                   padded_hops)
 from .topology import Topology
 
 __all__ = [
     "bfs_distances",
     "minplus_distances",
+    "hop_distances",
     "RoutingTables",
     "build_tables",
 ]
@@ -79,6 +85,86 @@ def minplus_distances(topo: Topology, device, max_pow: int = 16):
                           minplus_op, max_pow=max_pow)
 
 
+# rows of one block of the stopping rule's reduction (bounds its temporaries)
+_FINAL_ROWS = 1024
+
+
+def _rows_final(rows: torch.Tensor, k: int) -> bool:
+    """True when every finite entry (below ``HOPS_INF``) of ``rows`` is
+    below ``2**k``: after ``k`` squarings the rows cover every path of up
+    to ``2**k`` hops, and a shorter-than-``2**k`` maximum means no vertex
+    lies at distance ``2**k``, so no shortest path is longer.  One host
+    sync."""
+    top = [torch.where(blk == HOPS_INF, 0, blk).amax()
+           for blk in rows.split(_FINAL_ROWS) if blk.numel()]
+    return not top or int(torch.stack(top).max()) < 2 ** k
+
+
+def hop_distances(nbrs, leaf_ids, device, *, full: bool = False):
+    """``(dist_leaf, dist_full, products)``: int16 hop distances from each
+    leaf ``[N1, N]`` (and, with ``full``, between all switches ``[N, N]``,
+    else None), -1 where unreachable, on ``device``; ``products`` counts
+    the ``minplus_hops`` products (kernel launches on the card).
+
+    The switches are relabelled leaves first, so the leaf rows of every
+    matrix are its first rows.  From the int16 adjacency ``D_0`` each
+    squaring ``D_{k+1} = D_k (min, +) D_k`` is two products: the rows the
+    tables need (the leaf rows, rounded up to a multiple of 8; every row
+    with ``full``), then the others.  ``D_k`` is symmetric, so the
+    k-major operand of a block of its rows is the block of its columns, a
+    view.  After the needed rows of a squaring, the stopping rule
+    (:func:`_rows_final`) decides: if they are final the build stops and
+    the other rows are never computed.  Raises ``ValueError`` on an
+    adjacency that is not symmetric, or when a distance reaches
+    ``HOPS_LIMIT`` (8,192 hops), past which int16 sums could saturate.
+    """
+    nbrs = np.asarray(nbrs)
+    n = nbrs.shape[0]
+    leaf_ids = np.asarray(leaf_ids, np.int64)
+    perm = np.concatenate([leaf_ids, np.setdiff1d(np.arange(n), leaf_ids)])
+    identity = np.array_equal(perm, np.arange(n))
+    if not identity:
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        nb = nbrs[perm]
+        nbrs = np.where(nb >= 0, inv[np.maximum(nb, 0)], -1)
+    d = hops_adjacency(nbrs, device=device)
+    if not torch.equal(d, d.t()):
+        raise ValueError("the hop adjacency is not symmetric: the table "
+                         "build takes the k-major operand from D's columns "
+                         "and needs every link in both directions")
+    need = n if full else len(leaf_ids)
+    split = min(-(-need // 8) * 8, n)
+    nd = padded_hops(n, n, device=device)
+    products, k = 0, 0
+    done = _rows_final(d[:need], 0)
+    while not done:
+        if 2 ** k >= HOPS_LIMIT:
+            raise ValueError(f"hop distances reach {HOPS_LIMIT} or more: "
+                             "past the int16 table build's range")
+        minplus_hops_op(d[:, :split], d, out=nd[:split])
+        products += 1
+        done = _rows_final(nd[:need], k + 1)
+        if not done and split < n:
+            minplus_hops_op(d[:, split:], d, out=nd[split:])
+            products += 1
+        d, nd = nd, d
+        k += 1
+    del nd
+    if identity:
+        x = d[:need].clone(memory_format=torch.contiguous_format)
+    else:
+        inv_t = torch.as_tensor(inv, device=d.device)
+        x = d[:need][:, inv_t]
+        if full:
+            x = x[inv_t]
+    del d
+    x.masked_fill_(x == HOPS_INF, -1)
+    if not full:
+        return x, None, products
+    return x[torch.as_tensor(leaf_ids, device=x.device)], x, products
+
+
 def _hops_int16(d: torch.Tensor) -> torch.Tensor:
     """float32 min-plus distances -> the BFS's int16 table (-1 where
     unreachable), on the device of ``d``."""
@@ -101,7 +187,7 @@ class RoutingTables:
     leaf_rank: np.ndarray          # [N] rank among leaves or -1
     dist_full: Optional[torch.Tensor] = None   # [N, N] (small nets)
     leaf_block: int = 256          # block height of the mask packing
-    squarings: int = 0             # minplus launches of the build (0: BFS)
+    squarings: int = 0             # minplus_hops products (0: BFS)
 
 
 def _pack_mask_block(dist_block: np.ndarray, nbrs: np.ndarray,
@@ -128,17 +214,16 @@ def build_tables(topo: Topology, full: bool = False, *,
     """Leaf distance tables for ``topo``.
 
     ``device`` picks where the distances are computed and kept: a CUDA
-    device squares the adjacency matrix there (:func:`minplus_distances`)
-    and keeps the int16 rows on the card; no device or the CPU runs
-    :func:`bfs_distances` on the host.  Either way the rows equal the
-    reference's ``dist_leaf`` element for element.
+    device squares the int16 hop adjacency there with the
+    ``minplus_hops`` kernel (:func:`hop_distances`) and keeps the int16
+    rows on the card; no device or the CPU runs :func:`bfs_distances` on
+    the host.  Either way the rows equal the reference's ``dist_leaf``
+    element for element.
     """
     squarings = 0
     if device is not None and torch.device(device).type == "cuda":
-        d, squarings = minplus_distances(topo, torch.device(device))
-        dist_leaf = _hops_int16(d[torch.as_tensor(topo.leaf_ids,
-                                                  device=d.device).long()])
-        dist_full = _hops_int16(d) if full else None
+        dist_leaf, dist_full, squarings = hop_distances(
+            topo.nbrs, topo.leaf_ids, torch.device(device), full=full)
     else:
         dist_leaf = torch.from_numpy(bfs_distances(topo, topo.leaf_ids))
         dist_full = (torch.from_numpy(

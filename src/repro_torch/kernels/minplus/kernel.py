@@ -1,22 +1,27 @@
-"""ctypes wrapper of the CUDA kernel in ``csrc/minplus.cu``.
+"""ctypes wrappers of the CUDA kernels in ``csrc/minplus.cu``: the float32
+product (``minplus``) and the int16 hop-count product on Hopper's DPX
+instructions (``minplus_hops``).
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on the current CUDA stream of the
-inputs' device and raises if the launch was refused.  It does not
-synchronise.  It adds one to its launch count where it launches, and
-nowhere else, so a run can show that it went through the kernel.
+Each wrapper checks device, dtype, shape and layout, allocates the output
+with ``torch.empty`` (or writes the caller's ``out``), launches on the
+current CUDA stream of the inputs' device and raises if the launch was
+refused.  It does not synchronise.  Each adds one to its launch count
+where it launches, and nowhere else, so a run can show that it went
+through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .. import _build
 
-__all__ = ["minplus", "launch_counts", "reset_launch_counts"]
+__all__ = ["minplus", "minplus_hops", "launch_counts",
+           "reset_launch_counts"]
 
-_launches = {"minplus": 0}
+_launches = {"minplus": 0, "minplus_hops": 0}
 
 # rows of C per block (BM in csrc/minplus.cu) and the grid's y-limit
 _BM, _MAX_GRID_Y = 64, 65535
@@ -40,6 +45,13 @@ def _lib() -> ctypes.CDLL:
     if lib.minplus_launch.argtypes is None:
         lib.minplus_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         lib.minplus_launch.restype = _I
+        lib.minplus_hops_launch.argtypes = [_P, _P, _P] + [_I] * 6 + [_P]
+        lib.minplus_hops_launch.restype = _I
+        # the DPX issue-rate probe (csrc/dpx_probe.cuh; run by bench.py)
+        lib.dpx_probe_launch.argtypes = [_I, _P, _P, _P, _I, _I, _P]
+        lib.dpx_probe_launch.restype = _I
+        lib.dpx_probe_occupancy.argtypes = [_I]
+        lib.dpx_probe_occupancy.restype = _I
     return lib
 
 
@@ -75,3 +87,70 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"minplus launch failed with CUDA error {err}")
     _launches["minplus"] += 1
     return c
+
+
+def _check_hops(name: str, t: torch.Tensor) -> None:
+    """The int16 row layout of ``minplus_hops``: 2-D, rows contiguous, a
+    leading dimension of a multiple of 8 entries, 16-byte aligned, and
+    every row readable up to its next multiple of 8 entries (the kernel
+    copies 16-byte chunks)."""
+    if t.dtype != torch.int16:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.int16")
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
+    rows, cols = t.shape
+    if cols > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}'s rows are not contiguous "
+                         f"(strides {t.stride()})")
+    ld = t.stride(0)
+    if ld % 8 or ld < cols:
+        raise ValueError(f"{name}'s leading dimension {ld} is not a "
+                         "multiple of 8 entries at least as wide as a row "
+                         "(see ref.padded_hops)")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+    if rows and cols:
+        end = t.storage_offset() + (rows - 1) * ld + -(-cols // 8) * 8
+        if 2 * end > t.untyped_storage().nbytes():
+            raise ValueError(f"{name}'s last row, padded to a multiple of "
+                             "8 entries, runs past its storage")
+
+
+def minplus_hops(at: torch.Tensor, b: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CUDA ``minplus_hops``: int16 ``at`` [K, M] (A given k-major)
+    (min, +) ``b`` [K, N] -> int16 [M, N], capped at ``HOPS_INF`` (see
+    ``ref.minplus_hops_ref``).  Operands and ``out`` take the layout of
+    ``ref.padded_hops``; without ``out`` the result is such a view."""
+    for name, t in (("at", at), ("b", b)):
+        _check_hops(name, t)
+    (k, m), (k2, n) = at.shape, b.shape
+    if k != k2:
+        raise ValueError(f"inner sizes differ: {tuple(at.shape)}^T x "
+                         f"{tuple(b.shape)}")
+    if at.device.type != "cuda":
+        raise ValueError(f"minplus_hops kernel needs CUDA tensors, got "
+                         f"{at.device}")
+    if out is None:
+        ld = max(8, -(-n // 8) * 8)
+        out = torch.empty((m, ld), dtype=torch.int16,
+                          device=at.device)[:, :n]
+    _check_hops("out", out)
+    if tuple(out.shape) != (m, n):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected "
+                         f"{(m, n)}")
+    for name, t in (("b", b), ("out", out)):
+        if t.device != at.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{at.device}")
+    if m * n == 0:
+        return out
+    err = _lib().minplus_hops_launch(
+        at.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, at.stride(0),
+        b.stride(0), out.stride(0),
+        torch.cuda.current_stream(at.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"minplus_hops launch failed with CUDA error "
+                           f"{err}")
+    _launches["minplus_hops"] += 1
+    return out
