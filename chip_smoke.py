@@ -49,10 +49,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    field, and every kernel launched the expected number of times;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
-   its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (at
-   ``[4, 4096, 3200, 16]`` and ragged shapes) against their plain PyTorch
-   versions at the Hymba serving slice's shapes; kernel, plain and
-   library (SDPA) times with CUDA events, and the bound;
+   its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
+   ``kernels/selective_scan/bench.py``: ``[4, 4096, 3200, 16]``, ragged
+   ``Di`` and ``T`` not a multiple of the kernel's staged run, with its
+   SASS counts and launch plan) against their plain PyTorch versions at
+   the Hymba serving slice's shapes; kernel, plain and library (SDPA)
+   times with CUDA events, and the bound (the scan's: bytes, float32
+   operations or one MUFU ``ex2`` a state-step, whichever is largest);
 10. Hymba golden — the full-width ``hymba-1.5b`` (weights from the seeded
    numpy synthesis), teacher-forced on the prompt and tokens of
    ``tests/golden/torch_hymba_1p5b_s4096.json``: the prefill's and 16
@@ -860,13 +863,6 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
 SCAN_TOL = 1e-5
 
 
-def _scan_bound(b, t, di, n) -> tuple:
-    """u, dt, A, B, C, h0 read once, y and h_T written once; 7 float32
-    operations per (b, t, channel, state)."""
-    n_bytes = 4 * (3 * b * t * di + di * n + 2 * b * t * n + 2 * b * di * n)
-    return bound_ms(n_bytes, 7 * b * t * di * n)
-
-
 def run_lm_kernels(cfg) -> dict:
     """Both LM kernels against their plain versions at the serving slice's
     shapes and at ragged ones; returns each kernel's record for one
@@ -875,6 +871,7 @@ def run_lm_kernels(cfg) -> dict:
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import bench as fa_bench
+    from repro_torch.kernels.selective_scan import bench as ss_bench
     from repro_torch.kernels.selective_scan import kernel as ss
     from repro_torch.kernels.selective_scan import selective_scan_ref
     phase("9. LM kernels vs plain, on the card")
@@ -898,45 +895,38 @@ def run_lm_kernels(cfg) -> dict:
     fa_rec.update(bound_by=flash[W]["bound_by"],
                   max_abs_err=out["max_abs_err"])
 
+    # selective_scan: the cases, the SASS counts and the bound live in the
+    # kernel's bench module
     Di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
-    scan_errs, scan = [], {}
-    for i, (b, t, di, h0_zero) in enumerate(
-            [(B, S, Di, True), (3, 77, 50, False), (1, 1000, 3211, False)]):
-        u = torch.randn((b, t, di), generator=gen, device=dev)
-        dt = torch.rand((b, t, di), generator=gen, device=dev) * 0.099 + 1e-3
-        A = -torch.exp(torch.log(torch.arange(
-            1, N + 1, dtype=torch.float32, device=dev))).expand(di, N)
-        A = A.contiguous()
-        Bc, Cc = (torch.randn((b, t, N), generator=gen, device=dev)
-                  for _ in range(2))
-        h0 = torch.zeros((b, di, N), device=dev) if h0_zero else \
-            torch.randn((b, di, N), generator=gen, device=dev)
-        args = (u, dt, A, Bc, Cc, h0)
-        y, h = ss.selective_scan(*args)
-        yr, hr = selective_scan_ref(*args)
-        torch.cuda.synchronize()
-        err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
-        tol = SCAN_TOL * max(float(yr.abs().max()), float(hr.abs().max()))
-        same = torch.equal(y, yr) and torch.equal(h, hr)
-        label = f"[{b},{t},{di},{N}]"
-        print(f"selective_scan {label}: max_abs_err {err!r} (tolerance "
-              f"{tol!r}), {'bitwise equal' if same else 'NOT bitwise equal'}")
-        if not err <= tol:
+    if (B, S, Di, N) != (*ss_bench.SERVE, ss_bench.STATE):
+        raise AssertionError(f"the scan bench times {ss_bench.SERVE}, the "
+                             f"serving slice is {(B, S, Di)}")
+    lib = _build.build_all(["selective_scan"])["selective_scan"]["path"]
+    print(f"SASS of selective_scan_kernel: {ss_bench.sass_counts(lib)}")
+    print(f"launch plan at [{B},{S},{Di},{N}]: {ss.plan(0, B, Di)}")
+    scan_errs = []
+    results = ss_bench.run_cases(gen, exact=False)
+    for r in results:
+        tol = SCAN_TOL * r["scale"]
+        print(f"  {r['label']}: max_abs_err {r['max_abs_err']!r} within "
+              f"the tolerance {tol!r}: {r['max_abs_err'] <= tol}")
+        if not r["max_abs_err"] <= tol:
             raise AssertionError(f"selective_scan differs from its plain "
-                                 f"version at {label}")
-        scan_errs.append(err)
-        if i == 0:
-            ms = cuda_ms(lambda: ss.selective_scan(*args), iters=10,
-                         warmup=2)
-            plain = cuda_ms(lambda: selective_scan_ref(*args), iters=1,
-                            warmup=1)
-            bnd, by = _scan_bound(b, t, di, N)
-            scan = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                        bound_by=by)
-            print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms "
-                  f"({by}, {100 * bnd / ms:.2f}% of the bound); plain "
-                  f"{plain:.6f} ms; no PyTorch call computes this scan")
-        del args, u, dt, Bc, Cc, h0, y, yr
+                                 f"version at {r['label']}")
+        scan_errs.append(r["max_abs_err"])
+    args = results[0]["args"]
+    ms = cuda_ms(lambda: ss.selective_scan(*args), iters=10, warmup=2)
+    plain = cuda_ms(lambda: selective_scan_ref(*args), iters=1, warmup=1)
+    bnd = ss_bench.scan_bound_ms(B, S, Di, N)
+    scan = dict(ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+    print(f"  [{B},{S},{Di},{N}]: kernel {ms:.6f} ms per launch, bound "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['limit']}; bytes "
+          f"{bnd['bytes_ms']:.6f}, float32 {bnd['fp32_ms']:.6f}, MUFU ex2 "
+          f"{bnd['ex2_ms']:.6f} ms), {100 * bnd['bound_ms'] / ms:.2f}% of "
+          f"the bound; plain {plain:.6f} ms; no PyTorch call computes this "
+          "scan")
+    del args, results
     scan["max_abs_err"] = max(scan_errs)
     torch.cuda.empty_cache()
     return {"flash_attention": fa_rec, "selective_scan": scan}

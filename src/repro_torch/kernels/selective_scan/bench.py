@@ -1,0 +1,272 @@
+"""The selective_scan kernel alone on the card: build, check, time.
+
+Run from the root of a checkout on a host with one NVIDIA H100:
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.selective_scan.bench
+
+It builds only this kernel (``_build.build_all(["selective_scan"])``, with
+``nvcc``'s ``-Xptxas -v`` report) and then:
+
+1. counts ``MUFU.EX2``, ``SHFL``, ``LDG``, ``LDGSTS``, ``LDS``, ``STS`` and
+   ``STG`` in each ``selective_scan_kernel<K>`` of the built library
+   (``cuobjdump -sass``), and from them the shuffles a channel-step
+   (each step of a thread takes K ``MUFU.EX2``, one a state, so a
+   channel's 16 states take 16 × SHFL / MUFU.EX2);
+2. prints each variant's launch plan at the serving slice: channels and
+   threads a block, shared bytes, resident blocks an SM (occupancy API),
+   grid and waves;
+3. holds every variant (K = 2, 4, 8 states a thread, planned blocks; and
+   K = 4 with 64-channel blocks) bitwise to ``selective_scan_ref`` on the
+   cases of :func:`cases`: ``chip_smoke.py`` phase 9's, ``Di % 4 != 0``
+   and ``T % CHUNK_STEPS != 0``;
+4. times each variant at ``[4, 4096, 3200, 16]`` by CUDA events beside
+   the bound of :func:`scan_bound_ms`.
+
+It exits with 1 if any variant differs from the plain version in any
+bit.  ``chip_smoke.py`` phase 9 calls :func:`cases`, :func:`run_cases`
+and :func:`scan_bound_ms`, so the cases and the bound live here.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import faulthandler
+import json
+import re
+import subprocess
+import sys
+import time
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..flash_attention.bench import EX2_PER_S, HBM_BYTES_PER_S, cuda_ms
+from ..minplus.bench import FP32_OPS_PER_S, _sass
+from . import kernel
+from .ref import selective_scan_ref
+
+__all__ = ["scan_bound_ms", "cases", "inputs", "run_cases", "sass_counts",
+           "time_variants", "variants", "main"]
+
+SERVE = (4, 4096, 3200)          # Hymba-1.5B's prefill: batch, tokens, Di
+STATE = kernel.STATE
+
+
+def scan_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
+    """The least ms of one scan, the largest of three times: u, dt, A, B,
+    C, h0 read once and y, h_T written once over the memory rate; 7
+    float32 operations per (b, t, channel, state) at 67 TFLOP/s; and one
+    MUFU ``ex2`` (the expf) per (b, t, channel, state) at 16 an SM a
+    clock.  Returns ``{"bytes_ms", "fp32_ms", "ex2_ms", "bound_ms",
+    "bound_by", "limit"}``: ``bound_by`` is "bytes" or "operations",
+    ``limit`` names the term."""
+    elems = b * t * di * n
+    n_bytes = 4 * (3 * b * t * di + di * n + 2 * b * t * n + 2 * b * di * n)
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "float32": 7 * elems / FP32_OPS_PER_S * 1e3,
+             "MUFU ex2": elems / EX2_PER_S * 1e3}
+    limit = max(terms, key=terms.get)
+    return {"bytes_ms": terms["bytes"], "fp32_ms": terms["float32"],
+            "ex2_ms": terms["MUFU ex2"], "bound_ms": terms[limit],
+            "bound_by": "bytes" if limit == "bytes" else "operations",
+            "limit": limit}
+
+
+def cases() -> list:
+    """``[(B, T, Di, h0 zero)]``: the serving slice first (the timed one,
+    Di % 4 == 0, T a multiple of the staged run), then ``chip_smoke.py``
+    phase 9's ragged shapes, then ``T % CHUNK_STEPS != 0`` with
+    ``Di % 4 == 0`` and not, T shorter than one run, and T = 1."""
+    b, t, di = SERVE
+    tc = kernel.CHUNK_STEPS
+    return [(b, t, di, True), (3, 77, 50, False), (1, 1000, 3211, False),
+            (2, tc + 1, 52, False), (2, 3 * tc + 5, 17, False),
+            (3, 5, 130, False), (1, 1, 6, False)]
+
+
+def inputs(gen: torch.Generator, b: int, t: int, di: int, h0_zero: bool):
+    """Seeded float32 (u, dt, A, Bc, Cc, h0) on ``gen``'s device: dt in
+    [0.001, 0.1], A the Mamba initialisation -(1..16)."""
+    dev = gen.device
+    u = torch.randn((b, t, di), generator=gen, device=dev)
+    dt = torch.rand((b, t, di), generator=gen, device=dev) * 0.099 + 1e-3
+    A = -torch.exp(torch.log(torch.arange(
+        1, STATE + 1, dtype=torch.float32, device=dev))).expand(di, STATE)
+    Bc, Cc = (torch.randn((b, t, STATE), generator=gen, device=dev)
+              for _ in range(2))
+    h0 = torch.zeros((b, di, STATE), device=dev) if h0_zero else \
+        torch.randn((b, di, STATE), generator=gen, device=dev)
+    return u, dt, A.contiguous(), Bc, Cc, h0
+
+
+def variants() -> list:
+    """``[(k, channels)]`` the bench holds and times: each K with its
+    planned blocks, then K = 4 with 64-channel blocks (200 blocks on 132
+    SMs at the serving slice: two waves, the second two thirds full)."""
+    return [(k, 0) for k in kernel.VARIANTS] + [(4, 64)]
+
+
+def _label(variant) -> str:
+    if variant is None:
+        return "main path"
+    k, ch = variant
+    return f"K={k}" + (f", {ch} channels a block" if ch else "")
+
+
+def run_cases(gen: torch.Generator, variant_list=(None,),
+              exact: bool = True) -> list:
+    """Every case of :func:`cases` through each of ``variant_list`` (None:
+    the wrapper the main path calls; ``(k, channels)``:
+    ``kernel.selective_scan_variant``) and once through the plain version,
+    on ``gen``'s device.  Raises on the first output that differs from
+    the plain version in any bit when ``exact``.  Returns ``[{"label",
+    "variant", "max_abs_err", "scale", "same", "args"}]`` (``scale``: the
+    plain outputs' largest magnitude; ``args`` only for the first case,
+    the serving slice, for timing)."""
+    out = []
+    for i, (b, t, di, h0_zero) in enumerate(cases()):
+        args = inputs(gen, b, t, di, h0_zero)
+        yr, hr = selective_scan_ref(*args)
+        scale = max(float(yr.abs().max()), float(hr.abs().max()))
+        label = f"[{b},{t},{di},{STATE}]"
+        for v in variant_list:
+            y, h = kernel.selective_scan(*args) if v is None else \
+                kernel.selective_scan_variant(*args, *v)
+            torch.cuda.synchronize()
+            err = max(float((y - yr).abs().max()),
+                      float((h - hr).abs().max()))
+            same = torch.equal(y, yr) and torch.equal(h, hr)
+            verdict = "bitwise equal" if same else "NOT bitwise equal"
+            print(f"selective_scan {label} {_label(v)}: max_abs_err "
+                  f"{err!r}, {verdict}", flush=True)
+            if exact and not same:
+                raise AssertionError(f"selective_scan ({_label(v)}) differs "
+                                     f"from its plain version at {label}")
+            out.append({"label": label, "variant": v, "max_abs_err": err,
+                        "scale": scale, "same": same,
+                        "args": args if i == 0 else None})
+            del y, h
+        del yr, hr
+        if i:
+            del args
+    return out
+
+
+# one SASS instruction: its address comment, a predicate, the opcode with
+# its modifiers
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                   r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
+_COUNTED = ("MUFU.EX2", "SHFL", "LDG", "LDGSTS", "LDS", "STS", "STG")
+
+
+def sass_counts(path) -> Optional[dict]:
+    """``{"selective_scan_kernel<K>": {"MUFU.EX2": n, "SHFL": n, "LDG": n,
+    "LDGSTS": n, "LDS": n, "STS": n, "STG": n, "total": n,
+    "shfl_per_channel_step": x}}`` over the library at ``path``
+    (``cuobjdump -sass``; static counts, each opcode by its name before
+    the first dot, ``MUFU.EX2`` whole); None without ``cuobjdump``."""
+    sass = _sass(path)
+    if sass is None:
+        return None
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        head = func.split("\n", 1)[0]
+        if "selective_scan_kernel" not in head:
+            continue
+        k = re.search(r"selective_scan_kernelILi(\d+)E", head)
+        label = f"selective_scan_kernel<{k.group(1) if k else '?'}>"
+        ops = _INSN.findall(func)
+        base = collections.Counter(op.split(".")[0] for op in ops)
+        rec = {name: (sum(op.startswith("MUFU.EX2") for op in ops)
+                      if name == "MUFU.EX2" else base.get(name, 0))
+               for name in _COUNTED}
+        rec["total"] = len(ops)
+        rec["shfl_per_channel_step"] = (
+            STATE * rec["SHFL"] / rec["MUFU.EX2"] if rec["MUFU.EX2"]
+            else None)
+        out[label] = rec
+    return out
+
+
+def time_variants(args, variant_list, iters: int = 20) -> dict:
+    """Per-launch ms of each ``(k, channels)`` of ``variant_list`` on
+    ``args`` (the kernel's variant entry point on preallocated outputs,
+    back to back, CUDA events) with its launch plan and waves."""
+    u, dt, A, Bc, Cc, h0 = args
+    b, t, di = u.shape
+    y = torch.empty_like(u)
+    h_t = torch.empty_like(h0)
+    lib = kernel._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in (u, dt, A, Bc, Cc, h0, y, h_t)]
+    out = {}
+    for k, ch in variant_list:
+        p = kernel.plan(k, b, di, ch)
+        slots = p["sms"] * p["blocks_per_sm"]
+        waves = p["grid"] / slots
+        busiest = (-(-p["grid"] // p["sms"]) if p["grid"] <= slots else
+                   -(-p["grid"] // slots) * p["blocks_per_sm"]) \
+            * p["threads"] // 32
+
+        def launch():
+            err = lib.selective_scan_launch_variant(*ptrs, b, t, di, k, ch,
+                                                    stream)
+            if err:
+                raise RuntimeError(f"launch failed with CUDA error {err}")
+        ms = cuda_ms(launch, iters=iters, warmup=3)
+        out[_label((k, ch))] = dict(ms=ms, waves=waves,
+                                    busiest_sm_warps=busiest, **p)
+        print(f"{_label((k, ch))}: {ms:.6f} ms per launch; plan {p}, "
+              f"{waves:.3f} waves, the busiest SM holds {busiest} warps "
+              f"({b * di * STATE // k / 32 / p['sms']:.2f} a perfect split)",
+              flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--watchdog", type=float, default=600.0,
+                    help="seconds after which the bench dumps its stack "
+                         "and exits (a kernel that hangs)")
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("selective_scan bench: no CUDA device", file=sys.stderr)
+        return 2
+    faulthandler.dump_traceback_later(opts.watchdog, exit=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"nvidia-smi: {smi.stdout.strip() or 'not available'}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    rec = _build.build_all(["selective_scan"])["selective_scan"]
+    print(f"built {rec['path'].name} in {time.perf_counter() - t0:.2f} s")
+    print(rec["log"].strip())
+    counts = sass_counts(rec["path"])
+    print(f"SASS: {json.dumps(counts)}", flush=True)
+    main_k = kernel.plan(0, *SERVE[::2])["k"]
+    print(f"main path: K = {main_k}")
+    vl = variants()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    try:
+        results = run_cases(gen, [None] + vl)
+    except AssertionError as e:
+        print(f"FAILED: {e}")
+        return 1
+    args = results[0]["args"]
+    bound = scan_bound_ms(*SERVE)
+    print(f"bound at {list(SERVE) + [STATE]}: {bound}")
+    timed = time_variants(args, vl)
+    for label, r in timed.items():
+        print(f"  {label}: {100 * bound['bound_ms'] / r['ms']:.2f}% of the "
+              f"bound")
+    faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({"sass": counts, "bound": bound, "main_k": main_k,
+                      "timed": timed,
+                      "max_abs_err": max(r["max_abs_err"] for r in results)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

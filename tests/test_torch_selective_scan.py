@@ -17,7 +17,11 @@ not a multiple of the chunk.  Tolerances, with reasons:
   straight from the bf16 input projection, to 2^-7 of its largest value.
 
 The CUDA kernel against its plain version runs only on a host with a
-card (marked ``gpu``), where it should be bitwise equal.
+card (marked ``gpu``), where it should be bitwise equal.  Here, without
+a card, the kernel's order of the sum over the state (K states a lane,
+registers first, then xor shuffles) is replayed in torch and held
+bitwise to ``state_sum``, and the bench's bound and SASS counting are
+checked.
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +38,8 @@ from repro.models.model import build_specs as jax_build_specs
 from repro.models.ssm import ssm_prefill as jax_ssm_prefill
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels.selective_scan import (kernel, selective_scan_op,
+from repro_torch.kernels.selective_scan import (bench, kernel,
+                                                selective_scan_op,
                                                 selective_scan_ref, state_sum)
 from repro_torch.models.ssm import ssm_prefill
 
@@ -147,9 +152,130 @@ def test_shapes_the_scan_does_not_take_raise():
         selective_scan_ref(*args)
 
 
+def _lane_tree(v: torch.Tensor, k: int) -> list:
+    """The kernel's sum over the state of ``v`` [..., 16], written out in
+    torch: lane j of a channel's 16 / k lanes holds states j, j + L, ...
+    (L = 16 / k); each lane adds registers w apart (w = k/2, ..., 1:
+    state offsets 8, ..., L), then every lane adds its own value and its
+    partner's at xor offsets L/2, ..., 1 (``__fadd_rn(y,
+    __shfl_xor_sync(y, s))``).  Returns every lane's result."""
+    lanes = 16 // k
+    regs = [[v[..., j + i * lanes] for i in range(k)] for j in range(lanes)]
+    w = k // 2
+    while w >= 1:
+        regs = [[r[i] + r[i + w] for i in range(w)] for r in regs]
+        w //= 2
+    y = [r[0] for r in regs]
+    s = lanes // 2
+    while s >= 1:
+        y = [y[j] + y[j ^ s] for j in range(lanes)]
+        s //= 2
+    return y
+
+
+def _sum_order_inputs(seed: int) -> torch.Tensor:
+    """Seeded float32 [rows, 16] where the order of a sum shows: exact
+    cancellations (v[n + 8] = -v[n] and v[n + 4] = -v[n]), mixed
+    magnitudes, rows of +0 and -0, and plain normals."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(64, 16)).astype(np.float32)
+    x[:8, 8:] = -x[:8, :8]
+    x[8:16, 4:8] = -x[8:16, :4]
+    x[16:24, ::3] *= np.float32(1e7)
+    x[24:32] = rng.choice(np.array([0.0, -0.0], np.float32), size=(8, 16))
+    x[32:40, 1::2] = -0.0
+    x[32:40, ::2] = 0.0
+    x[40:48] = np.float32(1.0)
+    x[40:48, ::5] = np.float32(1e8)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("k", kernel.VARIANTS)
+def test_lane_tree_equals_state_sum_bitwise(k):
+    v = _sum_order_inputs(k)
+    want = state_sum(v).view(torch.int32)
+    for lane, got in enumerate(_lane_tree(v, k)):
+        assert torch.equal(got.view(torch.int32), want), (k, lane)
+    # the inputs tell orders apart: a left-to-right sum differs somewhere
+    seq = v[:, 0].clone()
+    for n in range(1, 16):
+        seq = seq + v[:, n]
+    assert not torch.equal(seq.view(torch.int32), want)
+
+
+def test_scan_bound_terms_at_the_serving_slice():
+    b, t, di, n = 4, 4096, 3200, 16
+    elems = b * t * di * n
+    got = bench.scan_bound_ms(b, t, di, n)
+    n_bytes = 4 * (3 * b * t * di + di * n + 2 * b * t * n + 2 * b * di * n)
+    assert got["bytes_ms"] == pytest.approx(n_bytes / 3.35e12 * 1e3,
+                                            rel=1e-12)
+    assert got["fp32_ms"] == pytest.approx(7 * elems / 67e12 * 1e3,
+                                           rel=1e-12)
+    assert got["ex2_ms"] == pytest.approx(elems / (16 * 132 * 1.98e9) * 1e3,
+                                          rel=1e-12)
+    assert round(got["ex2_ms"], 4) == 0.2006
+    assert round(got["bytes_ms"], 3) == 0.189
+    assert got["bound_ms"] == got["ex2_ms"]
+    assert (got["limit"], got["bound_by"]) == ("MUFU ex2", "operations")
+
+
+def test_bench_cases_cover_the_kernels_edges():
+    """The serving slice first, then Di % 4 != 0, and T % CHUNK_STEPS != 0
+    both with Di % 4 == 0 and not, and T below one staged run."""
+    cs = bench.cases()
+    tc = kernel.CHUNK_STEPS
+    assert cs[0][:3] == bench.SERVE
+    assert any(di % 4 for _, _, di, _ in cs)
+    assert any(t % tc and not di % 4 for _, t, di, _ in cs)
+    assert any(t % tc and di % 4 and t > tc for _, t, di, _ in cs)
+    assert any(t < tc for _, t, _, _ in cs)
+
+
+def test_sass_counts_reads_opcodes_with_modifiers(monkeypatch):
+    sass = """
+        Function : _ZN12_GLOBAL__N_121selective_scan_kernelILi4EEvPKfS2_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R5], desc[UR4][R6.64] ;
+        /*0020*/                   LDS.128 R8, [R9] ;
+        /*0030*/                   MUFU.EX2 R4, R4 ;
+        /*0040*/                   MUFU.EX2 R5, R5 ;
+        /*0050*/                   MUFU.RCP R6, R6 ;
+        /*0060*/                   SHFL.BFLY PT, R3, R2, 0x2, 0x1f ;
+        /*0070*/              @!P0 STS [R1], R3 ;
+        /*0080*/                   STG.E.128 desc[UR4][R2.64], R12 ;
+        /*0090*/                   LDG.E R2, desc[UR4][R2.64] ;
+        Function : _ZN5other_kernelEv
+        /*0000*/                   SHFL.BFLY PT, R3, R2, 0x2, 0x1f ;
+"""
+    monkeypatch.setattr(bench, "_sass", lambda path: sass)
+    got = bench.sass_counts("unused")
+    assert list(got) == ["selective_scan_kernel<4>"]
+    rec = got["selective_scan_kernel<4>"]
+    assert {op: rec[op] for op in ("MUFU.EX2", "SHFL", "LDG", "LDGSTS",
+                                   "LDS", "STS", "STG")} == {
+        "MUFU.EX2": 2, "SHFL": 1, "LDG": 1, "LDGSTS": 1, "LDS": 1, "STS": 1,
+        "STG": 1}
+    assert rec["total"] == 10
+    assert rec["shfl_per_channel_step"] == 8.0
+
+
+def test_variant_wrapper_refuses_cpu_tensors_and_unknown_variants():
+    args = [torch.from_numpy(a) for a in _inputs(0, 1, 8, 16, 16)]
+    before = kernel.launch_counts()["selective_scan"]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.selective_scan_variant(*args, 4)
+    with pytest.raises(ValueError, match="k=3"):
+        kernel.selective_scan_variant(*args, 3)
+    with pytest.raises(ValueError, match="channels=6"):
+        kernel.selective_scan_variant(*args, 4, 6)
+    assert kernel.launch_counts()["selective_scan"] == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,Di", [(2, 300, 3200), (1, 77, 50),
-                                    (3, 1, 17)])
+                                    (3, 1, 17), (1, 1000, 3211),
+                                    (2, kernel.CHUNK_STEPS + 1, 50)])
 def test_cuda_kernel_matches_plain_version(B, T, Di):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
