@@ -12,10 +12,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``nvcc`` (build seconds and the ``-Xptxas -v`` report);
 3. kernels  — each kernel against its plain PyTorch version on the card,
    bitwise, on seeded inputs at the paper's 11k-endpoint shapes and at
-   ragged shapes (``minplus`` also with ``INF`` entries, on the Figure-5
-   adjacency, and on the adjacency of both 104,976-endpoint fabrics
-   squared to the fixpoint through the wrapper, each squaring's first,
-   middle and last row blocks held against the plain version); kernel
+   ragged shapes: the crossbar kernels through
+   ``kernels/switch_arb/bench.py`` (``switch_arbitrate_rows`` with each
+   number of lanes a row on seeded queue states of the golden fabric,
+   the Figure-5 MRLS and the Figure-6 Fat-Tree under the three
+   policies' settings; the dense ``switch_arbitrate``; ``vc_prearb`` with
+   and without its head-packet gather), with their SASS counts, times
+   beside an empty kernel's and bounds (``minplus`` also with ``INF``
+   entries, on the Figure-5 adjacency, and on the adjacency of both
+   104,976-endpoint fabrics squared to the fixpoint through the wrapper,
+   each squaring's first, middle and last row blocks held against the
+   plain version); kernel
    time, plain time and the bound, timed with CUDA events.  The int16
    ``minplus_hops``: the DPX issue rate that sets its bound
    (``kernels/minplus/bench.py``'s probe), its ``VIADDMNMX`` count, the
@@ -102,6 +109,9 @@ KERNELS = {
     "vc_prearb": ("src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
                   "src/repro/kernels/switch_arb/kernel.py:64"),
     "switch_arbitrate": (
+        "src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
+        "src/repro/kernels/switch_arb/kernel.py:113"),
+    "switch_arbitrate_rows": (
         "src/repro_torch/kernels/switch_arb/csrc/switch_arb.cu",
         "src/repro/kernels/switch_arb/kernel.py:113"),
     "minplus": ("src/repro_torch/kernels/minplus/csrc/minplus.cu",
@@ -211,108 +221,35 @@ def run_build():
         print(rec["log"].strip())
 
 
-def _arb_inputs(rng, n, r, p, device):
-    import numpy as np
+def run_kernels(geos: dict) -> dict:
+    """Bitwise kernel-vs-plain checks of the crossbar kernels and their
+    timings at the Figure-5 geometry (``kernels/switch_arb/bench.py``);
+    returns their records."""
     import torch
-
-    def t(a):
-        return torch.as_tensor(a, device=device)
-    return (t(rng.integers(0, 12, (n, r, p), dtype=np.int32)),
-            t(rng.integers(0, 2, (n, r, p), dtype=np.int32)),
-            t(rng.integers(0, 2, (n, r, p), dtype=np.int32)),
-            t(rng.random((n, r, p), dtype=np.float32)),
-            t(rng.integers(0, 2, (n, r), dtype=np.int32)),
-            t(rng.integers(0, 256, (n, r), dtype=np.int32)),
-            t(np.arange(n * r, dtype=np.int32).reshape(n, r)))
-
-
-def _vc_inputs(rng, n, p, v, device):
-    import numpy as np
-    import torch
-    return (torch.as_tensor(rng.integers(0, 3, (n, p, v), dtype=np.int32),
-                            device=device),
-            torch.as_tensor(rng.random((n, p, v), dtype=np.float32),
-                            device=device))
-
-
-def _max_err(a, b) -> int:
-    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
-               for x, y in zip(a, b))
-
-
-def run_kernels(shapes):
-    """Bitwise kernel-vs-plain checks and timings; returns the records."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels.switch_arb import kernel, ref
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.switch_arb import bench, kernel
     phase("3. kernels vs plain, on the card")
-    dev = torch.device("cuda")
-    n, p, v, r = shapes["N"], shapes["P"], shapes["V"], shapes["R"]
-    pen = 8.0
+    lib = _build.build_all(["switch_arb"])["switch_arb"]["path"]
+    print(f"SASS of the crossbar kernels: {bench.sass_counts(lib)}")
+    for g in geos.values():
+        print(f"{g.label}: N={g.n} P={g.p} d={g.d} NR={g.nr}")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs = bench.run_cases(geos, gen)
+    timed = bench.time_point(geos["fig5"], gen)
+    floor = timed["empty kernel, 1 x 256 threads"]
+    print(f"empty kernel: {floor['ms'] * 1e3:.3f} us back to back, "
+          f"{(floor['device_ms'] or 0) * 1e3:.3f} us on the device: the "
+          "floor of these timings")
+    main = bench.rows_label(kernel.ROWS_MAIN_LANES)
     records = {}
-
-    vc_cases = [(n, p, v), (5, 7, 3), (9, 16, 8)]
-    for i, (a, b, c) in enumerate(vc_cases):
-        args = _vc_inputs(np.random.default_rng(100 + i), a, b, c, dev)
-        got, want = kernel.vc_prearb(*args), ref.vc_prearb_ref(*args)
-        torch.cuda.synchronize()
-        err = _max_err(got, want)
-        print(f"vc_prearb [{a},{b},{c}]: max_abs_err {err}")
-        if err:
-            raise AssertionError(f"vc_prearb differs from its plain version "
-                                 f"at [{a},{b},{c}]")
-        if i == 0:
-            # the kernel alone: its C entry point launched back to back on
-            # preallocated outputs; the wrapper adds its checks and
-            # allocations on the host
-            outs = [torch.empty((a, b), dtype=torch.int32, device=dev)
-                    for _ in range(2)]
-            ptrs = [t.data_ptr() for t in (*args, *outs)]
-            stream = torch.cuda.current_stream().cuda_stream
-            lib = kernel._lib()
-            ms = cuda_ms(lambda: lib.vc_prearb_launch(*ptrs, a * b, c,
-                                                      stream))
-            call = cuda_ms(lambda: kernel.vc_prearb(*args))
-            plain = cuda_ms(lambda: ref.vc_prearb_ref(*args))
-            bnd, by = bound_ms(a * b * c * 8 + a * b * 8, a * b * c * 2)
-            records["vc_prearb"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain, bound_ms=bnd,
-                                        bound_by=by)
-            print(f"  [{a},{b},{c}] kernel {ms:.6f} ms (wrapper call "
-                  f"{call:.6f} ms), plain {plain:.6f} ms, bound {bnd:.6f} "
-                  f"ms ({by})")
-
-    arb_cases = [(n, r, p), (5, 9, 7), (3, 300, 290)]
-    for i, (a, b, c) in enumerate(arb_cases):
-        args = _arb_inputs(np.random.default_rng(200 + i), a, b, c, dev)
-        got = kernel.switch_arbitrate(*args, penalty=pen)
-        want = ref.switch_arbitrate_ref(*args, penalty=pen)
-        torch.cuda.synchronize()
-        err = _max_err(got, want)
-        print(f"switch_arbitrate [{a},{b},{c}]: max_abs_err {err}")
-        if err:
-            raise AssertionError(f"switch_arbitrate differs from its plain "
-                                 f"version at [{a},{b},{c}]")
-        if i == 0:
-            outs = [torch.empty(shape, dtype=torch.int32, device=dev)
-                    for shape in ((a, b), (a, b), (a, c))]
-            ptrs = [t.data_ptr() for t in (*args, *outs)]
-            stream = torch.cuda.current_stream().cuda_stream
-            lib = kernel._lib()
-            ms = cuda_ms(lambda: lib.switch_arbitrate_launch(
-                *ptrs, a, b, c, pen, stream))
-            call = cuda_ms(lambda: kernel.switch_arbitrate(*args,
-                                                           penalty=pen))
-            plain = cuda_ms(
-                lambda: ref.switch_arbitrate_ref(*args, penalty=pen))
-            n_bytes = a * b * c * 16 + a * b * 12 + a * b * 8 + a * c * 4
-            bnd, by = bound_ms(n_bytes, a * b * c * 4)
-            records["switch_arbitrate"] = dict(max_abs_err=err, ms=ms,
-                                               plain_ms=plain, bound_ms=bnd,
-                                               bound_by=by)
-            print(f"  [{a},{b},{c}] kernel {ms:.6f} ms (wrapper call "
-                  f"{call:.6f} ms), plain {plain:.6f} ms, bound {bnd:.6f} "
-                  f"ms ({by}, {n_bytes} bytes)")
+    for name, label in (("vc_prearb", "vc_prearb + gather"),
+                        ("switch_arbitrate", "switch_arbitrate (dense)"),
+                        ("switch_arbitrate_rows", main)):
+        t = timed[label]
+        records[name] = dict(max_abs_err=errs[name],
+                             ms=t["device_ms"] or t["ms"],
+                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                             bound_by="bytes")
     return records
 
 
@@ -561,7 +498,8 @@ def run_full_width(squarings: int) -> dict:
                              f"reference: {diff}")
     print("Result equals tests/golden/torch_fig5_mrls_u18.json field for "
           "field")
-    # per slot: speedup crossbar rounds each launch both kernels once, and
+    # per slot: speedup crossbar rounds each launch vc_prearb and
+    # switch_arbitrate_rows once (the dense switch_arbitrate never), and
     # the link phase launches vc_prearb once more; the table build runs
     # one minplus_hops launch per product
     check_counts(launches, expected_counts(exp, slots, squarings),
@@ -572,7 +510,8 @@ def run_full_width(squarings: int) -> dict:
 def expected_counts(exp, slots: int, squarings: int) -> dict:
     speedup = exp.route.speedup
     return {**NO_LAUNCHES, "vc_prearb": (speedup + 1) * slots,
-            "switch_arbitrate": speedup * slots, "minplus_hops": squarings}
+            "switch_arbitrate_rows": speedup * slots,
+            "minplus_hops": squarings}
 
 
 def run_breakdown(tables, exp) -> dict:
@@ -1171,20 +1110,18 @@ def main() -> int:
 
     from repro_torch.api import Experiment, build_network
     from repro_torch.core import build_tables
-    from repro_torch.simulator.engine import Simulator, SimConfig
+    from repro_torch.kernels.switch_arb import bench as arb_bench
     exp = Experiment.from_dict(json.loads(FIG5_GOLDEN.read_text())
                                ["experiment"])
     tables = build_tables(build_network(exp.network), device="cuda")
-    geo = Simulator(tables, SimConfig(), device="cuda")
-    shapes = {"N": geo.N, "P": geo.P, "V": geo.V, "R": geo.R_max}
-    del geo
-    print(f"Fig-5 shapes: {shapes}; {tables.squarings} minplus_hops "
-          "products build its tables")
+    print(f"{tables.squarings} minplus_hops products build the Figure-5 "
+          "tables")
 
     points = {label: Experiment.from_dict(json.loads(path.read_text())
                                           ["experiment"])
               for label, path in A2A_GOLDENS.items()}
-    records = run_kernels(shapes)
+    records = run_kernels({label: arb_bench.geometry(label, "cuda")
+                           for label in arb_bench.GEOMETRIES})
     topos = {label: build_network(p.network) for label, p in points.items()}
     records["minplus"] = run_minplus(
         tables.topo.nbrs, {label: t.nbrs for label, t in topos.items()

@@ -10,9 +10,11 @@ crossbar sub-rounds and the link phase.
 A crossbar sub-round runs the two arbitration steps through
 :mod:`repro_torch.kernels.switch_arb`: on the card they are the
 hand-written CUDA kernels, on the CPU (only when the caller asks for
-``device="cpu"``) their plain PyTorch versions.  The link phase's choice
-of output VC is the same masked argmax as VC pre-arbitration and runs
-through the same kernel.
+``device="cpu"``) their plain PyTorch versions.  ``vc_prearb`` also
+gathers the chosen queue's head packet; ``switch_arbitrate_rows`` reads
+the occupancies from the queue state itself and works on the flat
+requester rows.  The link phase's choice of output VC is the same masked
+argmax as VC pre-arbitration and runs through the same kernel.
 
 Policies: ``polarized``, ``minimal_adaptive``, ``ksp``; traffic:
 ``uniform`` (Bernoulli, measured by ``run_throughput``/``run_latency``)
@@ -47,7 +49,8 @@ import torch
 from .. import prng
 from .._device import resolve_device
 from ..core.routing import RoutingTables
-from ..kernels.switch_arb.ops import switch_arbitrate_flat, vc_prearb
+from ..kernels.switch_arb.ops import (flat_rows_geometry,
+                                      switch_arbitrate_rows, vc_prearb)
 from ..workloads.patterns import check_engine_pattern
 
 __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
@@ -169,7 +172,6 @@ class Simulator:
         self._oq_ids = torch.arange(cfg.out_queue, dtype=_I32, device=dev)
         self._qe_ids = torch.arange(self.QE, dtype=_I32, device=dev)
         self._e = torch.arange(self.S, dtype=_I32, device=dev)
-        self._np_idx = torch.arange(self.N * self.P, dtype=_I32, device=dev)
         # link phase: downstream input queue of every (switch, port, VC)
         # and the port validity mask (ports with no link stay masked)
         nb0 = np.maximum(nbrs, 0).reshape(-1).astype(np.int64)
@@ -218,17 +220,18 @@ class Simulator:
         cur_net = np.repeat(np.arange(N, dtype=np.int32), P)
         cur_ep = leaf_ids[np.arange(S, dtype=np.int32) // d]
         cur = np.concatenate([cur_net, cur_ep])                  # [NR]
-        self.NR = NR = cur.shape[0]
+        self.NR = cur.shape[0]
         self.cur = torch.as_tensor(cur, dtype=_I32, device=dev)
-        # V-major occupancy layout: row (switch * V + vc) holds the [P]
-        # occupancy vector of that switch's output ports for that VC
-        self._dq_perm = torch.as_tensor(
-            ((np.maximum(nbrs, 0) * P + np.maximum(nbr_port, 0))
-             [:, None, :] * V
-             + np.arange(V, dtype=np.int32)[None, :, None]
-             ).reshape(-1).astype(np.int64), device=dev)         # [N*V*P]
-        # dense per-switch requester layout of the arbitration kernel:
-        # row r of switch n is net in-port r (r < P) or NIC slot r - P
+        # the arbitration kernel's geometry: each leaf's first NIC row and
+        # each output port's downstream input queues
+        nic_first, dq_base = flat_rows_geometry(nbrs, nbr_port, leaf_ids, d,
+                                                V)
+        self._nic_first = torch.as_tensor(nic_first, device=dev)
+        self._dq_base = torch.as_tensor(dq_base, device=dev)      # [N*P]
+        # the dense per-switch layout of the TPU kernel's interface
+        # (kernels.switch_arb.ops.switch_arbitrate_flat), off the main
+        # path: row r of switch n is net in-port r (r < P) or NIC slot
+        # r - P
         self.R_max = P + d
         net_rows = cur_net.astype(np.int64) * self.R_max + np.tile(
             np.arange(P, dtype=np.int64), N)
@@ -236,7 +239,6 @@ class Simulator:
                    + np.arange(S, dtype=np.int64) % d)
         self._row_of = torch.as_tensor(np.concatenate([net_rows, ep_rows]),
                                        device=dev)
-        self._lo = torch.arange(NR, dtype=_I32, device=dev)
         # link reversal: input port (n', p') is fed by exactly one output
         # port, so receives invert sends with a gather
         rev = (np.maximum(nbrs, 0) * P + np.maximum(nbr_port, 0))
@@ -373,13 +375,13 @@ class Simulator:
         OQ, NP, pool = self.cfg.out_queue, self.N * self.P, self.pool
         k_vc, k_tie, k_arb = prng.split(key, 3, partitionable=self._pt)
 
-        # ---- VC pre-arbitration: one candidate VC per (switch, in-port) ----
+        # ---- VC pre-arbitration: one candidate VC per (switch, in-port)
+        # and that queue's head packet (-1: no candidate) ----
         vc_rand = prng.uniform(k_vc, (N, P, V), partitionable=self._pt)
-        vc_sel, has_pkt = vc_prearb(st["qlen"].reshape(N, P, V), vc_rand)
+        vc_sel, _has, net_pkt = vc_prearb(st["qlen"].reshape(N, P, V),
+                                          vc_rand, st["qbuf"], st["qhead"])
         vc_sel = vc_sel.reshape(-1)
-        q_idx = self._np_idx * V + vc_sel                          # [N*P]
-        head = st["qbuf"].reshape(-1)[q_idx * Q + st["qhead"][q_idx]]
-        net_pkt = torch.where(has_pkt.reshape(-1) > 0, head, -1)
+        net_pkt = net_pkt.reshape(-1)
 
         # endpoint (NIC) heads
         ep_head = st["eq_buf"].reshape(-1)[self._e * self.QE + st["eq_head"]]
@@ -418,27 +420,18 @@ class Simulator:
             allowed = self._port_bits(self.min_mask, t_lr, cur)
             deroute = torch.zeros_like(allowed)
         next_vc = (hops // 2).clamp(max=V - 1)
-
-        # congestion: local output queue + downstream input queue for the
-        # flight VC; credit = room in the local output queue
-        oq_v = st["oq_len"].reshape(N, P, V).transpose(1, 2).reshape(N * V, P)
-        qd_v = st["qlen"][self._dq_perm].reshape(N * V, P)
-        occ_row = cur * V + next_vc                                # [NR]
-        oq_occ = oq_v[occ_row]                                     # [NR,P]
-        occ = oq_occ + qd_v[occ_row]
-        credit = oq_occ < OQ
         tie = prng.uniform(k_tie, (self.NR, P), partitionable=self._pt)
         rnd = prng.randint(k_arb, (self.NR,), 0, 1 << 8,
                              partitionable=self._pt)
-        mask = allowed & credit
-        if pol == "ksp":        # random walk: score is the tiebreak alone
-            occ = torch.zeros_like(occ)
-            deroute = torch.zeros_like(deroute)
-        # fused score evaluation + segmented output arbitration
-        port, win, seg = switch_arbitrate_flat(
-            occ, deroute.to(_I32), mask.to(_I32), tie, route.to(_I32), rnd,
-            self._lo, penalty=float(self.cfg.deroute_penalty),
-            row_of=self._row_of, n_switches=N, r_max=self.R_max)
+        # one kernel: congestion (local output queue + downstream input
+        # queue for the flight VC), credit (room in the local output
+        # queue), scores, first argmin and the segmented output
+        # arbitration; ksp's random walk scores the tiebreak alone
+        _port, win, seg = switch_arbitrate_rows(
+            tie, allowed, deroute, route, rnd, next_vc, st["oq_len"],
+            st["qlen"], nic_first=self._nic_first, dq_base=self._dq_base,
+            d=self.d_leaf, penalty=float(self.cfg.deroute_penalty),
+            out_queue=OQ, zero_occ=pol == "ksp")
         win = win > 0
 
         # ---- moves: input queue -> output queue ----
@@ -493,14 +486,14 @@ class Simulator:
         nonempty = st["oq_len"].reshape(NP, V) > 0
         cand = nonempty & room & self._valid[:, None]
         rand = prng.uniform(key, (NP, V), partitionable=self._pt)
-        vcs, send = vc_prearb(cand.to(_I32).reshape(N, P, V),
-                              rand.reshape(N, P, V))
+        # and the chosen queue's head packet; a non-sender's -1 clamps to
+        # 0, which nothing reads (it adds 0 hops and is never pushed)
+        vcs, send, head = vc_prearb(cand.to(_I32).reshape(N, P, V),
+                                    rand.reshape(N, P, V), st["oq_buf"],
+                                    st["oq_head"])
         vcs = vcs.reshape(-1)
         send = send.reshape(-1) > 0
-
-        src_q = self._np_idx * V + vcs
-        pkt0 = st["oq_buf"].reshape(-1)[src_q * OQ + st["oq_head"][src_q]
-                                        ].clamp(min=0)
+        pkt0 = head.reshape(-1).clamp(min=0)
 
         # each (switch, port) pops at most one VC; each input port receives
         # from exactly one static upstream output port (link reversal)
