@@ -15,9 +15,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ragged shapes: the crossbar kernels through
    ``kernels/switch_arb/bench.py`` (``switch_arbitrate_rows`` with each
    number of lanes a row on seeded queue states of the golden fabric,
-   the Figure-5 MRLS and the Figure-6 Fat-Tree under the three
-   policies' settings; the dense ``switch_arbitrate``; ``vc_prearb`` with
-   and without its head-packet gather), with their SASS counts, times
+   the Figure-5 MRLS, the Figure-6 Fat-Tree and Figure 7's Dragonfly
+   (P = 23) and Dragonfly+ (P = 32, d = 16) under the three policies'
+   settings; the dense ``switch_arbitrate``; ``vc_prearb`` with and
+   without its head-packet gather, at the Figure-5 and Figure-7
+   shapes), with the shared bytes a block, their SASS counts, times
    beside an empty kernel's and bounds (``minplus`` also with ``INF``
    entries, on the Figure-5 adjacency, and on the adjacency of both
    104,976-endpoint fabrics squared to the fixpoint through the wrapper,
@@ -27,11 +29,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``minplus_hops``: the DPX issue rate that sets its bound
    (``kernels/minplus/bench.py``'s probe), its ``VIADDMNMX`` count, the
    bench's ragged and odd cases at "no path" shares 0 to 1 and N = 921,
-   and every product of the Figure-5 and both Figure-6 table builds
-   (``core.routing.hop_distances``), each timed and its first, middle
-   and last row blocks held bitwise against the plain version;
-4. golden   — the polarized, minimal_adaptive and ksp entries of
-   ``tests/golden/engine_parity.json`` reproduce exactly on the card;
+   and every product of the Figure-5, both Figure-6 and the three
+   Figure-7 table builds (``core.routing.hop_distances``), each timed
+   and its first, middle and last row blocks held bitwise against the
+   plain version;
+4. golden   — all five policies of ``tests/golden/engine_parity.json``
+   (polarized, minimal_adaptive, ksp, ugal, valiant) reproduce exactly
+   on the card;
 5. full width — the paper's Figure-5 MRLS (11,052 endpoints, Polarized,
    uniform load 1.0, 300 + 300 slots) through ``repro_torch.api.run``
    (tables on the card included) equals
@@ -54,6 +58,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
    All2All of 16 rounds to completion through ``repro_torch.api.run``;
    each Result equals its ``tests/golden/torch_a2a_*.json`` field for
    field, and every kernel launched the expected number of times;
+12. Figure 7 — run here, before the LM phases: the Dragonfly
+   ``dragonfly(16, 8, 8)`` and Dragonfly+ ``dragonfly_plus(65, 16, 16,
+   16, 16)`` under ugal and the MRLS ``mrls(1280, 19, 13)`` under
+   Polarized, 16.5k endpoints each: tables on the card as in phase 7,
+   the three All2All runs, the Dragonfly's uniform (300 + 300 slots),
+   rep, rsp and bu (100 + 100) throughput and mice_elephant latency
+   (100 + 100) through ``repro_torch.api.run``, each Result against its
+   ``tests/golden/torch_fig7_*.json`` field for field with its launches,
+   set-up and run seconds, slots/s and peak device bytes; the All2All
+   completion ratio Dragonfly / MRLS; and a Dragonfly slot broken down
+   as in phase 6;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -74,7 +89,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    memory, the kernels' launches (32 + 32 per prefill, none per decode
    step), and where a prefill's time goes from ``torch.profiler``.
 
-Each phase prints its wall seconds.  The last lines are a
+Each phase prints its wall seconds.  The kernels' launches on the main
+paths of phases 5, 8, 12 and 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -83,6 +99,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -99,6 +116,14 @@ A2A_GOLDENS = {
     for label, name in (("fig5.mrls_u18", "fig5_mrls_u18"),
                         ("fig6.mrls_f1", "fig6_mrls_f1"),
                         ("fig6.ft50", "fig6_ft50"))}
+
+# the Figure-7 points of phase 12: the three All2All runs, smallest
+# first, then the Dragonfly's Bernoulli runs
+FIG7_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fig7_{name}.json"
+                for name in ("mrls_u19_pol_a2a", "dfplus_ugal_a2a",
+                             "df_ugal_a2a", "df_ugal_thpt_uniform",
+                             "df_ugal_thpt_rep", "df_ugal_thpt_rsp",
+                             "df_ugal_thpt_bu", "df_ugal_lat_mice_elephant")]
 
 HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
 
@@ -232,7 +257,10 @@ def run_kernels(geos: dict) -> dict:
     lib = _build.build_all(["switch_arb"])["switch_arb"]["path"]
     print(f"SASS of the crossbar kernels: {bench.sass_counts(lib)}")
     for g in geos.values():
-        print(f"{g.label}: N={g.n} P={g.p} d={g.d} NR={g.nr}")
+        shared = kernel._lib().switch_arbitrate_rows_smem(g.p, bench.V, g.d)
+        print(f"{g.label}: N={g.n} P={g.p} d={g.d} NR={g.nr}; "
+              f"switch_arbitrate_rows takes {shared} bytes of shared memory "
+              f"a block (at most {kernel.MAX_DYNAMIC_SHARED_BYTES})")
     gen = torch.Generator(device="cuda").manual_seed(18)
     errs = bench.run_cases(geos, gen)
     timed = bench.time_point(geos["fig5"], gen)
@@ -444,7 +472,8 @@ def run_golden():
     phase("4. golden replay on the card")
     g = json.loads(ENGINE_GOLDEN.read_text())
     tables = build_tables(mrls(**g["fabric"]))
-    for policy in ("polarized", "minimal_adaptive", "ksp"):
+    for policy in ("polarized", "minimal_adaptive", "ksp", "ugal",
+                   "valiant"):
         gp = g["policies"][policy]
         # the golden was captured with jax's original threefry stream
         sim = Simulator(tables, SimConfig(policy=policy, max_hops=10,
@@ -518,10 +547,20 @@ def run_breakdown(tables, exp) -> dict:
     """Where one slot of the Fig-5 fabric spends its time on the card.
     Returns each kernel's device ms per launch on the main path, from the
     profiler (empty if it saw no device events)."""
+    phase("6. breakdown of a Fig-5 slot")
+    return breakdown(tables, exp)
+
+
+def breakdown(tables, exp) -> dict:
+    """Where one slot of ``exp``'s uniform traffic on ``tables``' fabric
+    spends its time on the card: steady-state ms per slot, per-phase CUDA
+    events, the slot's PRNG draws alone, two slots under the sync debug
+    mode, and the profiler's device time and idle share.  Returns each
+    kernel's device ms per launch (empty if the profiler saw no device
+    events)."""
     import torch
     from repro_torch import prng
     from repro_torch.simulator.engine import Simulator, Traffic
-    phase("6. breakdown of a Fig-5 slot")
     sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
     tr = Traffic(exp.workload.pattern, load=exp.workload.load)
     st = sim.make_state(tr, seed=exp.seed)
@@ -545,6 +584,8 @@ def run_breakdown(tables, exp) -> dict:
         prng.split(key, 4, partitionable=pt)
         prng.uniform(key, (S,), partitionable=pt)
         prng.randint(key, (S,), 0, S, partitionable=pt)
+        if sim.cfg.policy in ("ugal", "valiant"):
+            prng.randint(key, (S,), 0, sim.n1, partitionable=pt)
         for _ in range(sim.cfg.speedup):
             prng.split(key, 3, partitionable=pt)
             prng.uniform(key, (N, P, V), partitionable=pt)
@@ -631,16 +672,25 @@ def run_breakdown(tables, exp) -> dict:
 
 def run_tables(points: dict) -> dict:
     """Routing tables of each All2All fabric built on the card, timed;
-    the Figure-6 fabrics' distances against the host BFS, and the
-    Figure-6 MRLS's mask words against the host packing.  Returns each
-    point's minplus_hops products."""
+    the card's distances against the host BFS, and the Figure-6 MRLS's
+    mask words against the host packing.  Returns each point's
+    minplus_hops products."""
+    phase("7. routing tables on the card")
+    return check_tables(points)
+
+
+def check_tables(points: dict) -> dict:
+    """For each point's fabric: the routing tables and the simulator
+    set-up on the card, timed, with the build's peak device bytes; the
+    card's ``dist_leaf`` against the host BFS and the products against
+    the stopping rule (and, for the Figure-6 MRLS, the mask words against
+    the host packing).  Returns each point's minplus_hops products."""
     import numpy as np
     import torch
     from repro_torch.api import build_network
     from repro_torch.core import bfs_distances, build_tables
     from repro_torch.core.routing import _pack_mask_block
     from repro_torch.simulator.engine import Simulator
-    phase("7. routing tables on the card")
     squarings = {}
     for label, exp in points.items():
         t0 = time.perf_counter()
@@ -726,33 +776,52 @@ def run_tables(points: dict) -> dict:
     return squarings
 
 
-def run_all2all(points: dict, squarings: dict) -> dict:
-    """Each All2All point through ``repro_torch.api.run`` on the card,
-    against its golden; returns the launches summed over the points."""
+@contextlib.contextmanager
+def timed_runs(timing: dict):
+    """Record in ``timing`` the seconds (``run_s``) and the slots
+    (``slots_run``; None where the run returns no state) of each
+    ``Simulator`` measurement run, read around the user's call without
+    changing it."""
+    import torch
+    from repro_torch.simulator.engine import Simulator
+    saved = {name: getattr(Simulator, name) for name in
+             ("run_completion", "run_throughput", "run_latency")}
+
+    def timed(fn):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            timing["run_s"] = time.perf_counter() - t0
+            timing["slots_run"] = (int(r["state"]["slot"]) if "state" in r
+                                   else None)
+            return r
+        return call
+
+    for name, fn in saved.items():
+        setattr(Simulator, name, timed(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(Simulator, name, fn)
+
+
+def run_points(points: dict, squarings: dict) -> tuple:
+    """Each point ``{label: (Experiment, golden Result dict, golden file
+    name)}`` through ``repro_torch.api.run`` on the card: its Result
+    against the golden field for field, its launches against the counts
+    the slots it ran and the table build's ``squarings[label]`` give, its
+    set-up and run seconds, slots/s and peak device bytes.  Returns
+    (launches summed over the points, {label: completion slot})."""
     import torch
     from repro_torch.api import run
-    from repro_torch.simulator.engine import Simulator
-    phase("8. All2All to completion through repro_torch.api.run")
-    # the slots actually run and their time, read around the user's call
-    # without changing it
     timing = {}
-    run_completion = Simulator.run_completion
-
-    def timed(self, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = run_completion(self, *args, **kw)
-        torch.cuda.synchronize()
-        timing["run_s"] = time.perf_counter() - t0
-        timing["slots_run"] = int(r["state"]["slot"])
-        return r
-
     total = dict.fromkeys(KERNELS, 0)
     slots = {}
-    Simulator.run_completion = timed
-    try:
-        for label, exp in points.items():
-            golden = json.loads(A2A_GOLDENS[label].read_text())
+    with timed_runs(timing):
+        for label, (exp, golden, fname) in points.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
@@ -761,33 +830,92 @@ def run_all2all(points: dict, squarings: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
-            ran, run_s = timing.pop("slots_run"), timing.pop("run_s")
-            print(f"{label}: completion at slot {res.slots} "
-                  f"(completed {res.completed}, pool_stall "
-                  f"{res.pool_stall}); {ran} slots run (chunk "
+            run_s = timing.pop("run_s")
+            ran = timing.pop("slots_run") or exp.warm + exp.measure
+            got = res.to_dict()
+            stats = {k: v for k, v in got.items()
+                     if v is not None and k not in ("experiment", "metric")}
+            print(f"{label}: {res.metric} {stats}; {ran} slots run (chunk "
                   f"{exp.chunk}); {wall:.3f} s end to end = set-up "
                   f"{wall - run_s:.3f} s + run {run_s:.3f} s "
                   f"({ran / run_s:.2f} slots/s); peak device memory "
                   f"{torch.cuda.max_memory_allocated()} bytes")
-            if res.to_dict() != golden:
-                got = res.to_dict()
+            if got != golden:
                 diff = {k: (got.get(k), golden.get(k)) for k in golden
                         if got.get(k) != golden.get(k)}
                 raise AssertionError(f"{label} Result differs from the JAX "
                                      f"reference: {diff}")
-            print(f"{label}: Result equals {A2A_GOLDENS[label].name} field "
-                  "for field")
+            print(f"{label}: Result equals {fname} field for field")
             check_counts(counts, expected_counts(exp, ran, squarings[label]),
-                         f"the {label} All2All run")
+                         f"the {label} run")
             for k in total:
                 total[k] += counts[k]
-            slots[label] = res.slots
-    finally:
-        Simulator.run_completion = run_completion
+            if res.metric == "completion":
+                slots[label] = res.slots
+    return total, slots
+
+
+def run_all2all(points: dict, squarings: dict) -> dict:
+    """Each All2All point through ``repro_torch.api.run`` on the card,
+    against its golden; returns the launches summed over the points."""
+    phase("8. All2All to completion through repro_torch.api.run")
+    total, slots = run_points(
+        {label: (exp, json.loads(A2A_GOLDENS[label].read_text()),
+                 A2A_GOLDENS[label].name)
+         for label, exp in points.items()}, squarings)
     print(f"Fat-Tree / MRLS completion slots at 104,976 endpoints: "
           f"{slots['fig6.ft50']} / {slots['fig6.mrls_f1']} = "
           f"{slots['fig6.ft50'] / slots['fig6.mrls_f1']:.4f} (simulated "
           "slots, a simulation output)")
+    return total
+
+
+def fig7_points() -> dict:
+    """``{name: (Experiment, golden Result dict, golden file name)}`` of
+    phase 12."""
+    from repro_torch.api import Experiment
+    out = {}
+    for path in FIG7_GOLDENS:
+        golden = json.loads(path.read_text())
+        exp = Experiment.from_dict(golden["experiment"])
+        out[exp.name] = (exp, golden, path.name)
+    return out
+
+
+def run_fig7(points: dict) -> dict:
+    """Figure 7 at the paper's size through ``repro_torch.api.run``: each
+    fabric's tables on the card against the host BFS and the stopping
+    rule, then every point against its golden, and the Dragonfly's slot
+    broken down.  Returns the launches summed over the points."""
+    import torch
+    from repro_torch.api import build_network
+    from repro_torch.core import build_tables
+    phase("12. Figure 7: Dragonfly, Dragonfly+ and MRLS u19 at 16.5k "
+          "endpoints")
+    # one table build a fabric, at its first point
+    first = {}
+    for label, (exp, _, _) in points.items():
+        first.setdefault(exp.network, label)
+    built = check_tables({label: points[label][0]
+                          for label in first.values()})
+    total, slots = run_points(points, {
+        label: built[first[exp.network]]
+        for label, (exp, _, _) in points.items()})
+    df = slots["fig7.df.ugal.all2all"]
+    mrls = slots["fig7.mrls_u19.pol.all2all"]
+    print(f"All2All completion slots, Dragonfly (ugal) / MRLS u19 "
+          f"(Polarized) at 16.5k endpoints: {df} / {mrls} = {df / mrls:.4f}; "
+          f"Dragonfly+ (ugal): {slots['fig7.dfplus.ugal.all2all']} (simulated "
+          "slots; the all2all is a near-neighbour shift, not the paper's "
+          "collective)")
+
+    exp = points["fig7.df.ugal.thpt.uniform"][0]
+    tables = build_tables(build_network(exp.network), device="cuda")
+    print("breakdown of a Dragonfly slot under ugal, uniform load "
+          f"{exp.workload.load}:")
+    breakdown(tables, exp)
+    del tables
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1122,7 +1250,11 @@ def main() -> int:
               for label, path in A2A_GOLDENS.items()}
     records = run_kernels({label: arb_bench.geometry(label, "cuda")
                            for label in arb_bench.GEOMETRIES})
+    fig7 = fig7_points()
     topos = {label: build_network(p.network) for label, p in points.items()}
+    topos.update({label: build_network(exp.network)
+                  for label, (exp, _, _) in fig7.items()
+                  if label.endswith(".all2all")})
     records["minplus"] = run_minplus(
         tables.topo.nbrs, {label: t.nbrs for label, t in topos.items()
                            if label.startswith("fig6.")})
@@ -1134,6 +1266,8 @@ def main() -> int:
     del tables
     squarings = run_tables(points)
     for k, n in run_all2all(points, squarings).items():
+        launches[k] += n
+    for k, n in run_fig7(fig7).items():
         launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
@@ -1159,7 +1293,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 5, 8 and 11.
+    # phases 5, 8, 12 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

@@ -8,7 +8,7 @@ from .specs import NetworkSpec
 __all__ = ["topology_families", "build_network"]
 
 # families of the reference that come with later slices
-_LATER_FAMILIES = ("oft", "dragonfly", "dragonfly_plus", "rfc", "jellyfish")
+_LATER_FAMILIES = ("oft", "rfc", "jellyfish")
 
 
 def topology_families() -> tuple:

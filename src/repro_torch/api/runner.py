@@ -2,10 +2,10 @@
 
 Topology -> ``build_tables`` -> ``Simulator`` -> measurement run, on the
 card by default (the routing tables' distances too).  The port runs one
-replica of the ``throughput`` and ``latency`` metrics and the
-``completion`` metric of a free-running ``all2all``; scheduled
-collectives, the other metrics, replicas and simulator caching come
-later.
+replica of the ``throughput`` and ``latency`` metrics of the Bernoulli
+families the engine runs and the ``completion`` metric of a
+free-running ``all2all``; scheduled collectives, the other metrics,
+replicas and simulator caching come later.
 """
 from __future__ import annotations
 
@@ -95,7 +95,9 @@ def run(experiment: Experiment, *, device=None) -> Result:
                          f"got {w.pattern!r}")
     if experiment.replicas != 1:
         raise NotImplementedError("replicated runs are not ported yet")
-    traffic = Traffic(pattern=w.pattern, load=w.load, rounds=w.rounds)
+    traffic = Traffic(pattern=w.pattern, load=w.load, rounds=w.rounds,
+                      elephant_frac=w.elephant_frac,
+                      elephant_size=w.elephant_size)
     tables = build_tables(build_network(experiment.network), device=dev)
     sim = Simulator(tables, experiment.route.to_sim_config(), device=dev)
     if metric == "completion":

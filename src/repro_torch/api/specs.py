@@ -108,8 +108,8 @@ class RouteSpec:
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
     """Traffic program: the reference's fields and validation.  The
-    engine runs ``uniform`` and the free-running ``all2all`` and refuses
-    the others."""
+    engine runs the patterns of ``workloads.patterns.ENGINE_PATTERNS``
+    (the free-running ``all2all`` among them) and refuses the others."""
 
     pattern: str = "uniform"
     load: float = 1.0

@@ -1,10 +1,11 @@
 """Switch-level topologies: the MRLS fabric of the paper (Cano et al.,
-2026) and the Fat-Tree it is compared with.
+2026) and the Fat-Tree, Dragonfly and Dragonfly+ it is compared with.
 
 The port's own copy of the reference's numpy constructors: for the same
 arguments and seed they give identical ``nbrs`` and ``nbr_port`` arrays,
-so both simulators run on one fabric.  :func:`mrls` and :func:`fat_tree`
-are here; the other families follow with the policies that need them.
+so both simulators run on one fabric.  :func:`mrls`, :func:`fat_tree`,
+:func:`dragonfly` and :func:`dragonfly_plus` are here; the other
+families follow with the policies that need them.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["Topology", "mrls", "fat_tree"]
+__all__ = ["Topology", "mrls", "fat_tree", "dragonfly", "dragonfly_plus"]
 
 
 @dataclasses.dataclass
@@ -247,4 +248,104 @@ def fat_tree(radix: int, h: int, a1: Optional[int] = None) -> Topology:
         level,
         max_ports=radix,
         meta={"radix": radix, "h": h, "k": k, "a1": A1},
+    )
+
+
+# ---------------------------------------------------------------------- #
+# Dragonfly and Dragonfly+
+# ---------------------------------------------------------------------- #
+def dragonfly(a: int, p: int, h: int, n_groups: Optional[int] = None) -> Topology:
+    """Canonical Dragonfly [5]: ``g`` groups of ``a`` switches; complete graph
+    inside each group; ``h`` global ports per switch; ``p`` endpoints per
+    switch.  Balanced max size: ``g = a*h + 1`` with exactly one global link
+    between every group pair (palmtree arrangement)."""
+    g = (a * h + 1) if n_groups is None else n_groups
+    n = g * a
+    edges = []
+    # intra-group complete graph
+    for grp in range(g):
+        base = grp * a
+        for i in range(a):
+            for j in range(i + 1, a):
+                edges.append((base + i, base + j))
+    # global links: group gi global slot s in [a*h] -> peer group.
+    # palmtree: slot s of group gi connects to group (gi + s + 1) mod g.
+    if g == a * h + 1:
+        for gi in range(g):
+            for s in range(a * h):
+                gj = (gi + s + 1) % g
+                if gi < gj:
+                    sw_i = gi * a + (s % a)
+                    # peer's slot index: it sees gi at s2 with (gj + s2 + 1) % g == gi
+                    s2 = (gi - gj - 1) % g
+                    sw_j = gj * a + (s2 % a)
+                    edges.append((sw_i, sw_j))
+    else:
+        raise NotImplementedError("only maximum-size balanced dragonfly")
+    is_leaf = np.ones(n, bool)
+    level = np.zeros(n, np.int32)
+    return _from_edges(
+        f"DF(R={p + a - 1 + h},S={n * p})",
+        "direct",
+        n,
+        np.asarray(edges, np.int64),
+        is_leaf,
+        p,
+        level,
+        max_ports=a - 1 + h,
+        meta={"a": a, "p": p, "h": h, "g": g},
+    )
+
+
+def dragonfly_plus(
+    n_groups: int, leaves_per_group: int, spines_per_group: int,
+    p: int, global_per_spine: int,
+) -> Topology:
+    """Dragonfly+ [32]: each group is a complete bipartite leaf-spine;
+    spines carry global links, trunked uniformly over peer groups."""
+    g = n_groups
+    lpg, spg = leaves_per_group, spines_per_group
+    n = g * (lpg + spg)
+
+    def leaf_id(grp, i):
+        return grp * (lpg + spg) + i
+
+    def spine_id(grp, j):
+        return grp * (lpg + spg) + lpg + j
+
+    edges = []
+    for grp in range(g):
+        for i in range(lpg):
+            for j in range(spg):
+                edges.append((leaf_id(grp, i), spine_id(grp, j)))
+    # global: group pair trunking t = spg*global_per_spine / (g-1)
+    total_glob = spg * global_per_spine
+    if total_glob % (g - 1) != 0:
+        raise ValueError("global links must divide evenly over peer groups")
+    trunk = total_glob // (g - 1)
+    # distribute: for pair (gi, gj), connect trunk links spread over spines.
+    pair_counter = {}
+    for gi in range(g):
+        for gj in range(gi + 1, g):
+            for t in range(trunk):
+                idx = pair_counter.get(gi, 0)
+                pair_counter[gi] = idx + 1
+                idx2 = pair_counter.get(gj, 0)
+                pair_counter[gj] = idx2 + 1
+                edges.append((spine_id(gi, idx % spg), spine_id(gj, idx2 % spg)))
+    is_leaf = np.zeros(n, bool)
+    for grp in range(g):
+        for i in range(lpg):
+            is_leaf[leaf_id(grp, i)] = True
+    level = np.where(is_leaf, 0, 1).astype(np.int32)
+    return _from_edges(
+        f"DF+(R={max(p + spg, lpg + global_per_spine)},S={int(is_leaf.sum()) * p})",
+        "indirect",
+        n,
+        np.asarray(edges, np.int64),
+        is_leaf,
+        p,
+        level,
+        meta={"g": g, "lpg": lpg, "spg": spg, "p": p,
+              "global_per_spine": global_per_spine, "trunk": trunk},
     )

@@ -12,13 +12,19 @@ It builds only ``switch_arb`` (``_build.build_all(["switch_arb"])``, with
 2. holds every kernel bitwise to its plain version on the cases of
    :func:`run_cases`: ``switch_arbitrate_rows`` with each number of lanes
    a row of ``kernel.ROWS_LANES`` on seeded queue states of the golden
-   fabric ``mrls(14, 3, 3)``, Figure 5's ``mrls(614, 18, 18)`` and the
+   fabric ``mrls(14, 3, 3)``, Figure 5's ``mrls(614, 18, 18)``, the
    Figure-6 Fat-Tree ``fat_tree(36, 3, a1=18)`` (whose spines have no
-   NICs), under the three policies' settings at allowed-port densities
+   NICs), and Figure 7's ``dragonfly(16, 8, 8)`` (P = 23: rows not
+   16-byte aligned) and ``dragonfly_plus(65, 16, 16, 16, 16)`` (P = 32,
+   d = 16, half of each leaf's ports unlinked), under the three
+   policies' settings (UGAL and Valiant give the kernel
+   minimal_adaptive's) at allowed-port densities
    0, 0.3 and 1, with tiebreaks on four levels and colliding priorities;
    the dense ``switch_arbitrate``; ``vc_prearb`` with and without its
-   head-packet gather, at V = 4 and other V;
-3. times, at the Figure-5 and Fat-Tree geometries, the dense kernel,
+   head-packet gather, at the Figure-5 and Figure-7 shapes (V = 4) and at
+   other V;
+3. times, at the Figure-5, Fat-Tree, Dragonfly and Dragonfly+
+   geometries, the dense kernel,
    ``switch_arbitrate_rows`` with each number of lanes a row,
    ``vc_prearb`` with and without the gather and an empty kernel: back to
    back by CUDA events (the C entry point on preallocated outputs) and
@@ -58,7 +64,11 @@ __all__ = ["Geometry", "geometry", "GEOMETRIES", "rows_inputs",
 # the fabrics (functions of repro_torch.core) and the engine's defaults
 GEOMETRIES = {"golden": ("mrls", dict(n_leaves=14, u=3, d=3, seed=0)),
               "fig5": ("mrls", dict(n_leaves=614, u=18, d=18, seed=1)),
-              "ft50": ("fat_tree", dict(radix=36, h=3, a1=18))}
+              "ft50": ("fat_tree", dict(radix=36, h=3, a1=18)),
+              "df": ("dragonfly", dict(a=16, p=8, h=8)),
+              "dfplus": ("dragonfly_plus", dict(
+                  n_groups=65, leaves_per_group=16, spines_per_group=16,
+                  p=16, global_per_spine=16))}
 V, Q, OQ, PENALTY = 4, 8, 4, 8.0
 POLICIES = ("polarized", "minimal_adaptive", "ksp")
 DENSITIES = (0.0, 0.3, 1.0)
@@ -218,7 +228,10 @@ def run_cases(geos: dict, gen: torch.Generator) -> dict:
             f"switch_arbitrate [{n},{r},{p}]",
             kernel.switch_arbitrate(*args, penalty=PENALTY),
             ref.switch_arbitrate_ref(*args, penalty=PENALTY)))
-    vc = [(fig5.n, fig5.p, V)] if fig5 else []
+    # vc_prearb at the main paths' shapes: Figure 5 and Figure 7's
+    # Dragonfly and Dragonfly+
+    vc = [(g.n, g.p, V) for label, g in geos.items()
+          if label in ("fig5", "df", "dfplus")]
     for n, p, v in vc + [(5, 7, 3), (9, 16, 8), (7, 5, 4)]:
         for depth in (Q, OQ):
             qlen, rand, buf, head = vc_inputs(gen, n, p, v, depth)
@@ -424,8 +437,8 @@ def main(argv=None) -> int:
         print(f"FAILED: {e}")
         return 1
     print(f"main path: {kernel.ROWS_MAIN_LANES} lanes a row")
-    timed = {label: time_point(geos[label], gen) for label in ("fig5",
-                                                               "ft50")}
+    timed = {label: time_point(geos[label], gen)
+             for label in ("fig5", "ft50", "df", "dfplus")}
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"sass": counts, "max_abs_err": errs,
                       "main_lanes": kernel.ROWS_MAIN_LANES,

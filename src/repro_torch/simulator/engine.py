@@ -16,10 +16,13 @@ the occupancies from the queue state itself and works on the flat
 requester rows.  The link phase's choice of output VC is the same masked
 argmax as VC pre-arbitration and runs through the same kernel.
 
-Policies: ``polarized``, ``minimal_adaptive``, ``ksp``; traffic:
-``uniform`` (Bernoulli, measured by ``run_throughput``/``run_latency``)
-and ``all2all`` (a finite program, measured by ``run_completion``).  No
-failure schedule.
+Policies: ``polarized``, ``minimal_adaptive``, ``ksp``, and the
+Dragonfly's ``ugal`` (UGAL-L: a Valiant intermediate leaf when the
+queue-times-distance estimate says so) and ``valiant`` (always an
+intermediate leaf).  Traffic: the Bernoulli families ``uniform``,
+``rep``, ``rsp``, ``bu`` and ``mice_elephant`` (measured by
+``run_throughput``/``run_latency``) and ``all2all`` (a finite program,
+measured by ``run_completion``).  No failure schedule.
 
 State and its lifetime:
 
@@ -56,8 +59,10 @@ from ..workloads.patterns import check_engine_pattern
 __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
            "percentiles", "POLICIES", "POOL_KEYS", "LATENCY_QS"]
 
-POLICIES = ("polarized", "minimal_adaptive", "ksp")
-_LATER_POLICIES = ("ugal", "valiant", "degraded")
+POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant")
+_LATER_POLICIES = ("degraded",)
+# the policies that route through an intermediate leaf (p_mid)
+_VALIANT_POLICIES = ("ugal", "valiant")
 
 # percentile ladder of the latency runs: median, p99, p999, p9999
 LATENCY_QS = (0.5, 0.99, 0.999, 0.9999)
@@ -91,15 +96,23 @@ class SimConfig:
 class Traffic:
     """Traffic program, with the reference's field order.
 
-    * ``uniform``: each idle endpoint starts a one-packet message with
-      probability ``load`` per slot, to a destination drawn uniformly
-      over all endpoints.
+    * Bernoulli families: each idle endpoint starts a message with
+      probability ``load`` / (mean message size) per slot.  ``uniform``
+      sends one packet to a destination drawn uniformly over all
+      endpoints; ``rep`` to a fixed random permutation of the endpoints,
+      ``rsp`` to the same slot of a fixed random permutation of the
+      leaves (both drawn from the run seed by ``make_state``); ``bu``
+      from each half of the endpoints to a uniform endpoint of the
+      other; ``mice_elephant`` sends ``elephant_size`` packets with
+      probability ``elephant_frac``, else one, to a uniform destination.
     * ``all2all``: each endpoint sends ``rounds`` single-packet messages
       to ``(e + r + 1) mod S``, free-running (no round synchronization).
     """
     pattern: str = "uniform"
     load: float = 1.0
     rounds: int = 0
+    elephant_frac: float = 0.1   # fraction of messages that are elephants
+    elephant_size: int = 16
 
     def __post_init__(self):
         check_engine_pattern(self.pattern)
@@ -116,9 +129,8 @@ class Simulator:
                  device=None):
         if cfg.policy in _LATER_POLICIES:
             raise NotImplementedError(
-                f"policy {cfg.policy!r} is not ported yet: ugal and valiant "
-                "come with the Dragonfly topology; degraded with the failure "
-                "schedules")
+                f"policy {cfg.policy!r} is not ported yet: it comes with the "
+                "failure schedules")
         if cfg.policy not in POLICIES:
             raise ValueError(f"unknown policy {cfg.policy!r}; expected one "
                              f"of {POLICIES + _LATER_POLICIES}")
@@ -179,6 +191,8 @@ class Simulator:
         self._link_dq = torch.as_tensor(
             (nb0 * self.P + nbp)[:, None] * self.V
             + np.arange(self.V)[None, :], device=dev)            # [N*P, V]
+        # the switch each (switch, port) sends to, 0 where no link
+        self._link_nb = torch.as_tensor(nb0, dtype=_I32, device=dev)
         self._valid = torch.as_tensor(valid.reshape(-1), device=dev)
         self._init_requester_geometry(topo)
 
@@ -228,6 +242,16 @@ class Simulator:
                                                 V)
         self._nic_first = torch.as_tensor(nic_first, device=dev)
         self._dq_base = torch.as_tensor(dq_base, device=dev)      # [N*P]
+        # UGAL's occupancy at each NIC's switch: the flat qlen index of
+        # VC 0 of the downstream input queue of each port.  The reference
+        # leaves an unlinked port's nbr_port at -1 (index -V, which jax
+        # wraps); clamping it to 0 reads another queue, and either value
+        # is masked out, since an unlinked port has no min_mask bit
+        if self.cfg.policy == "ugal":
+            sw = leaf_ids[np.arange(S, dtype=np.int32) // d]
+            self._ugal_occ_idx = torch.as_tensor(
+                (np.maximum(nbrs, 0)[sw] * P + np.maximum(nbr_port, 0)[sw])
+                * V, dtype=torch.int64, device=dev)              # [S, P]
         # the dense per-switch layout of the TPU kernel's interface
         # (kernels.switch_arb.ops.switch_arbitrate_flat), off the main
         # path: row r of switch n is net in-port r (r < P) or NIC slot
@@ -289,9 +313,17 @@ class Simulator:
     def make_state(self, traffic: Traffic, seed: int = 0) -> dict:
         """A fresh state; a non-zero ``seed`` is folded into the key of
         ``cfg.seed`` (seed 0 keeps the plain key), as in the reference.
-        Neither ported pattern needs seeded arrays, so ``traffic`` only
-        keeps the reference's signature."""
+        ``rep`` adds its endpoint permutation ``perm`` and ``rsp`` its leaf
+        permutation ``sigma``, drawn by numpy from ``seed`` as the
+        reference draws them."""
         st = self.init_state()
+        rng = np.random.default_rng(seed)
+        if traffic.pattern == "rep":
+            st["perm"] = torch.as_tensor(
+                rng.permutation(self.S).astype(np.int32), device=self.device)
+        if traffic.pattern == "rsp":
+            st["sigma"] = torch.as_tensor(
+                rng.permutation(self.n1).astype(np.int32), device=self.device)
         if seed:
             st["key"] = prng.fold_in(st["key"], seed)
         return st
@@ -303,25 +335,48 @@ class Simulator:
         words = table[t_lr * self.N + cur]                       # [., W]
         return ((words[:, self._w_idx] >> self._b_idx) & 1).bool()
 
+    @staticmethod
+    def _mean_msg(t: Traffic) -> float:
+        if t.pattern == "mice_elephant":
+            return ((1 - t.elephant_frac) * 1.0
+                    + t.elephant_frac * t.elephant_size)
+        return 1.0
+
     def _inject(self, st, key, traffic: Traffic):
         """Start messages + push one packet per eligible endpoint."""
-        S, d, pool = self.S, self.d_leaf, self.pool
+        S, d, pool, pt = self.S, self.d_leaf, self.pool, self._pt
         e = self._e
-        k1, k2, _k3, _k4 = prng.split(key, 4, partitionable=self._pt)
+        k1, k2, k3, k4 = prng.split(key, 4, partitionable=pt)
 
         idle = st["msg_rem"] == 0
-        if traffic.pattern == "all2all":
+        pat = traffic.pattern
+        size = 1
+        if pat == "all2all":
             start = idle & (st["prog"] < traffic.rounds)
             dst = (e + st["prog"] + 1) % S
-        else:   # uniform
+        else:   # the Bernoulli families
             # the reference compares against the float32 rounding of the
-            # load
-            threshold = float(np.float32(traffic.load))
-            u = prng.uniform(k1, (S,), partitionable=self._pt)
+            # start probability (and of elephant_frac)
+            threshold = float(np.float32(traffic.load
+                                         / self._mean_msg(traffic)))
+            u = prng.uniform(k1, (S,), partitionable=pt)
             start = idle & (u < threshold)
-            dst = prng.randint(k2, (S,), 0, S, partitionable=self._pt)
+            if pat in ("uniform", "mice_elephant"):
+                dst = prng.randint(k2, (S,), 0, S, partitionable=pt)
+            elif pat == "rep":
+                dst = st["perm"]
+            elif pat == "rsp":
+                dst = st["sigma"][e // d] * d + e % d
+            else:   # bu: the two halves exchange uniformly
+                half = S // 2
+                r = prng.randint(k2, (S,), 0, half, partitionable=pt)
+                dst = torch.where(e < half, half + r, r % half)
+            if pat == "mice_elephant":
+                frac = float(np.float32(traffic.elephant_frac))
+                eleph = prng.uniform(k3, (S,), partitionable=pt) < frac
+                size = torch.where(eleph, traffic.elephant_size, 1).to(_I32)
 
-        msg_rem = torch.where(start, 1, st["msg_rem"])
+        msg_rem = torch.where(start, size, st["msg_rem"])
         msg_dst = torch.where(start, dst, st["msg_dst"])
         prog = st["prog"] + start.to(_I32)
 
@@ -347,6 +402,9 @@ class Simulator:
         st["fl_head"] = (st["fl_head"] + n_pop) % pool
         st["fl_len"] = st["fl_len"] - n_pop
         st["p_sd"].index_put_((widx,), (src_lr << 16) | dst_lr)
+        if self.cfg.policy in _VALIANT_POLICIES:
+            st["p_mid"].index_put_((widx,), self._intermediate(
+                st, k4, src_lr, dst_lr))
         st["p_bh"].index_put_((widx,), (st["slot"] << 8).expand(S))
         # push into the NIC queue (dense one-hot write, one row each)
         pos = (st["eq_head"] + st["eq_len"]) % self.QE
@@ -366,6 +424,32 @@ class Simulator:
             dtype=_I32)
         st["lat_hist"][1] += n_local
         return st
+
+    def _intermediate(self, st, key, src_lr, dst_lr):
+        """Each endpoint's intermediate leaf rank, -1 for none: a uniform
+        leaf for ``valiant``; for ``ugal`` that leaf only where the
+        shortest-queue estimate times the hop count via it is smaller
+        (strictly) than the minimal route's, from the occupancies of VC 0
+        at the source switch."""
+        N = self.N
+        mid_lr = prng.randint(key, (self.S,), 0, self.n1,
+                              partitionable=self._pt)
+        if self.cfg.policy == "valiant":
+            return mid_lr
+        sw = self.leaf_ids[src_lr]
+        occ0 = st["qlen"][self._ugal_occ_idx]                      # [S, P]
+
+        def best(t_lr):
+            m = self._port_bits(self.min_mask, t_lr, sw)
+            return torch.where(m, occ0, 1 << 20).amin(dim=1)
+        q_min, q_val = best(dst_lr), best(mid_lr)
+        # int16 distances and their int16 sum; the products promote to
+        # int32, as in the reference
+        d_min = self.dist[dst_lr * N + sw]
+        d_val = (self.dist[mid_lr * N + sw]
+                 + self.dist[dst_lr * N + self.leaf_ids[mid_lr]])
+        take_val = q_min * d_min > q_val * d_val
+        return torch.where(take_val, mid_lr, -1)
 
     # ------------------------------------------------------------------ #
     def _crossbar_round(self, st, key):
@@ -416,10 +500,19 @@ class Simulator:
                     - dn_t.to(torch.int16))
             budget_ok = (hops[:, None] + 1 + d_nt) <= self.cfg.max_hops
             allowed = (up_s & dn_t) | (deroute & budget_ok)
+        elif pol in _VALIANT_POLICIES:
+            # minimal toward the intermediate leaf while there is one
+            mid_lr = st["p_mid"][pkt0]
+            tgt = torch.where(mid_lr >= 0, mid_lr, t_lr)
+            allowed = self._port_bits(self.min_mask, tgt, cur)
+            deroute = torch.zeros_like(allowed)
         else:   # minimal_adaptive, ksp
             allowed = self._port_bits(self.min_mask, t_lr, cur)
             deroute = torch.zeros_like(allowed)
-        next_vc = (hops // 2).clamp(max=V - 1)
+        # the flight VC climbs with every hop under ugal / valiant, with
+        # every up-down pass (two hops) under the others
+        vc_hops = hops if pol in _VALIANT_POLICIES else hops // 2
+        next_vc = vc_hops.clamp(max=V - 1)
         tie = prng.uniform(k_tie, (self.NR, P), partitionable=self._pt)
         rnd = prng.randint(k_arb, (self.NR,), 0, 1 << 8,
                              partitionable=self._pt)
@@ -513,6 +606,14 @@ class Simulator:
         # hop increment on the packed born|hops word (hops: low byte);
         # non-senders add 0
         st["p_bh"].index_add_(0, pkt0, send.to(_I32))
+        if self.cfg.policy in _VALIANT_POLICIES:
+            # a packet sent to its intermediate leaf's switch forgets it
+            # (the others write the pad slot)
+            mid_lr = st["p_mid"][pkt0]
+            reached = send & (mid_lr >= 0) & (
+                self._link_nb == self.leaf_ids[mid_lr.clamp(min=0)])
+            st["p_mid"].index_fill_(
+                0, torch.where(reached, pkt0, self.pool).long(), -1)
         return st
 
     def _step(self, st, traffic: Traffic):

@@ -2,8 +2,8 @@
 
 The port's own copy of the reference registry, so a spec file names the
 same patterns and fails with the same errors in both packages.  The
-engine runs ``uniform`` and ``all2all``; :func:`check_engine_pattern`
-says what is still to come.
+engine runs ``ENGINE_PATTERNS``; :func:`check_engine_pattern` says what
+is still to come.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ ENGINE_ONLY_PATTERNS = ("phase", "program", "arrival")
 SCHEDULES = ("", "barrier", "window")
 
 # what the port's engine runs
-ENGINE_PATTERNS = ("uniform", "all2all")
+ENGINE_PATTERNS = ("uniform", "rep", "rsp", "bu", "mice_elephant", "all2all")
 
 _KINDS = (
     {p: "bernoulli" for p in BERNOULLI_PATTERNS}

@@ -91,7 +91,7 @@ def test_unported_specs_raise():
         port_api.run(port_api.Experiment.from_dict(dict(d, replicas=2)),
                      device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_api.build_network(port_api.NetworkSpec("dragonfly",
+        port_api.build_network(port_api.NetworkSpec("jellyfish",
                                                     {"p": 2}))
     failing = dict(d["network"], failures={"events": []})
     with pytest.raises(NotImplementedError, match="failure"):

@@ -93,7 +93,7 @@ def test_fresh_state_matches_reference_layout(jax_states, port_sim):
 
 def test_unported_policies_and_patterns_raise(port_sim):
     tables = port_sim.tables
-    for policy in ("ugal", "valiant", "degraded"):
+    for policy in ("degraded",):
         with pytest.raises(NotImplementedError, match=policy):
             Simulator(tables, SimConfig(policy=policy), device="cpu")
     with pytest.raises(ValueError, match="unknown policy"):

@@ -38,7 +38,8 @@ def tables():
     return build_tables(mrls(**GOLDEN["fabric"]))
 
 
-@pytest.mark.parametrize("policy", ["polarized", "minimal_adaptive", "ksp"])
+@pytest.mark.parametrize("policy", ["polarized", "minimal_adaptive", "ksp",
+                                    "ugal", "valiant"])
 def test_golden_parity_through_port(tables, policy):
     gp = GOLDEN["policies"][policy]
     warm, measure = GOLDEN["warm"], GOLDEN["measure"]

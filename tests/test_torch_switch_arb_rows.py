@@ -11,8 +11,10 @@ rows ``[N*P network inputs] ++ [NICs]``) against
 * the port's previous path: the same engine lines in torch and
   ``ops.switch_arbitrate_flat`` on the dense layout.
 
-Fabrics: the golden ``mrls(14, 3, 3)`` and a small ``fat_tree``, whose
-spines have no NICs.  States: output queues 0 to OQ (full ones have no
+Fabrics: the golden ``mrls(14, 3, 3)``, a small ``fat_tree``, whose
+spines have no NICs, ``dragonfly(4, 2, 2)`` (every switch a leaf, P = 5,
+so rows are not 16-byte aligned) and ``dragonfly_plus(5, 4, 4, 4, 4)``
+(half of each leaf's ports unlinked).  States: output queues 0 to OQ (full ones have no
 credit), allowed-port densities 0, 0.3 and 1, tiebreaks on four levels
 (equal scores resolve to the lowest port), priorities in [0, 4) (the row
 index decides).  ``vc_prearb``'s head-packet gather against the
@@ -35,7 +37,11 @@ from repro_torch.kernels.switch_arb import bench, kernel, ops, ref
 from repro_torch.simulator.engine import SimConfig, Simulator
 
 FABRICS = {"mrls": ("mrls", dict(n_leaves=14, u=3, d=3, seed=0)),
-           "fat_tree": ("fat_tree", dict(radix=6, h=2))}
+           "fat_tree": ("fat_tree", dict(radix=6, h=2)),
+           "dragonfly": ("dragonfly", dict(a=4, p=2, h=2)),
+           "dragonfly_plus": ("dragonfly_plus", dict(
+               n_groups=5, leaves_per_group=4, spines_per_group=4, p=4,
+               global_per_spine=4))}
 POLICIES = ("polarized", "minimal_adaptive", "ksp")
 DENSITIES = (0.0, 0.3, 1.0)
 V, Q, OQ, PENALTY = 4, 8, 4, 8.0
@@ -314,6 +320,28 @@ def test_fig5_bound_counts_the_bytes_moved():
     assert bench.vc_bytes(geo.n * geo.p, V, geo.n * geo.p) == 52 * 33_156
 
 
+@pytest.mark.parametrize("label,shape", [
+    ("df", (2064, 23, 8, 63_984)), ("dfplus", (2080, 32, 16, 83_200))])
+def test_fig7_geometries_take_the_plain_version(label, shape):
+    """Figure 7's Dragonfly (P = 23, odd) and Dragonfly+ (P = 32, d = 16)
+    pass the kernel's input checks and run the plain version on the
+    bench's seeded inputs: grants only where a port is allowed and has
+    credit, at most one a (switch, out-port)."""
+    geo = bench.geometry(label, "cpu")
+    assert (geo.n, geo.p, geo.d, geo.nr) == shape
+    # ugal and valiant feed the kernel as minimal_adaptive does (no
+    # deroutes), with next_vc over 0 .. V-1
+    args, kw = bench.rows_inputs(geo, torch.Generator().manual_seed(19),
+                                 0.3, "minimal_adaptive")
+    assert kernel.rows_geometry(*args, kw["nic_first"], kw["dq_base"],
+                                kw["d"]) == (geo.n, geo.p, V, geo.nr)
+    port, win, seg = ops.switch_arbitrate_rows(*args, **kw)
+    won = win > 0
+    assert won.any() and (port[won] >= 0).all()
+    assert int(won.sum()) == int((seg >= 0).sum())
+    assert args[1][won].any(dim=1).all()
+
+
 @pytest.mark.parametrize("policy", POLICIES)
 def test_bench_inputs_take_the_plain_version(policy):
     """The bench's seeded inputs on the golden fabric: the plain version
@@ -331,7 +359,7 @@ def test_bench_inputs_take_the_plain_version(policy):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("label", ["golden", "fig5"])
+@pytest.mark.parametrize("label", ["golden", "fig5", "df", "dfplus"])
 def test_cuda_kernels_match_plain_versions(label):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
