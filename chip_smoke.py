@@ -35,7 +35,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    plain version;
 4. golden   — all five policies of ``tests/golden/engine_parity.json``
    (polarized, minimal_adaptive, ksp, ugal, valiant) reproduce exactly
-   on the card;
+   on the card, on tables built there;
 5. full width — the paper's Figure-5 MRLS (11,052 endpoints, Polarized,
    uniform load 1.0, 300 + 300 slots) through ``repro_torch.api.run``
    (tables on the card included) equals
@@ -69,6 +69,22 @@ Phases, in order; any failure ends the script with a non-zero exit:
    set-up and run seconds, slots/s and peak device bytes; the All2All
    completion ratio Dragonfly / MRLS; and a Dragonfly slot broken down
    as in phase 6;
+13. Table 2, Figure 5's OFT row and the adversarial families — run after
+   phase 12: every row of ``benchmarks/table2.py`` (12 fabrics up to
+   23,328 switches) and ``jellyfish(614, 18, 18, seed=1)`` through
+   ``build_tables`` (its default device, the card) and
+   ``exact_metrics``, each against ``tests/golden/torch_table2.json``
+   field for field with its host topology seconds, table seconds,
+   products against the stopping rule and peak device bytes; then
+   Figure 5's ``oft(17)`` under Polarized (All2All of 24 rounds,
+   uniform 300 + 300, rep / rsp / bu 100 + 100, mice_elephant latency
+   100 + 100) and ``tornado`` / ``shift`` / ``hotspot`` / ``bursty`` on
+   the Figure-5 MRLS (100 + 100), each fabric through one ``run_all``
+   with one ``SimulatorCache`` (one simulator built, ``minplus_hops``
+   launched for that build alone), each Result against its
+   ``tests/golden/torch_{fig5_oft,adv}_*.json`` with its launches, run
+   seconds, slots/s and peak device bytes; and an OFT slot broken down
+   as in phase 6;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -90,7 +106,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step), and where a prefill's time goes from ``torch.profiler``.
 
 Each phase prints its wall seconds.  The kernels' launches on the main
-paths of phases 5, 8, 12 and 11 are summed.  The last lines are a
+paths of phases 5, 8, 12, 13 and 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -124,6 +140,15 @@ FIG7_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fig7_{name}.json"
                              "df_ugal_a2a", "df_ugal_thpt_uniform",
                              "df_ugal_thpt_rep", "df_ugal_thpt_rsp",
                              "df_ugal_thpt_bu", "df_ugal_lat_mice_elephant")]
+
+# phase 13: Table 2's rows, Figure 5's OFT row (the All2All first) and
+# the adversarial families on the Figure-5 MRLS
+TABLE2_GOLDEN = ROOT / "tests" / "golden" / "torch_table2.json"
+FIG5_OFT_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fig5_oft_{name}.json"
+                    for name in ("a2a", "thpt_uniform", "thpt_rep",
+                                 "thpt_rsp", "thpt_bu", "lat_mice_elephant")]
+ADV_GOLDENS = [ROOT / "tests" / "golden" / f"torch_adv_{name}.json"
+               for name in ("tornado", "shift", "hotspot", "bursty")]
 
 HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
 
@@ -471,7 +496,7 @@ def run_golden():
     from repro_torch.simulator.engine import SimConfig, Simulator, Traffic
     phase("4. golden replay on the card")
     g = json.loads(ENGINE_GOLDEN.read_text())
-    tables = build_tables(mrls(**g["fabric"]))
+    tables = build_tables(mrls(**g["fabric"]), device="cuda")
     for policy in ("polarized", "minimal_adaptive", "ksp", "ugal",
                    "valiant"):
         gp = g["policies"][policy]
@@ -777,11 +802,12 @@ def check_tables(points: dict) -> dict:
 
 
 @contextlib.contextmanager
-def timed_runs(timing: dict):
-    """Record in ``timing`` the seconds (``run_s``) and the slots
+def timed_runs(timing: list, peaks: bool = False):
+    """Append to ``timing`` the seconds (``run_s``) and the slots
     (``slots_run``; None where the run returns no state) of each
     ``Simulator`` measurement run, read around the user's call without
-    changing it."""
+    changing it; with ``peaks``, also the peak device bytes of the run
+    alone (``peak``: the peak statistics are reset before it)."""
     import torch
     from repro_torch.simulator.engine import Simulator
     saved = {name: getattr(Simulator, name) for name in
@@ -790,12 +816,16 @@ def timed_runs(timing: dict):
     def timed(fn):
         def call(self, *args, **kw):
             torch.cuda.synchronize()
+            if peaks:
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             r = fn(self, *args, **kw)
             torch.cuda.synchronize()
-            timing["run_s"] = time.perf_counter() - t0
-            timing["slots_run"] = (int(r["state"]["slot"]) if "state" in r
-                                   else None)
+            timing.append(dict(
+                run_s=time.perf_counter() - t0,
+                slots_run=(int(r["state"]["slot"]) if "state" in r
+                           else None),
+                peak=torch.cuda.max_memory_allocated() if peaks else None))
             return r
         return call
 
@@ -817,7 +847,7 @@ def run_points(points: dict, squarings: dict) -> tuple:
     (launches summed over the points, {label: completion slot})."""
     import torch
     from repro_torch.api import run
-    timing = {}
+    timing = []
     total = dict.fromkeys(KERNELS, 0)
     slots = {}
     with timed_runs(timing):
@@ -830,8 +860,9 @@ def run_points(points: dict, squarings: dict) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
-            run_s = timing.pop("run_s")
-            ran = timing.pop("slots_run") or exp.warm + exp.measure
+            rec = timing.pop()
+            run_s = rec["run_s"]
+            ran = rec["slots_run"] or exp.warm + exp.measure
             got = res.to_dict()
             stats = {k: v for k, v in got.items()
                      if v is not None and k not in ("experiment", "metric")}
@@ -914,6 +945,178 @@ def run_fig7(points: dict) -> dict:
     print("breakdown of a Dragonfly slot under ugal, uniform load "
           f"{exp.workload.load}:")
     breakdown(tables, exp)
+    del tables
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_table2() -> dict:
+    """Every row of Table 2 (and the jellyfish design) through
+    ``build_tables`` on the card (its default device) and
+    ``exact_metrics``: each row's host topology seconds, table seconds,
+    products against the stopping rule (the leaf eccentricity read from
+    the card's own ``dist_leaf``) and peak device bytes, and its metrics
+    against the reference's in ``tests/golden/torch_table2.json``, field
+    for field (A as a float64, bit for bit).  Returns the launches summed
+    over the rows."""
+    import dataclasses
+    import torch
+    from repro_torch.api import NetworkSpec, build_network
+    from repro_torch.core import build_tables, exact_metrics
+    rows = json.loads(TABLE2_GOLDEN.read_text())["rows"]
+    total = dict.fromkeys(KERNELS, 0)
+    for row in rows:
+        label = row["label"]
+        t0 = time.perf_counter()
+        topo = build_network(NetworkSpec.from_dict(row["network"]))
+        t_topo = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        tables = build_tables(topo)
+        torch.cuda.synchronize()
+        t_tab = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = dataclasses.asdict(exact_metrics(topo, tables))
+        t_metrics = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        ecc = int(tables.dist_leaf.max())
+        want = rule_products(ecc, topo.n_switches, topo.n_leaves)
+        print(f"{label}: N={topo.n_switches} N1={topo.n_leaves} "
+              f"S={topo.n_endpoints} P={topo.max_ports}; topology "
+              f"{t_topo:.3f} s on the host; tables on the card "
+              f"{t_tab:.3f} s ({tables.squarings} minplus_hops products; "
+              f"leaf eccentricity {ecc} on the card, so the stopping rule "
+              f"takes {want}); metrics {t_metrics:.3f} s; peak device "
+              f"memory {peak} bytes above the {held} held before")
+        if tables.squarings != want:
+            raise AssertionError(f"{label}: {tables.squarings} products, "
+                                 f"the stopping rule predicts {want}")
+        check_counts(counts, {**NO_LAUNCHES,
+                              "minplus_hops": tables.squarings},
+                     f"the {label} table build")
+        paper = row["paper"] or {}
+        print(f"{label}: A={got['A']!r} D={got['D']} D*={got['D_star']} "
+              f"Theta={got['theta']:.4f} C_links={got['cost_links']:.4f} "
+              f"C_switches={got['cost_switches']:.4f}; the paper: "
+              + (", ".join(f"{k} {v}" for k, v in paper.items())
+                 or "no row"))
+        if got != row["metrics"]:
+            diff = {k: (got[k], row["metrics"][k]) for k in got
+                    if got[k] != row["metrics"][k]}
+            raise AssertionError(f"{label}: exact_metrics differs from the "
+                                 f"reference: {diff}")
+        for k in total:
+            total[k] += counts[k]
+        del tables
+        torch.cuda.empty_cache()
+    print(f"all {len(rows)} rows equal {TABLE2_GOLDEN.name} field for field")
+    return total
+
+
+def golden_points(paths) -> list:
+    """``[(Experiment, golden Result dict, golden file name)]``."""
+    from repro_torch.api import Experiment
+    out = []
+    for path in paths:
+        golden = json.loads(path.read_text())
+        out.append((Experiment.from_dict(golden["experiment"]), golden,
+                    path.name))
+    return out
+
+
+def run_shared(points: list) -> tuple:
+    """The points of one fabric and routing through one ``run_all`` with
+    one ``SimulatorCache``, as ``benchmarks/bench_sim.run_scenario``
+    runs a fabric's experiments: the cache's one simulator is built
+    first (set-up seconds and peak bytes, ``minplus_hops`` products
+    against the stopping rule), then ``run_all`` takes it from the
+    cache.  Each Result against its golden field for field, with its run
+    seconds, slots/s, pool stalls and the run's own peak device bytes;
+    the launches of the whole path against the slots run and the one
+    table build.  Returns (launches, the simulator's tables)."""
+    import torch
+    from repro_torch.api import SimulatorCache, run_all
+    exps = [exp for exp, _, _ in points]
+    network, route = exps[0].network, exps[0].route
+    assert all((e.network, e.route) == (network, route) for e in exps)
+    timing = []
+    with SimulatorCache() as cache, timed_runs(timing, peaks=True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = cache.get(network, route)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        tables = sim.tables
+        ecc = int(tables.dist_leaf.max())
+        want = rule_products(ecc, sim.N, sim.n1)
+        print(f"{network.family} {network.param_dict()}: N={sim.N} "
+              f"N1={sim.n1} S={sim.S} P={sim.P}; set-up through the cache "
+              f"{t_setup:.3f} s (topology, {tables.squarings} minplus_hops "
+              f"products, masks; the stopping rule takes {want} at leaf "
+              f"eccentricity {ecc}); peak device memory {peak} bytes above "
+              f"the {held} held before")
+        if tables.squarings != want:
+            raise AssertionError(f"{tables.squarings} products, the "
+                                 f"stopping rule predicts {want}")
+        t0 = time.perf_counter()
+        results = run_all(exps, cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if len(cache) != 1:
+            raise AssertionError(f"the cache holds {len(cache)} simulators")
+        ran_total = 0
+        for (exp, golden, fname), res, rec in zip(points, results, timing):
+            ran = rec["slots_run"] or exp.warm + exp.measure
+            ran_total += ran
+            got = res.to_dict()
+            stats = {k: v for k, v in got.items()
+                     if v is not None and k not in ("experiment", "metric")}
+            print(f"{exp.name}: {res.metric} {stats}; {ran} slots in "
+                  f"{rec['run_s']:.3f} s ({ran / rec['run_s']:.2f} slots/s)"
+                  f"; peak device memory of the run {rec['peak']} bytes")
+            if got != golden:
+                diff = {k: (got.get(k), golden.get(k)) for k in golden
+                        if got.get(k) != golden.get(k)}
+                raise AssertionError(f"{exp.name} Result differs from the "
+                                     f"JAX reference: {diff}")
+            print(f"{exp.name}: Result equals {fname} field for field")
+        print(f"run_all of {len(exps)} experiments: {wall:.3f} s, "
+              f"{sum(r['run_s'] for r in timing):.3f} s of it in the runs")
+        check_counts(counts, {
+            **NO_LAUNCHES, "minplus_hops": tables.squarings,
+            "vc_prearb": (route.speedup + 1) * ran_total,
+            "switch_arbitrate_rows": route.speedup * ran_total},
+            f"the run_all of {network.family}")
+    return counts, tables
+
+
+def run_phase13() -> dict:
+    """Table 2, Figure 5's OFT row and the adversarial families at the
+    paper's size.  Returns the launches summed over their main paths."""
+    import torch
+    phase("13. Table 2, Figure 5's OFT row and the adversarial families")
+    total = run_table2()
+    oft = golden_points(FIG5_OFT_GOLDENS)
+    counts, tables = run_shared(oft)
+    for k in total:
+        total[k] += counts[k]
+    exp = next(e for e, _, _ in oft if e.workload.pattern == "uniform")
+    print("breakdown of an OFT slot under Polarized, uniform load "
+          f"{exp.workload.load}:")
+    breakdown(tables, exp)
+    del tables
+    counts, tables = run_shared(golden_points(ADV_GOLDENS))
+    for k in total:
+        total[k] += counts[k]
     del tables
     torch.cuda.empty_cache()
     return total
@@ -1269,6 +1472,8 @@ def main() -> int:
         launches[k] += n
     for k, n in run_fig7(fig7).items():
         launches[k] += n
+    for k, n in run_phase13().items():
+        launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
     from repro_torch.configs import get_config
@@ -1293,7 +1498,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 5, 8, 12 and 11.
+    # phases 5, 8, 12, 13 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

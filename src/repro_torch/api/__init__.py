@@ -7,11 +7,17 @@
                                      "seed": 1}),
         workload=WorkloadSpec("uniform", load=1.0)))
 
-``python -m repro_torch.api run spec.json`` runs a spec file.
+``run_all`` and ``sweep`` share one simulator among the experiments of a
+fabric (:class:`SimulatorCache`).  ``python -m repro_torch.api run
+spec.json`` runs a spec file; ``sweep``, ``families`` and ``patterns``
+are the other subcommands.
 """
 from .specs import Experiment, NetworkSpec, RouteSpec, WorkloadSpec
-from .registry import build_network, topology_families
-from .runner import Result, run
+from .registry import build_network, topology_families, workload_patterns
+from .runner import Result, SimulatorCache, open_simulator, run, run_all
+from .sweep import expand_axes, sweep
 
 __all__ = ["Experiment", "NetworkSpec", "RouteSpec", "WorkloadSpec",
-           "build_network", "topology_families", "Result", "run"]
+           "build_network", "topology_families", "workload_patterns",
+           "Result", "SimulatorCache", "open_simulator", "run", "run_all",
+           "expand_axes", "sweep"]

@@ -1,14 +1,22 @@
-"""Topology-family resolution for :class:`NetworkSpec`."""
+"""Topology-family resolution for :class:`NetworkSpec`, and the pattern
+registry as the CLI lists it."""
 from __future__ import annotations
 
 from ..core import TOPOLOGY_FAMILIES
 from ..core.topology import Topology
+from ..workloads.patterns import ENGINE_PATTERNS, pattern_kinds
 from .specs import NetworkSpec
 
-__all__ = ["topology_families", "build_network"]
+__all__ = ["topology_families", "build_network", "workload_patterns"]
 
-# families of the reference that come with later slices
-_LATER_FAMILIES = ("oft", "rfc", "jellyfish")
+
+def workload_patterns() -> tuple:
+    """``(name, kind, ported)`` for every spec-level workload pattern,
+    sorted by name; ``ported`` says whether the port's engine runs it
+    (the free-running ``all2all`` among the collectives)."""
+    return tuple((name, kind, name in ENGINE_PATTERNS)
+                 for name, kind in sorted(pattern_kinds().items())
+                 if kind != "engine")
 
 
 def topology_families() -> tuple:
@@ -19,10 +27,6 @@ def build_network(spec: NetworkSpec) -> Topology:
     """Resolve ``spec.family`` and build the topology from ``spec.params``."""
     make = TOPOLOGY_FAMILIES.get(spec.family)
     if make is None:
-        if spec.family in _LATER_FAMILIES:
-            raise NotImplementedError(
-                f"topology family {spec.family!r} is not ported yet; the "
-                f"port builds {topology_families()}")
         raise KeyError(f"unknown topology family {spec.family!r}; known: "
                        f"{topology_families()}")
     return make(**spec.param_dict())

@@ -148,6 +148,43 @@ class WorkloadSpec:
         if self.pattern == "all2all" and self.rounds <= 0:
             raise ValueError("all2all needs rounds > 0 (0 rounds would "
                              "report instant completion of an empty program)")
+        if self.pattern in ("allreduce", "rd_allreduce") and self.ranks:
+            if self.ranks < 2 or self.ranks & (self.ranks - 1):
+                raise ValueError(
+                    f"{self.pattern} ranks must be a power of two >= 2 "
+                    f"(recursive halving/doubling), got {self.ranks}")
+        if self.pattern == "ring_allreduce" and self.ranks and self.ranks < 2:
+            raise ValueError(f"ring_allreduce needs ranks >= 2, got "
+                             f"{self.ranks}")
+        if self.pattern == "shift" and self.shift == 0:
+            raise ValueError("shift pattern needs a non-zero shift offset")
+        if self.pattern == "hotspot":
+            if not 0.0 < self.hot_frac <= 1.0:
+                raise ValueError(f"hot_frac must be in (0, 1], got "
+                                 f"{self.hot_frac}")
+            if self.hot_count < 1:
+                raise ValueError(f"hot_count must be >= 1, got "
+                                 f"{self.hot_count}")
+        if self.pattern == "bursty":
+            if not 0.0 < self.burst_load <= 1.0:
+                raise ValueError(f"burst_load must be in (0, 1], got "
+                                 f"{self.burst_load}")
+            if self.burst_len < 1.0:
+                raise ValueError(f"burst_len must be >= 1 slot, got "
+                                 f"{self.burst_len}")
+            if self.load > self.burst_load:
+                raise ValueError(
+                    f"bursty load {self.load} exceeds burst_load "
+                    f"{self.burst_load}: the long-run offered load can "
+                    "never exceed the in-burst intensity")
+            duty_max = self.burst_len / (self.burst_len + 1.0)
+            if self.load > self.burst_load * duty_max:
+                raise ValueError(
+                    f"bursty duty cycle {self.load / self.burst_load:.3f} "
+                    f"is unreachable: with burst_len {self.burst_len} the "
+                    f"ON fraction tops out at {duty_max:.3f}, so the "
+                    "long-run offered load would silently undershoot "
+                    "`load` — raise burst_len or burst_load")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -232,3 +269,29 @@ class Experiment:
     @classmethod
     def from_json(cls, s: str) -> "Experiment":
         return cls.from_dict(json.loads(s))
+
+    # ------------------------------------------------------------------ #
+    def override(self, path: str, value) -> "Experiment":
+        """Return a copy with the dotted ``path`` replaced by ``value``.
+
+        Paths address the spec tree: ``seed``, ``workload.load``,
+        ``route.policy``, ``network.params.u``, ...  This is the primitive
+        :func:`repro_torch.api.sweep` expands axes with.
+        """
+        head, _, rest = path.partition(".")
+        if not rest:
+            return dataclasses.replace(self, **{head: value})
+        sub = getattr(self, head)
+        if head == "network":
+            field, _, leaf = rest.partition(".")
+            if field == "params":
+                params = sub.param_dict()
+                params[leaf] = value
+                new = dataclasses.replace(sub, params=params)
+            else:
+                new = dataclasses.replace(sub, **{rest: value})
+        elif head in ("route", "workload"):
+            new = dataclasses.replace(sub, **{rest: value})
+        else:
+            raise KeyError(f"cannot override {path!r}")
+        return dataclasses.replace(self, **{head: new})

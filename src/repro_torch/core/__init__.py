@@ -1,15 +1,25 @@
-"""Topologies (numpy on the host) and routing tables (int16 distance
-rows, computed and kept on the card when the caller passes a CUDA
-device)."""
-from .topology import Topology, dragonfly, dragonfly_plus, fat_tree, mrls
+"""Topologies (numpy on the host), routing tables (int16 distance rows,
+computed and kept on the card when the caller passes a CUDA device) and
+the paper's analytic metrics."""
+from .topology import (Topology, dragonfly, dragonfly_plus, fat_tree,
+                       jellyfish, mrls, oft, rfc)
 from .routing import (bfs_distances, minplus_distances, RoutingTables,
                       build_tables)
+from .analytics import (Metrics, exact_metrics, theta, cost_links,
+                        cost_switches, mrls_distance_distribution,
+                        mrls_expected_A, mrls_expected_A_star,
+                        prob_dstar_leq, dstar_thresholds, mrls_design)
 
 # topology-family names the spec layer resolves NetworkSpec.family against
-TOPOLOGY_FAMILIES = {"mrls": mrls, "fat_tree": fat_tree,
+TOPOLOGY_FAMILIES = {"mrls": mrls, "fat_tree": fat_tree, "oft": oft,
                      "dragonfly": dragonfly,
-                     "dragonfly_plus": dragonfly_plus}
+                     "dragonfly_plus": dragonfly_plus, "rfc": rfc,
+                     "jellyfish": jellyfish}
 
-__all__ = ["Topology", "mrls", "fat_tree", "dragonfly", "dragonfly_plus",
-           "bfs_distances", "minplus_distances", "RoutingTables",
-           "build_tables", "TOPOLOGY_FAMILIES"]
+__all__ = ["Topology", "mrls", "fat_tree", "oft", "dragonfly",
+           "dragonfly_plus", "rfc", "jellyfish", "bfs_distances",
+           "minplus_distances", "RoutingTables", "build_tables", "Metrics",
+           "exact_metrics", "theta", "cost_links", "cost_switches",
+           "mrls_distance_distribution", "mrls_expected_A",
+           "mrls_expected_A_star", "prob_dstar_leq", "dstar_thresholds",
+           "mrls_design", "TOPOLOGY_FAMILIES"]

@@ -2,8 +2,8 @@
 
 The port's own copy of the reference's table build: hop distances from
 every leaf, as int16 rows equal to the reference's ``dist_leaf``.  The
-device picks how they are computed.  On the host (no device, or the
-CPU) they come from a BFS over blocks of sources; on the card from
+device picks how they are computed.  On the host (``device="cpu"``)
+they come from a BFS over blocks of sources; on the card from
 min-plus squaring of the int16 hop adjacency through the CUDA
 ``minplus_hops`` kernel (:func:`hop_distances`,
 ``repro_torch.kernels.minplus``), which gives the same table and leaves
@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..kernels.minplus.ops import INF, minplus_hops_op, minplus_op
 from ..kernels.minplus.ref import (HOPS_INF, HOPS_LIMIT, adjacency_matrix,
                                    hops_adjacency, minplus_powers,
@@ -189,6 +190,38 @@ class RoutingTables:
     leaf_block: int = 256          # block height of the mask packing
     squarings: int = 0             # minplus_hops products (0: BFS)
 
+    # the reference's table metrics, each reduced on the device that
+    # holds the rows, in blocks of leaf rows (bounded temporaries) and
+    # with one host sync
+    def _leaf_blocks(self):
+        leaves = torch.as_tensor(self.topo.leaf_ids, dtype=torch.int64,
+                                 device=self.dist_leaf.device)
+        for blk in self.dist_leaf.split(_FINAL_ROWS):
+            yield blk[:, leaves]
+
+    @property
+    def diameter_leaf(self) -> int:
+        return int(torch.stack([b.amax() for b in self._leaf_blocks()])
+                   .max())
+
+    @property
+    def diameter_star(self) -> int:
+        if self.dist_full is not None:
+            return int(self.dist_full.max())
+        return int(self.dist_leaf.max())       # max over (leaf, any-switch)
+
+    @property
+    def avg_distance_leaf(self) -> float:
+        """Mean leaf-to-leaf distance over ordered pairs of distinct
+        leaves.  The reference sums the integer distances in float64,
+        where every partial sum is an integer below 2**53 and so exact;
+        an int64 sum divided once in float64 gives its value bit for
+        bit."""
+        total = torch.stack([b.sum(dtype=torch.int64)
+                             for b in self._leaf_blocks()]).sum()
+        n1 = len(self.topo.leaf_ids)
+        return float(int(total)) / (n1 * (n1 - 1))
+
 
 def _pack_mask_block(dist_block: np.ndarray, nbrs: np.ndarray,
                      valid: np.ndarray, nbr_safe: np.ndarray):
@@ -213,17 +246,18 @@ def build_tables(topo: Topology, full: bool = False, *,
                  leaf_block: int = 256, device=None) -> RoutingTables:
     """Leaf distance tables for ``topo``.
 
-    ``device`` picks where the distances are computed and kept: a CUDA
-    device squares the int16 hop adjacency there with the
-    ``minplus_hops`` kernel (:func:`hop_distances`) and keeps the int16
-    rows on the card; no device or the CPU runs :func:`bfs_distances` on
-    the host.  Either way the rows equal the reference's ``dist_leaf``
-    element for element.
+    ``device`` picks where the distances are computed and kept: the card
+    (the default; it raises with no card) squares the int16 hop
+    adjacency there with the ``minplus_hops`` kernel
+    (:func:`hop_distances`) and keeps the int16 rows on the card;
+    ``device="cpu"`` runs :func:`bfs_distances` on the host.  Either way
+    the rows equal the reference's ``dist_leaf`` element for element.
     """
     squarings = 0
-    if device is not None and torch.device(device).type == "cuda":
+    device = resolve_device(device)
+    if device.type == "cuda":
         dist_leaf, dist_full, squarings = hop_distances(
-            topo.nbrs, topo.leaf_ids, torch.device(device), full=full)
+            topo.nbrs, topo.leaf_ids, device, full=full)
     else:
         dist_leaf = torch.from_numpy(bfs_distances(topo, topo.leaf_ids))
         dist_full = (torch.from_numpy(

@@ -1,11 +1,17 @@
 """Switch-level topologies: the MRLS fabric of the paper (Cano et al.,
-2026) and the Fat-Tree, Dragonfly and Dragonfly+ it is compared with.
+2026) and the fabrics it is compared with.
 
 The port's own copy of the reference's numpy constructors: for the same
 arguments and seed they give identical ``nbrs`` and ``nbr_port`` arrays,
-so both simulators run on one fabric.  :func:`mrls`, :func:`fat_tree`,
-:func:`dragonfly` and :func:`dragonfly_plus` are here; the other
-families follow with the policies that need them.
+so both simulators run on one fabric.
+
+  * :func:`mrls`          -- Multipass Random Leaf-Spine (Definition 4.1)
+  * :func:`rfc`           -- 2-level Random Folded Clos (an MRLS of diameter 2)
+  * :func:`fat_tree`      -- folded-Clos Fat-Tree (+ depopulation)
+  * :func:`oft`           -- 2-level Orthogonal Fat-Tree from PG(2, q)
+  * :func:`dragonfly`     -- canonical balanced Dragonfly
+  * :func:`dragonfly_plus`-- Dragonfly+
+  * :func:`jellyfish`     -- random regular graph fabric
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["Topology", "mrls", "fat_tree", "dragonfly", "dragonfly_plus"]
+__all__ = ["Topology", "mrls", "rfc", "fat_tree", "oft", "dragonfly",
+           "dragonfly_plus", "jellyfish"]
 
 
 @dataclasses.dataclass
@@ -57,6 +64,15 @@ class Topology:
     @property
     def n_endpoints(self) -> int:
         return self.n_leaves * self.endpoints_per_leaf
+
+    @property
+    def n_links(self) -> int:
+        """M — number of bidirectional switch-to-switch links."""
+        return int((self.nbrs >= 0).sum()) // 2
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return (self.nbrs >= 0).sum(axis=1).astype(np.int32)
 
     def leaf_rank(self) -> np.ndarray:
         """[N] int32: rank of each switch among leaves (-1 for non-leaf)."""
@@ -181,6 +197,21 @@ def mrls(
     )
 
 
+def rfc(n_leaves: int, u: int, d: int, seed: int = 0, max_tries: int = 20) -> Topology:
+    """2-level Random Folded Clos: an MRLS re-rolled until it is up/down
+    connected (leaf-leaf diameter 2), the regime where classic RFC routing
+    works.  Raises if the size is beyond the D=2 threshold (see Fig. 3)."""
+    from .routing import bfs_distances  # local import to avoid cycle
+
+    for t in range(max_tries):
+        topo = mrls(n_leaves, u, d, seed=seed + t, name=f"RFC(R={u+d},S={n_leaves*d})")
+        dist = bfs_distances(topo, topo.leaf_ids)
+        if dist[:, topo.leaf_ids].max() <= 2:
+            topo.meta["rerolls"] = t
+            return topo
+    raise ValueError("network too large for up/down (D=2) connectivity — use mrls()")
+
+
 # ---------------------------------------------------------------------- #
 # Fat-Tree (folded Clos, Section 2.1.1)
 # ---------------------------------------------------------------------- #
@@ -248,6 +279,69 @@ def fat_tree(radix: int, h: int, a1: Optional[int] = None) -> Topology:
         level,
         max_ports=radix,
         meta={"radix": radix, "h": h, "k": k, "a1": A1},
+    )
+
+
+# ---------------------------------------------------------------------- #
+# Orthogonal Fat-Tree (2-level, from a polarity of PG(2, q))
+# ---------------------------------------------------------------------- #
+def _pg2_points(q: int) -> np.ndarray:
+    """Canonical representatives of the q^2+q+1 points of PG(2, q), q prime."""
+    pts = [(1, y, z) for y in range(q) for z in range(q)]
+    pts += [(0, 1, z) for z in range(q)]
+    pts += [(0, 0, 1)]
+    return np.asarray(pts, np.int64)
+
+
+def _is_prime(q: int) -> bool:
+    if q < 2:
+        return False
+    i = 2
+    while i * i <= q:
+        if q % i == 0:
+            return False
+        i += 1
+    return True
+
+
+def oft(q: int) -> Topology:
+    """2-level Orthogonal Fat-Tree [6, 7] built from the standard polarity
+    (correlation ``x <-> x^perp``) of PG(2, q), q prime.
+
+    * ``N1 = 2(q^2+q+1)`` leaves (point-side + line-side), ``q+1`` up-links,
+      ``q+1`` endpoint ports each (R = 2(q+1)).
+    * ``N2 = q^2+q+1`` spines; spine ``j`` connects to point-leaves ``p`` with
+      ``p . x_j = 0`` and line-side leaves ``L`` with ``x_j in L`` — i.e. each
+      spine sees q+1 leaves of each side.  Any two opposite-side leaves share
+      a spine => leaf-leaf diameter 2 (paper: D=2, D*=3).
+    """
+    if not _is_prime(q):
+        raise NotImplementedError("oft() supports prime q (the paper uses q=17)")
+    pts = _pg2_points(q)                       # [m, 3]
+    m = len(pts)                               # q^2+q+1
+    # incidence: point i on line j  <=>  pts[i] . pts[j] == 0 (mod q)
+    inc = (pts @ pts.T) % q == 0               # [m, m] symmetric
+    # leaves: 0..m-1 point-side, m..2m-1 line-side; spines: 2m..3m-1
+    edges = []
+    pi, li = np.nonzero(inc)
+    for a, b in zip(pi, li):
+        edges.append((a, 2 * m + b))           # point-leaf a — spine b
+        edges.append((m + a, 2 * m + b))       # line-leaf a  — spine b
+    n = 3 * m
+    is_leaf = np.zeros(n, bool)
+    is_leaf[: 2 * m] = True
+    level = np.where(is_leaf, 0, 1).astype(np.int32)
+    d = q + 1
+    return _from_edges(
+        f"OFT(R={2 * (q + 1)},S={2 * m * d},q={q})",
+        "indirect",
+        n,
+        np.asarray(edges, np.int64),
+        is_leaf,
+        d,
+        level,
+        max_ports=2 * (q + 1),
+        meta={"q": q, "n_leaves": 2 * m, "n_spines": m},
     )
 
 
@@ -348,4 +442,148 @@ def dragonfly_plus(
         level,
         meta={"g": g, "lpg": lpg, "spg": spg, "p": p,
               "global_per_spine": global_per_spine, "trunk": trunk},
+    )
+
+
+# ---------------------------------------------------------------------- #
+# Jellyfish (random regular graph, Singla et al. — PAPERS.md)
+# ---------------------------------------------------------------------- #
+def _components(n: int, edges: np.ndarray) -> np.ndarray:
+    """Connected-component label per vertex (union-find over edges)."""
+    parent = np.arange(n, dtype=np.int64)
+
+    def find(x: int) -> int:
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:          # path compression
+            parent[x], x = root, parent[x]
+        return root
+
+    for a, b in edges:
+        ra, rb = find(int(a)), find(int(b))
+        if ra != rb:
+            parent[rb] = ra
+    return np.asarray([find(i) for i in range(n)], np.int64)
+
+
+def jellyfish(
+    n_switches: int,
+    r: int,
+    d: int,
+    seed: int = 0,
+    repair_passes: int = 200,
+    name: Optional[str] = None,
+) -> Topology:
+    """Jellyfish random-regular-graph fabric (Singla et al.).
+
+    ``n_switches`` switches, each with ``r`` ports wired to other switches
+    and ``d`` endpoint ports (radix ``R = r + d``; every switch is a leaf,
+    like the direct-network Dragonfly).  Construction is the configuration
+    model — a seeded random perfect matching of the ``n*r`` port stubs —
+    followed by two deterministic repair stages:
+
+    * **simple-graph repair**: self-loops and parallel edges are broken by
+      double-edge swaps against randomly chosen partner edges (the swap
+      preserves every switch's degree);
+    * **connectivity repair**: while more than one component remains, an
+      edge inside the largest component and an edge inside another
+      component are cross-swapped, merging the components without
+      changing any degree.
+
+    The whole pipeline draws from one ``np.random.default_rng(seed)``
+    stream, so a (n_switches, r, d, seed) tuple names one exact graph.
+    """
+    if r < 2:
+        raise ValueError(f"jellyfish needs r >= 2 network ports, got {r}")
+    if r >= n_switches:
+        raise ValueError(
+            f"r = {r} must be < n_switches = {n_switches} (simple graph)")
+    if (n_switches * r) % 2:
+        raise ValueError(
+            f"n_switches * r = {n_switches * r} must be even (each link "
+            "consumes two port stubs)")
+    if d < 1:
+        raise ValueError(f"jellyfish needs d >= 1 endpoint ports, got {d}")
+    rng = np.random.default_rng(seed)
+
+    if r == n_switches - 1:
+        # the only simple r-regular graph on n vertices is K_n — the
+        # stub-matching repair cannot reach it, so build it directly
+        iu = np.triu_indices(n_switches, k=1)
+        edges = np.stack([iu[0], iu[1]], axis=1).astype(np.int64)
+        return _from_edges(
+            name or f"JF(R={r + d},S={n_switches * d},r={r})",
+            "direct", n_switches, edges, np.ones(n_switches, bool), d,
+            np.zeros(n_switches, np.int32), max_ports=r,
+            meta={"r": r, "d": d, "R": r + d, "n_switches": n_switches,
+                  "seed": seed})
+
+    stubs = np.repeat(np.arange(n_switches, dtype=np.int64), r)
+    rng.shuffle(stubs)
+    edges = stubs.reshape(-1, 2)                  # [n*r/2, 2]
+
+    # simple-graph repair: swap away self-loops and duplicate edges.
+    for _ in range(repair_passes):
+        lo = np.minimum(edges[:, 0], edges[:, 1])
+        hi = np.maximum(edges[:, 0], edges[:, 1])
+        key = lo * n_switches + hi
+        order = np.argsort(key, kind="stable")
+        sk = key[order]
+        bad = edges[:, 0] == edges[:, 1]          # self-loops
+        bad[order[1:][sk[1:] == sk[:-1]]] = True  # parallel edges
+        bad_idx = np.nonzero(bad)[0]
+        if bad_idx.size == 0:
+            break
+        # double-edge swap: (a,b),(c,e) -> (a,e),(c,b).  Partner edges are
+        # drawn at random; degrees are preserved unconditionally, and the
+        # next pass re-checks whatever the swap produced.
+        partners = rng.integers(0, edges.shape[0], size=bad_idx.size)
+        for i, j in zip(bad_idx, partners):
+            if i == j:
+                continue
+            edges[i, 1], edges[j, 1] = edges[j, 1], edges[i, 1]
+    else:
+        raise ValueError(
+            f"jellyfish(n={n_switches}, r={r}, seed={seed}) could not be "
+            f"repaired to a simple graph in {repair_passes} passes — the "
+            "configuration is too dense; raise n_switches or lower r")
+
+    # connectivity repair: cross-swap an in-component edge with an edge of
+    # the largest component until one component remains.
+    for _ in range(repair_passes):
+        comp = _components(n_switches, edges)
+        labels, counts = np.unique(comp, return_counts=True)
+        if labels.size == 1:
+            break
+        main = labels[np.argmax(counts)]
+        ec = comp[edges[:, 0]]                    # component of each edge
+        inside = np.nonzero(ec != main)[0]
+        anchor = np.nonzero(ec == main)[0]
+        # swap the second endpoints: (a,b) in minor, (c,e) in main ->
+        # (a,e),(c,b) bridges the two components, degrees unchanged.
+        i = int(inside[rng.integers(0, inside.size)])
+        j = int(anchor[rng.integers(0, anchor.size)])
+        # avoid manufacturing a self-loop or duplicate; re-draw next pass
+        if (edges[i, 0] == edges[j, 1] or edges[j, 0] == edges[i, 1]):
+            continue
+        edges[i, 1], edges[j, 1] = edges[j, 1], edges[i, 1]
+    else:
+        raise ValueError(
+            f"jellyfish(n={n_switches}, r={r}, seed={seed}) could not be "
+            f"connected in {repair_passes} swap passes")
+
+    is_leaf = np.ones(n_switches, bool)
+    level = np.zeros(n_switches, np.int32)
+    return _from_edges(
+        name or f"JF(R={r + d},S={n_switches * d},r={r})",
+        "direct",
+        n_switches,
+        edges,
+        is_leaf,
+        d,
+        level,
+        max_ports=r,
+        meta={"r": r, "d": d, "R": r + d, "n_switches": n_switches,
+              "seed": seed},
     )

@@ -20,7 +20,8 @@ Policies: ``polarized``, ``minimal_adaptive``, ``ksp``, and the
 Dragonfly's ``ugal`` (UGAL-L: a Valiant intermediate leaf when the
 queue-times-distance estimate says so) and ``valiant`` (always an
 intermediate leaf).  Traffic: the Bernoulli families ``uniform``,
-``rep``, ``rsp``, ``bu`` and ``mice_elephant`` (measured by
+``rep``, ``rsp``, ``bu``, ``mice_elephant`` and the adversarial
+``tornado``, ``shift``, ``hotspot`` and ``bursty`` (measured by
 ``run_throughput``/``run_latency``) and ``all2all`` (a finite program,
 measured by ``run_completion``).  No failure schedule.
 
@@ -73,6 +74,12 @@ POOL_KEYS = {"fl_buf": 0, "p_sd": 0, "p_mid": -1, "p_bh": 0}
 _I32 = torch.int32
 
 
+def _f32(x: float) -> float:
+    """``x`` rounded to float32: the value a uniform draw is compared
+    with where the reference compares it with a Python float."""
+    return float(np.float32(x))
+
+
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     policy: str = "polarized"
@@ -105,6 +112,14 @@ class Traffic:
       from each half of the endpoints to a uniform endpoint of the
       other; ``mice_elephant`` sends ``elephant_size`` packets with
       probability ``elephant_frac``, else one, to a uniform destination.
+    * The adversarial families, one packet a message: ``tornado`` sends
+      every endpoint to the same slot of the leaf halfway around the
+      leaf ranking; ``shift`` to ``(e + shift) mod S``; ``hotspot`` a
+      ``hot_frac`` share of its messages to one of the first
+      ``hot_count`` endpoints, the rest uniformly; ``bursty`` modulates
+      a uniform source with a two-state (on-off) Markov chain per
+      endpoint: ``burst_load`` while on, bursts of ``burst_len`` slots
+      on average, and a long-run offered load of ``load``.
     * ``all2all``: each endpoint sends ``rounds`` single-packet messages
       to ``(e + r + 1) mod S``, free-running (no round synchronization).
     """
@@ -113,6 +128,12 @@ class Traffic:
     rounds: int = 0
     elephant_frac: float = 0.1   # fraction of messages that are elephants
     elephant_size: int = 16
+    # adversarial Bernoulli knobs
+    shift: int = 1               # shift: dst = (e + shift) mod S
+    hot_frac: float = 0.1        # hotspot: fraction of incast messages
+    hot_count: int = 1           # hotspot: number of hot endpoints
+    burst_len: float = 8.0       # bursty: mean ON duration (slots)
+    burst_load: float = 1.0      # bursty: injection probability while ON
 
     def __post_init__(self):
         check_engine_pattern(self.pattern)
@@ -310,12 +331,49 @@ class Simulator:
             "key": prng.prng_key(self.cfg.seed, device=dev),
         }
 
+    def _check_traffic(self, traffic: Traffic) -> None:
+        """The reference's checks of the adversarial knobs against this
+        fabric, with its messages.  Also: a ``shift`` must fit in int32,
+        the type of the endpoint ids it is added to (the reference's jax
+        refuses a larger Python int when the step runs)."""
+        if traffic.pattern == "shift" and traffic.shift % self.S == 0:
+            raise ValueError(
+                f"shift offset {traffic.shift} is 0 mod {self.S} endpoints "
+                "(every message would be self-addressed)")
+        if traffic.pattern == "shift" and not (
+                -(1 << 31) <= traffic.shift < (1 << 31)):
+            raise OverflowError(f"shift offset {traffic.shift} does not fit "
+                                "in int32, the type of the endpoint ids")
+        if traffic.pattern == "tornado" and self.n1 < 2:
+            raise ValueError("tornado needs at least 2 leaves")
+        if traffic.pattern == "hotspot" and traffic.hot_count > self.S:
+            raise ValueError(
+                f"hot_count {traffic.hot_count} > endpoints {self.S} "
+                "(out-of-range destinations would silently clamp)")
+        if traffic.pattern == "bursty":
+            if traffic.load > traffic.burst_load:
+                raise ValueError(
+                    f"bursty load {traffic.load} exceeds burst_load "
+                    f"{traffic.burst_load}: the long-run offered load can "
+                    "never exceed the in-burst intensity")
+            duty_max = traffic.burst_len / (traffic.burst_len + 1.0)
+            if traffic.load > traffic.burst_load * duty_max:
+                raise ValueError(
+                    f"bursty duty cycle {traffic.load / traffic.burst_load:.3f} "
+                    f"is unreachable: with mean burst length "
+                    f"{traffic.burst_len} the ON fraction tops out at "
+                    f"{duty_max:.3f} (even at p_on = 1), so the long-run "
+                    "offered load would silently undershoot `load` — "
+                    "raise burst_len or burst_load")
+
     def make_state(self, traffic: Traffic, seed: int = 0) -> dict:
         """A fresh state; a non-zero ``seed`` is folded into the key of
         ``cfg.seed`` (seed 0 keeps the plain key), as in the reference.
         ``rep`` adds its endpoint permutation ``perm`` and ``rsp`` its leaf
         permutation ``sigma``, drawn by numpy from ``seed`` as the
-        reference draws them."""
+        reference draws them; ``bursty`` adds each endpoint's on-off
+        state ``burst`` (all off)."""
+        self._check_traffic(traffic)
         st = self.init_state()
         rng = np.random.default_rng(seed)
         if traffic.pattern == "rep":
@@ -324,6 +382,8 @@ class Simulator:
         if traffic.pattern == "rsp":
             st["sigma"] = torch.as_tensor(
                 rng.permutation(self.n1).astype(np.int32), device=self.device)
+        if traffic.pattern == "bursty":
+            st["burst"] = torch.zeros(self.S, dtype=_I32, device=self.device)
         if seed:
             st["key"] = prng.fold_in(st["key"], seed)
         return st
@@ -351,29 +411,61 @@ class Simulator:
         idle = st["msg_rem"] == 0
         pat = traffic.pattern
         size = 1
+        burst_new = None
         if pat == "all2all":
             start = idle & (st["prog"] < traffic.rounds)
             dst = (e + st["prog"] + 1) % S
         else:   # the Bernoulli families
-            # the reference compares against the float32 rounding of the
-            # start probability (and of elephant_frac)
-            threshold = float(np.float32(traffic.load
-                                         / self._mean_msg(traffic)))
+            # the reference compares each uniform draw against the float32
+            # rounding of its threshold (jax's weakly typed Python floats)
             u = prng.uniform(k1, (S,), partitionable=pt)
-            start = idle & (u < threshold)
-            if pat in ("uniform", "mice_elephant"):
+            if pat == "bursty":
+                # two-state Markov (on-off) modulation: the idle -> burst
+                # rate is set so that the long-run offered load is load;
+                # the thresholds in float64 as the reference computes them
+                rho = min(traffic.load / traffic.burst_load, 0.999)
+                p_off = 1.0 / max(traffic.burst_len, 1.0)
+                p_on = min(1.0, p_off * rho / max(1.0 - rho, 1e-9))
+                ka, kb = prng.split(k3, 2, partitionable=pt)
+                stay = (prng.uniform(ka, (S,), partitionable=pt)
+                        >= _f32(p_off))
+                rise = prng.uniform(kb, (S,), partitionable=pt) < _f32(p_on)
+                on = torch.where(st["burst"] > 0, stay, rise)
+                burst_new = on.to(_I32)
+                start = idle & on & (u < _f32(traffic.burst_load))
+            else:
+                start = idle & (u < _f32(traffic.load
+                                         / self._mean_msg(traffic)))
+            if pat in ("uniform", "mice_elephant", "bursty"):
                 dst = prng.randint(k2, (S,), 0, S, partitionable=pt)
             elif pat == "rep":
                 dst = st["perm"]
             elif pat == "rsp":
                 dst = st["sigma"][e // d] * d + e % d
-            else:   # bu: the two halves exchange uniformly
+            elif pat == "bu":   # the two halves exchange uniformly
                 half = S // 2
                 r = prng.randint(k2, (S,), 0, half, partitionable=pt)
                 dst = torch.where(e < half, half + r, r % half)
+            elif pat == "tornado":
+                # every leaf sends to the same slot of the leaf halfway
+                # around the leaf ranking
+                n1 = self.n1
+                dst = ((e // d + n1 // 2) % n1) * d + e % d
+            elif pat == "shift":
+                # int32 arithmetic, wrapping as the reference's does; the
+                # remainder takes the sign of S, as jnp's
+                dst = (e + traffic.shift) % S
+            else:   # hotspot: incast a share onto a few hot endpoints
+                kh, ki = prng.split(k3, 2, partitionable=pt)
+                hot = (prng.uniform(kh, (S,), partitionable=pt)
+                       < _f32(traffic.hot_frac))
+                dst = torch.where(
+                    hot, prng.randint(ki, (S,), 0, traffic.hot_count,
+                                      partitionable=pt),
+                    prng.randint(k2, (S,), 0, S, partitionable=pt))
             if pat == "mice_elephant":
-                frac = float(np.float32(traffic.elephant_frac))
-                eleph = prng.uniform(k3, (S,), partitionable=pt) < frac
+                eleph = (prng.uniform(k3, (S,), partitionable=pt)
+                         < _f32(traffic.elephant_frac))
                 size = torch.where(eleph, traffic.elephant_size, 1).to(_I32)
 
         msg_rem = torch.where(start, size, st["msg_rem"])
@@ -399,6 +491,8 @@ class Simulator:
 
         # non-injectors write into the pad slot at index pool
         widx = torch.where(ok, pid.clamp(min=0), pool)
+        if burst_new is not None:
+            st["burst"] = burst_new
         st["fl_head"] = (st["fl_head"] + n_pop) % pool
         st["fl_len"] = st["fl_len"] - n_pop
         st["p_sd"].index_put_((widx,), (src_lr << 16) | dst_lr)

@@ -16,6 +16,7 @@ __all__ = [
     "ENGINE_ONLY_PATTERNS",
     "SCHEDULES",
     "ENGINE_PATTERNS",
+    "pattern_kinds",
     "check_pattern",
     "check_engine_pattern",
     "check_schedule",
@@ -37,7 +38,7 @@ ENGINE_ONLY_PATTERNS = ("phase", "program", "arrival")
 SCHEDULES = ("", "barrier", "window")
 
 # what the port's engine runs
-ENGINE_PATTERNS = ("uniform", "rep", "rsp", "bu", "mice_elephant", "all2all")
+ENGINE_PATTERNS = BERNOULLI_PATTERNS + ("all2all",)
 
 _KINDS = (
     {p: "bernoulli" for p in BERNOULLI_PATTERNS}
@@ -45,6 +46,11 @@ _KINDS = (
     | {p: "arrival" for p in ARRIVAL_PATTERNS}
     | {p: "engine" for p in ENGINE_ONLY_PATTERNS}
 )
+
+
+def pattern_kinds() -> dict:
+    """``{pattern name: kind}`` for every pattern of the registry."""
+    return dict(_KINDS)
 
 
 def check_pattern(name: str, *, engine: bool = False) -> str:
@@ -85,8 +91,8 @@ def check_engine_pattern(name: str) -> None:
     if name not in ENGINE_PATTERNS:
         raise NotImplementedError(
             f"pattern {name!r} is not ported yet: the PyTorch engine runs "
-            f"{ENGINE_PATTERNS} only; the other Bernoulli families, the "
-            "workload programs and the arrival processes come later")
+            f"{ENGINE_PATTERNS} only; the workload programs and the "
+            "arrival processes come later")
 
 
 def bounded_pareto_mean(alpha: float, cap: int) -> float:

@@ -90,9 +90,10 @@ def test_unported_specs_raise():
     with pytest.raises(NotImplementedError, match="replicated"):
         port_api.run(port_api.Experiment.from_dict(dict(d, replicas=2)),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_api.build_network(port_api.NetworkSpec("jellyfish",
-                                                    {"p": 2}))
+    with pytest.raises(KeyError, match="unknown topology family"):
+        port_api.build_network(port_api.NetworkSpec("torus", {"k": 4}))
+    with pytest.raises(NotImplementedError, match="prime q"):
+        port_api.build_network(port_api.NetworkSpec("oft", {"q": 4}))
     failing = dict(d["network"], failures={"events": []})
     with pytest.raises(NotImplementedError, match="failure"):
         port_api.Experiment.from_dict(dict(d, network=failing))

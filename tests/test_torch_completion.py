@@ -82,8 +82,8 @@ def sims():
     cfg = dict(policy="polarized", max_hops=10, pool=4096)
     ref = JaxSimulator(jax_core.build_tables(jax_core.mrls(14, 3, 3, seed=0)),
                        JaxConfig(**cfg))
-    port = Simulator(port_core.build_tables(port_core.mrls(14, 3, 3,
-                                                           seed=0)),
+    port = Simulator(port_core.build_tables(port_core.mrls(14, 3, 3, seed=0),
+                                            device="cpu"),
                      SimConfig(**cfg), device="cpu")
     yield ref, port
     ref.close()

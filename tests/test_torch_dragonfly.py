@@ -82,7 +82,7 @@ def _rule_products(ecc: int, n: int, n_rows: int) -> int:
 def test_leaf_distances_match_reference(family, args):
     ref = jax_core.build_tables(getattr(jax_core, family)(*args))
     topo = getattr(port_core, family)(*args)
-    tables = port_core.build_tables(topo)
+    tables = port_core.build_tables(topo, device="cpu")
     assert tables.dist_leaf.dtype == torch.int16
     np.testing.assert_array_equal(tables.dist_leaf.numpy(), ref.dist_leaf)
     leaf, _, products = hop_distances(topo.nbrs, topo.leaf_ids,

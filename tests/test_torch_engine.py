@@ -52,7 +52,7 @@ def jax_states():
 
 @pytest.fixture(scope="module")
 def port_sim():
-    tables = port_core.build_tables(port_core.mrls(**FABRIC))
+    tables = port_core.build_tables(port_core.mrls(**FABRIC), device="cpu")
     return Simulator(tables, SimConfig(**CFG), device="cpu")
 
 
@@ -98,7 +98,8 @@ def test_unported_policies_and_patterns_raise(port_sim):
             Simulator(tables, SimConfig(policy=policy), device="cpu")
     with pytest.raises(ValueError, match="unknown policy"):
         Simulator(tables, SimConfig(policy="shortest"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Bernoulli families"):
-        Traffic("tornado")
+    for pattern in ("phase", "program"):
+        with pytest.raises(NotImplementedError, match="workload programs"):
+            Traffic(pattern)
     with pytest.raises(ValueError, match="unknown pattern"):
         Traffic("nonsense")

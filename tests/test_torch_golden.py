@@ -35,7 +35,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def tables():
-    return build_tables(mrls(**GOLDEN["fabric"]))
+    return build_tables(mrls(**GOLDEN["fabric"]), device="cpu")
 
 
 @pytest.mark.parametrize("policy", ["polarized", "minimal_adaptive", "ksp",

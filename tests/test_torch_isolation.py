@@ -35,9 +35,13 @@ def test_entry_points_refuse_to_run_on_the_cpu_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from repro_torch.api import Experiment, NetworkSpec, run
-    from repro_torch.core import build_tables, mrls
+    from repro_torch.core import build_tables, exact_metrics, mrls
     from repro_torch.simulator.engine import SimConfig, Simulator
-    tables = build_tables(mrls(14, 3, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_tables(mrls(14, 3, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        exact_metrics(mrls(14, 3, 3))
+    tables = build_tables(mrls(14, 3, 3), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Simulator(tables, SimConfig())
     exp = Experiment(NetworkSpec("mrls", {"n_leaves": 14, "u": 3, "d": 3}))

@@ -72,7 +72,7 @@ def fabrics():
             geo = dict(cur=js.cur, dq_perm=js._dq_perm, row_of=js._row_of,
                        lo=js._lo, r_max=js.R_max)
         ptopo = getattr(port_core, family)(**params)
-        sim = Simulator(port_core.build_tables(ptopo),
+        sim = Simulator(port_core.build_tables(ptopo, device="cpu"),
                         SimConfig(max_hops=10, pool=4096), device="cpu")
         out[name] = (geo, sim, ptopo)
     return out
@@ -350,7 +350,8 @@ def test_bench_inputs_take_the_plain_version(policy):
     args, kw = bench.rows_inputs(geo, torch.Generator().manual_seed(3),
                                  0.3, policy)
     got = ops.switch_arbitrate_rows(*args, **kw)
-    tables = port_core.build_tables(port_core.mrls(**FABRICS["mrls"][1]))
+    tables = port_core.build_tables(port_core.mrls(**FABRICS["mrls"][1]),
+                                    device="cpu")
     sim = Simulator(tables, SimConfig(), device="cpu")
     st = {k: a.numpy() for k, a in zip(_ARGS, args)}
     want = _old_path(sim, tables.topo, st, policy)

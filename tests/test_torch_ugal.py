@@ -74,7 +74,8 @@ def _cfg(policy):
 def tables():
     """``{fabric: (reference tables, port tables)}``."""
     return {name: (jax_core.build_tables(getattr(jax_core, fam)(**params)),
-                   port_core.build_tables(getattr(port_core, fam)(**params)))
+                   port_core.build_tables(getattr(port_core, fam)(**params),
+                                          device="cpu"))
             for name, (fam, params) in FABRICS.items()}
 
 
