@@ -49,10 +49,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
 7. tables   — the routing tables of the three All2All fabrics built on
    the card (``minplus_hops`` products, mask packing, simulator set-up),
    with the build's peak device bytes; the card's distances equal the
-   host BFS, the products number what the stopping rule predicts from
-   the BFS's leaf eccentricity, and for the Figure-6 MRLS the mask
-   words equal the host's numpy packing of the first, middle and last
-   leaf blocks, each host step timed;
+   host BFS in the rows it computes (from every leaf of the first,
+   middle and last leaf block and 64 seeded random leaves), the
+   products number what the stopping rule predicts from the card's own
+   leaf eccentricity, and for the Figure-6 MRLS the mask words equal
+   the host's numpy packing of those three leaf blocks, each host step
+   timed;
 8. all2all  — the Figure-5 MRLS and both Figure-6 fabrics (MRLS f1 and
    the 50 %-depopulated Fat-Tree, 104,976 endpoints each) run an
    All2All of 16 rounds to completion through ``repro_torch.api.run``;
@@ -61,10 +63,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
 12. Figure 7 — run here, before the LM phases: the Dragonfly
    ``dragonfly(16, 8, 8)`` and Dragonfly+ ``dragonfly_plus(65, 16, 16,
    16, 16)`` under ugal and the MRLS ``mrls(1280, 19, 13)`` under
-   Polarized, 16.5k endpoints each: tables on the card as in phase 7,
-   the three All2All runs, the Dragonfly's uniform (300 + 300 slots),
-   rep, rsp and bu (100 + 100) throughput and mice_elephant latency
-   (100 + 100) through ``repro_torch.api.run``, each Result against its
+   Polarized, 16.5k endpoints each: tables on the card as in phase 7
+   (but held against the host BFS from every leaf), the three All2All
+   runs, the Dragonfly's uniform (300 + 300 slots), rep, rsp and bu
+   (100 + 100) throughput and mice_elephant latency (100 + 100)
+   through ``repro_torch.api.run``, each Result against its
    ``tests/golden/torch_fig7_*.json`` field for field with its launches,
    set-up and run seconds, slots/s and peak device bytes; the All2All
    completion ratio Dragonfly / MRLS; and a Dragonfly slot broken down
@@ -85,6 +88,18 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``tests/golden/torch_{fig5_oft,adv}_*.json`` with its launches, run
    seconds, slots/s and peak device bytes; and an OFT slot broken down
    as in phase 6;
+14. workload programs — run after phase 13: the Rabenseifner allreduce
+   of Figures 5 and 7 (8,192 ranks of 16 packets on the Figure-5 MRLS
+   and on ``oft(17)``, 16,384 on ``dragonfly(16, 8, 8)`` under ugal;
+   barrier schedule, 26 and 28 phases) and the Figure-5 MRLS's 24
+   All2All rounds as a windowed program (``window`` 4), each fabric
+   through one ``run_all`` with one ``SimulatorCache`` as in phase 13,
+   each Result (``phase_slots`` included) against its
+   ``tests/golden/torch_prog_*.json`` field for field with its
+   launches, set-up and run seconds, slots/s and peak device bytes; then
+   two barrier-program slots under the sync debug mode, and the device
+   operations and device ms of a barrier-program slot beside a uniform
+   slot of the Figure-5 MRLS, from ``torch.profiler``;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -106,7 +121,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step), and where a prefill's time goes from ``torch.profiler``.
 
 Each phase prints its wall seconds.  The kernels' launches on the main
-paths of phases 5, 8, 12, 13 and 11 are summed.  The last lines are a
+paths of phases 5, 8, 12, 13, 14 and 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -149,6 +164,11 @@ FIG5_OFT_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fig5_oft_{name}.json"
                                  "thpt_rsp", "thpt_bu", "lat_mice_elephant")]
 ADV_GOLDENS = [ROOT / "tests" / "golden" / f"torch_adv_{name}.json"
                for name in ("tornado", "shift", "hotspot", "bursty")]
+
+# phase 14: the workload programs, grouped by fabric and routing
+PROG_GOLDENS = [ROOT / "tests" / "golden" / f"torch_prog_{name}.json"
+                for name in ("fig5_mrls_allreduce", "fig5_mrls_a2a_window",
+                             "fig5_oft_allreduce", "fig7_df_allreduce")]
 
 HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
 
@@ -576,6 +596,59 @@ def run_breakdown(tables, exp) -> dict:
     return breakdown(tables, exp)
 
 
+def host_ms(step, n: int) -> float:
+    """Host milliseconds per call of ``n`` calls of ``step()``, the card
+    synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def no_sync(step, n: int) -> None:
+    """``n`` calls of ``step()`` under the sync debug mode: a step must
+    never wait for the device, and any synchronising call (.item(),
+    nonzero, a boolean-mask index) raises in this mode."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def profile_slots(step, n: int) -> tuple:
+    """``n`` calls of ``step()`` under ``torch.profiler``: (the profiled
+    wall ms per call, the device-side rows (self device us, count, name),
+    longest first).  Device-side events only (kernels, copies, sets): the
+    CPU-side aten rows carry their kernels' time too and would count it
+    twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0), e.count,
+                    e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return wall_ms, rows
+
+
+def device_load(rows, n: int) -> tuple:
+    """(device-busy ms, device operations) per call of the ``n`` calls
+    that :func:`profile_slots` profiled into ``rows``."""
+    return sum(r[0] for r in rows) / n / 1e3, sum(r[1] for r in rows) / n
+
+
 def breakdown(tables, exp) -> dict:
     """Where one slot of ``exp``'s uniform traffic on ``tables``' fabric
     spends its time on the card: steady-state ms per slot, per-phase CUDA
@@ -590,12 +663,8 @@ def breakdown(tables, exp) -> dict:
     tr = Traffic(exp.workload.pattern, load=exp.workload.load)
     st = sim.make_state(tr, seed=exp.seed)
     sim.run_chunk(st, tr, 100)                  # into steady state
-    torch.cuda.synchronize()
     n = 50
-    t0 = time.perf_counter()
-    sim.run_chunk(st, tr, n)
-    torch.cuda.synchronize()
-    slot_ms = (time.perf_counter() - t0) / n * 1e3
+    slot_ms = host_ms(lambda: sim._step(st, tr), n)
     print(f"steady state: {slot_ms:.4f} ms per slot (host clock, "
           f"{n} slots) = {1e3 / slot_ms:.2f} slots/s")
 
@@ -649,35 +718,16 @@ def breakdown(tables, exp) -> dict:
     print(f"PRNG draws of one slot alone, in the same window: {prng_ms:.4f} "
           f"ms ({100 * prng_ms / phases_ms:.1f}% of the phases' sum)")
 
-    # the step must never wait for the device: any synchronising call
-    # (.item(), nonzero, a boolean-mask index) raises in this mode
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        sim.run_chunk(st, tr, 2)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    no_sync(lambda: sim._step(st, tr), 2)
     print("2 slots under torch.cuda.set_sync_debug_mode('error'): the step "
           "makes no host synchronisation")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n_prof = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run_chunk(st, tr, n_prof)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    # device-side events only (kernels, copies, sets): the CPU-side aten
-    # rows carry their kernels' time too and would count it twice
-    rows = sorted(((getattr(e, "self_device_time_total", 0.0), e.count,
-                    e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / n_prof / 1e3
+    wall_ms, rows = profile_slots(lambda: sim._step(st, tr), n_prof)
+    busy_ms, launches = device_load(rows, n_prof)
     if busy_ms <= 0:
         print("profiler: device time not measured (no device events)")
         return {}
-    launches = sum(r[1] for r in rows) / n_prof
     print(f"profiler, {n_prof} slots: device busy {busy_ms:.4f} ms per "
           f"slot in {launches:.0f} device operations; profiled slot "
           f"{wall_ms:.4f} ms; idle share {100 * (1 - busy_ms / slot_ms):.1f}"
@@ -701,15 +751,38 @@ def run_tables(points: dict) -> dict:
     mask words against the host packing.  Returns each point's
     minplus_hops products."""
     phase("7. routing tables on the card")
-    return check_tables(points)
+    return check_tables(points, sample=True)
 
 
-def check_tables(points: dict) -> dict:
+# phase 7's host BFS: from the first, middle and last leaf block and
+# this many seeded random leaves
+BFS_RANDOM_LEAVES = 64
+
+
+def sampled_leaves(n_leaves: int, block: int):
+    """(sorted leaf ranks, their leaf blocks): every leaf of the first,
+    middle and last block of ``block`` rows, and ``BFS_RANDOM_LEAVES``
+    leaves drawn by a seeded numpy generator."""
+    import numpy as np
+    n_blocks = -(-n_leaves // block)
+    blocks = sorted({0, n_blocks // 2, n_blocks - 1})
+    rows = {r for b in blocks
+            for r in range(b * block, min((b + 1) * block, n_leaves))}
+    rng = np.random.default_rng(0)
+    rows.update(rng.choice(n_leaves, min(BFS_RANDOM_LEAVES, n_leaves),
+                           replace=False).tolist())
+    return np.array(sorted(rows), np.int64), blocks
+
+
+def check_tables(points: dict, sample: bool = False) -> dict:
     """For each point's fabric: the routing tables and the simulator
     set-up on the card, timed, with the build's peak device bytes; the
-    card's ``dist_leaf`` against the host BFS and the products against
-    the stopping rule (and, for the Figure-6 MRLS, the mask words against
-    the host packing).  Returns each point's minplus_hops products."""
+    card's ``dist_leaf`` against the host BFS, row for row, from every
+    leaf or, with ``sample``, from the leaves of :func:`sampled_leaves`;
+    the products against the stopping rule at the card's own leaf
+    eccentricity (and, for the Figure-6 MRLS, the mask words of the
+    first, middle and last leaf block against the host packing).
+    Returns each point's minplus_hops products."""
     import numpy as np
     import torch
     from repro_torch.api import build_network
@@ -751,17 +824,27 @@ def check_tables(points: dict) -> dict:
               f"Simulator.__init__ {t_sim:.3f} s; the device mask "
               f"packing alone, run again: {t_masks:.3f} s for "
               f"{-(-topo.n_leaves // tables.leaf_block)} leaf blocks")
+        rows, blocks = sampled_leaves(topo.n_leaves, tables.leaf_block)
+        if not sample:
+            rows = np.arange(topo.n_leaves)
         t0 = time.perf_counter()
-        bfs = bfs_distances(topo, topo.leaf_ids)
+        bfs = bfs_distances(topo, topo.leaf_ids[rows])
         t_bfs = time.perf_counter() - t0
-        same = np.array_equal(bfs, tables.dist_leaf.cpu().numpy())
-        ecc = int(bfs.max())
+        same = np.array_equal(
+            bfs, tables.dist_leaf[torch.as_tensor(rows, device="cuda")]
+            .cpu().numpy())
+        ecc = int(tables.dist_leaf.max())
         want = rule_products(ecc, topo.n_switches, topo.n_leaves)
-        print(f"{label}: host BFS of the leaf rows {t_bfs:.3f} s; the "
-              f"card's dist_leaf {'equals' if same else 'DIFFERS FROM'}"
-              f" it element for element; leaf eccentricity {ecc}, so the "
-              f"stopping rule takes {want} products (the build took "
-              f"{tables.squarings})")
+        source = (f"{len(rows)} of the {topo.n_leaves} leaves (leaf "
+                  f"blocks {blocks} of {tables.leaf_block} rows and "
+                  f"{BFS_RANDOM_LEAVES} seeded random leaves)" if sample
+                  else f"all {topo.n_leaves} leaves")
+        print(f"{label}: host BFS from {source} "
+              f"{t_bfs:.3f} s; the card's dist_leaf "
+              f"{'equals' if same else 'DIFFERS FROM'} it in those rows, "
+              f"element for element; leaf eccentricity on the card {ecc} "
+              f"(the BFS rows' {int(bfs.max())}), so the stopping rule "
+              f"takes {want} products (the build took {tables.squarings})")
         if not same:
             raise AssertionError(f"dist_leaf from minplus_hops differs from "
                                  f"the BFS on {label}")
@@ -774,12 +857,13 @@ def check_tables(points: dict) -> dict:
             nbr_safe = np.where(valid, nbrs, 0)
             n, w, blk = sim.N, sim.W, tables.leaf_block
             n_blocks = -(-topo.n_leaves // blk)
-            checked = sorted({0, n_blocks // 2, n_blocks - 1})
+            checked = blocks
             host_s = []
             for b in checked:
                 lo, hi = b * blk, min((b + 1) * blk, topo.n_leaves)
+                at = np.searchsorted(rows, np.arange(lo, hi))
                 t0 = time.perf_counter()
-                min_b, away_b = _pack_mask_block(bfs[lo:hi], nbrs, valid,
+                min_b, away_b = _pack_mask_block(bfs[at], nbrs, valid,
                                                  nbr_safe)
                 host_s.append(time.perf_counter() - t0)
                 for name, host, dev_t in (("min", min_b, sim.min_mask),
@@ -804,33 +888,39 @@ def check_tables(points: dict) -> dict:
 @contextlib.contextmanager
 def timed_runs(timing: list, peaks: bool = False):
     """Append to ``timing`` the seconds (``run_s``) and the slots
-    (``slots_run``; None where the run returns no state) of each
-    ``Simulator`` measurement run, read around the user's call without
-    changing it; with ``peaks``, also the peak device bytes of the run
-    alone (``peak``: the peak statistics are reset before it)."""
+    (``slots_run``: the steps it took; a barrier program sets its state's
+    slot back at every phase) of each ``Simulator`` measurement run, read
+    around the user's call without changing it; with ``peaks``, also the
+    peak device bytes of the run alone (``peak``: the peak statistics are
+    reset before it)."""
     import torch
     from repro_torch.simulator.engine import Simulator
     saved = {name: getattr(Simulator, name) for name in
-             ("run_completion", "run_throughput", "run_latency")}
+             ("run_completion", "run_throughput", "run_latency",
+              "run_program", "_step")}
+    steps = [0]
+
+    def counted(self, *args, **kw):
+        steps[0] += 1
+        return saved["_step"](self, *args, **kw)
 
     def timed(fn):
         def call(self, *args, **kw):
             torch.cuda.synchronize()
             if peaks:
                 torch.cuda.reset_peak_memory_stats()
+            steps[0] = 0
             t0 = time.perf_counter()
             r = fn(self, *args, **kw)
             torch.cuda.synchronize()
             timing.append(dict(
-                run_s=time.perf_counter() - t0,
-                slots_run=(int(r["state"]["slot"]) if "state" in r
-                           else None),
+                run_s=time.perf_counter() - t0, slots_run=steps[0],
                 peak=torch.cuda.max_memory_allocated() if peaks else None))
             return r
         return call
 
     for name, fn in saved.items():
-        setattr(Simulator, name, timed(fn))
+        setattr(Simulator, name, counted if name == "_step" else timed(fn))
     try:
         yield
     finally:
@@ -862,7 +952,7 @@ def run_points(points: dict, squarings: dict) -> tuple:
             counts = read_counts()
             rec = timing.pop()
             run_s = rec["run_s"]
-            ran = rec["slots_run"] or exp.warm + exp.measure
+            ran = rec["slots_run"]
             got = res.to_dict()
             stats = {k: v for k, v in got.items()
                      if v is not None and k not in ("experiment", "metric")}
@@ -1075,7 +1165,7 @@ def run_shared(points: list) -> tuple:
             raise AssertionError(f"the cache holds {len(cache)} simulators")
         ran_total = 0
         for (exp, golden, fname), res, rec in zip(points, results, timing):
-            ran = rec["slots_run"] or exp.warm + exp.measure
+            ran = rec["slots_run"]
             ran_total += ran
             got = res.to_dict()
             stats = {k: v for k, v in got.items()
@@ -1118,6 +1208,92 @@ def run_phase13() -> dict:
     for k in total:
         total[k] += counts[k]
     del tables
+    torch.cuda.empty_cache()
+    return total
+
+
+def program_slot_costs(tables, exp) -> None:
+    """A barrier-program slot of ``exp`` (an allreduce) beside a uniform
+    slot of the same fabric: two program slots under the sync debug mode,
+    then each slot's host ms, device ms and device operations, and those
+    of the phase scheduler (``_advance_program``) alone.  The uniform
+    slot is measured as :func:`breakdown` measures it: 100 slots into
+    steady state, the host time over 50 and the profile over 10."""
+    from repro_torch.api.runner import _collective_program
+    from repro_torch.simulator.engine import Simulator, Traffic
+    sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
+    cp = _collective_program(sim, exp)
+    tr = sim.program_traffic(cp)
+    st = sim.make_program_state(cp, seed=exp.seed)
+    kw = dict(chunk=exp.chunk, max_slots=exp.max_slots)
+    for _ in range(20):                         # past the first phase
+        sim._step(st, tr, **kw)
+    # the scheduler's gathers and resets must not wait for the device
+    no_sync(lambda: sim._step(st, tr, **kw), 2)
+    print("2 barrier-program slots under torch.cuda.set_sync_debug_mode("
+          "'error'): the program step makes no host synchronisation")
+
+    def costs(step, n_host, n_prof=10):
+        """(host ms, device-busy ms, device operations) per call."""
+        ms = host_ms(step, n_host)
+        return (ms, *device_load(profile_slots(step, n_prof)[1], n_prof))
+
+    prog = costs(lambda: sim._step(st, tr, **kw), 10)
+    # the scheduler alone, mid-phase (no crossing: it writes back what it
+    # reads)
+    ph = int(st["phase"])
+    sched = costs(
+        lambda: sim._advance_program(st, tr, kw["chunk"], kw["max_slots"]),
+        10)
+    if int(st["phase"]) != ph:
+        raise AssertionError("the scheduler crossed a phase on its own")
+    uni = Traffic("uniform", load=1.0)
+    st = sim.make_state(uni, seed=exp.seed)
+    sim.run_chunk(st, uni, 100)                 # into steady state
+    bern = costs(lambda: sim._step(st, uni), 50)
+    for label, (ms, busy_ms, ops) in (
+            (f"barrier-program slot ({cp.name}, slots 23-42 of the run)",
+             prog), ("phase scheduler alone (_advance_program)", sched),
+            ("uniform slot (load 1.0, past 100 slots)", bern)):
+        if busy_ms <= 0:
+            print(f"{label}: host {ms:.4f} ms; device time not "
+                  "measured (the profiler saw no device events)")
+            continue
+        print(f"{label}: host {ms:.4f} ms ({1e3 / ms:.2f} "
+              f"slots/s), device busy {busy_ms:.4f} ms in {ops:.0f} device "
+              f"operations, idle share {100 * (1 - busy_ms / ms):.1f}%")
+    if prog[1] > 0 and bern[1] > 0:
+        print(f"program slot - uniform slot: {prog[2] - bern[2]:+.0f} "
+              f"device operations, {prog[1] - bern[1]:+.4f} device ms (the "
+              "program's inject draws no destinations; the scheduler "
+              "adds its own)")
+
+
+def run_phase14() -> dict:
+    """The workload programs at the figures' size: each fabric's points
+    through one ``run_all`` with one ``SimulatorCache``, against their
+    goldens, and a program slot's costs.  Returns the launches summed
+    over their main paths."""
+    import torch
+    phase("14. workload programs: the allreduce rows of Figures 5 and 7 "
+          "and a windowed All2All")
+    total = dict.fromkeys(KERNELS, 0)
+    groups = {}
+    for point in golden_points(PROG_GOLDENS):
+        exp = point[0]
+        groups.setdefault((exp.network, exp.route), []).append(point)
+    mrls_tables = mrls_exp = None
+    for points in groups.values():
+        counts, tables = run_shared(points)
+        for k in total:
+            total[k] += counts[k]
+        exp = points[0][0]
+        if exp.network.family == "mrls":
+            mrls_tables, mrls_exp = tables, exp
+        del tables
+    print("the cost of a program slot on the Figure-5 MRLS, Polarized:")
+    program_slot_costs(mrls_tables, mrls_exp)
+    del mrls_tables
     torch.cuda.empty_cache()
     return total
 
@@ -1474,6 +1650,8 @@ def main() -> int:
         launches[k] += n
     for k, n in run_phase13().items():
         launches[k] += n
+    for k, n in run_phase14().items():
+        launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
     from repro_torch.configs import get_config
@@ -1498,7 +1676,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 5, 8, 12, 13 and 11.
+    # phases 5, 8, 12, 13, 14 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

@@ -2,16 +2,19 @@
 
 Commands (each takes ``--device cpu|cuda``; the default is the card):
 
-* ``run <spec.json> [--out f]`` — run one experiment spec (the
+* ``run <spec.json> [--out f]`` — run an experiment spec (the
   reference's JSON format) and print its Result as JSON; ``--out`` also
-  writes it to a file.
+  writes it to a file.  A file of ``{"experiments": [...]}`` runs them
+  all through one ``run_all`` (a simulator shared by the experiments of
+  a fabric) and prints the list of records.
 * ``sweep <spec.json> [--seed S] [--out f]`` — the spec file holds
   ``{"base": <experiment>, "axes": {"workload.load": [...], ...}}``;
   prints one summary line per grid point, ``--out`` writes the Results
   as a JSON list.  ``--seed`` overrides the base seed.
 * ``families`` — list the topology families the port builds.
 * ``patterns`` — list the workload-pattern registry, each with its kind
-  and whether the port's engine runs it.
+  and whether the port runs it (every collective does, the arrival
+  families not yet).
 
 ``families`` and ``patterns`` run nothing; they take ``--device`` so
 that every command has the same surface.
@@ -25,7 +28,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from .registry import topology_families, workload_patterns
-from .runner import Result, run
+from .runner import Result, run, run_all
 from .specs import Experiment
 from .sweep import sweep
 
@@ -46,8 +49,14 @@ def _summary(res: Result) -> str:
 
 
 def _cmd_run(args) -> int:
-    exp = Experiment.from_dict(json.loads(Path(args.spec).read_text()))
-    text = run(exp, device=args.device).to_json(indent=1)
+    doc = json.loads(Path(args.spec).read_text())
+    if isinstance(doc, dict) and "experiments" in doc:
+        exps = [Experiment.from_dict(d) for d in doc["experiments"]]
+        text = json.dumps([r.to_dict() for r in run_all(
+            exps, device=args.device)], indent=1)
+    else:
+        text = run(Experiment.from_dict(doc),
+                   device=args.device).to_json(indent=1)
     print(text)
     if args.out:
         Path(args.out).write_text(text + "\n")

@@ -12,9 +12,11 @@ __all__ = ["topology_families", "build_network", "workload_patterns"]
 
 def workload_patterns() -> tuple:
     """``(name, kind, ported)`` for every spec-level workload pattern,
-    sorted by name; ``ported`` says whether the port's engine runs it
-    (the free-running ``all2all`` among the collectives)."""
-    return tuple((name, kind, name in ENGINE_PATTERNS)
+    sorted by name; ``ported`` says whether the port runs it (the
+    Bernoulli families directly, every collective as a workload program
+    or, for the free-running ``all2all``, directly)."""
+    return tuple((name, kind, name in ENGINE_PATTERNS
+                  or kind == "collective")
                  for name, kind in sorted(pattern_kinds().items())
                  if kind != "engine")
 

@@ -6,10 +6,13 @@ card by default (the routing tables' distances too).  A
 :class:`SimulatorCache` keeps one simulator (tables, masks and the
 static index tables) per fabric, routing and device, so the experiments
 of one fabric share its set-up.  The port runs one replica of the
-``throughput`` and ``latency`` metrics of the Bernoulli families the
-engine runs and the ``completion`` metric of a free-running
-``all2all``; scheduled collectives, the other metrics and replicas come
-later.
+``throughput`` and ``latency`` metrics of the Bernoulli families and the
+``completion`` metric of the collectives: the free-running ``all2all``
+directly, every other collective (a scheduled ``all2all``, the
+allreduce family, anything added through ``register_program_builder``)
+as a compiled workload program on the engine's phase scheduler.  The
+``serving`` and ``resilience`` metrics, the arrival families and
+replicas come later.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from .._device import resolve_device
 from ..core.routing import build_tables
 from ..simulator.engine import Simulator, Traffic
-from ..workloads.patterns import check_pattern
+from ..workloads import (PROGRAM_BUILDERS, build_collective_program,
+                         compile_program)
 from .registry import build_network
 from .specs import Experiment, NetworkSpec, RouteSpec
 
@@ -35,13 +39,24 @@ _LATENCY_KEYS = (("p50", "p0.5"), ("p99", "p0.99"), ("p999", "p0.999"),
                  ("p9999", "p0.9999"))
 
 
+def _retuple(v):
+    """JSON arrays -> tuples, recursively (inverse of JSON serialization)."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_retuple(x) for x in v)
+    return v
+
+
 @dataclasses.dataclass(frozen=True)
 class Result:
     """Structured record of one experiment run, field for field the
-    reference's ``repro.api.runner.Result``.  Only the fields relevant to
-    ``metric`` are populated; the rest stay ``None``.  ``latency`` maps
-    ``p50``/``p99``/``p999``/``p9999`` to slots (``None`` when the window
-    ejected nothing)."""
+    reference's ``repro.api.runner.Result``, and serialised as it is.
+    Only the fields relevant to ``metric`` are populated; the rest stay
+    ``None``.  ``latency`` maps ``p50``/``p99``/``p999``/``p9999`` to
+    slots (``None`` when the window ejected nothing); ``phase_slots``
+    holds the per-phase completion slots of a workload program.  The
+    replica fields (``replica_seeds``, ``per_replica``, ``aggregates``)
+    are filled by the reference's batched runs only, until replicas are
+    ported; records that hold them load here all the same."""
 
     experiment: Experiment
     metric: str
@@ -69,10 +84,34 @@ class Result:
         d["experiment"] = self.experiment.to_dict()
         if self.latency is not None:
             d["latency"] = dict(self.latency)
+        if self.phase_slots is not None:
+            d["phase_slots"] = list(self.phase_slots)
+        if self.replica_seeds is not None:
+            d["replica_seeds"] = list(self.replica_seeds)
+        if self.per_replica is not None:
+            d["per_replica"] = {k: list(v) for k, v in self.per_replica.items()}
+        if self.aggregates is not None:
+            d["aggregates"] = {k: dict(v) for k, v in self.aggregates.items()}
         return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "Result":
+        d = dict(d)
+        d["experiment"] = Experiment.from_dict(d["experiment"])
+        for key in ("phase_slots", "replica_seeds"):
+            if d.get(key) is not None:
+                d[key] = _retuple(d[key])
+        if d.get("per_replica") is not None:
+            d["per_replica"] = {k: _retuple(v)
+                                for k, v in d["per_replica"].items()}
+        return cls(**d)
 
     def to_json(self, **kw) -> str:
         return json.dumps(self.to_dict(), **kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Result":
+        return cls.from_dict(json.loads(s))
 
 
 def _nan_none(v) -> Optional[float]:
@@ -156,24 +195,33 @@ def _to_traffic(exp: Experiment) -> Traffic:
                    burst_load=w.burst_load)
 
 
+def _is_program(exp: Experiment) -> bool:
+    """Collectives with a program builder run as workload programs.
+    ``all2all`` only joins when a schedule is requested (its default is
+    the free-running engine pattern); everything else in
+    ``PROGRAM_BUILDERS`` — built-in or registered through
+    ``register_program_builder`` — always compiles."""
+    w = exp.workload
+    if w.pattern == "all2all":
+        return bool(w.schedule)
+    return w.pattern in PROGRAM_BUILDERS
+
+
 def _check_runnable(experiment: Experiment) -> str:
     """Refuse what the port does not run yet, before anything is built;
     returns the metric."""
     metric = experiment.resolved_metric()
     w = experiment.workload
+    program = _is_program(experiment)
+    # a program with another metric raises the reference's ValueError
+    if program and metric != "completion":
+        raise ValueError(f"{w.pattern} only supports the completion "
+                         "metric")
     if metric not in ("throughput", "latency", "completion"):
         raise NotImplementedError(
             f"metric {metric!r} is not ported yet: the port runs "
             "'throughput', 'latency' and 'completion'")
-    # the reference runs a scheduled all2all and the other collectives as
-    # workload programs
-    if check_pattern(w.pattern) == "collective" and (
-            w.pattern != "all2all" or w.schedule):
-        raise NotImplementedError(
-            f"collective {w.pattern!r} (schedule {w.schedule!r}) runs as a "
-            "workload program, which is not ported yet: the port runs the "
-            "free-running all2all; workload programs come later")
-    if metric == "completion" and w.pattern != "all2all":
+    if metric == "completion" and not program and w.pattern != "all2all":
         raise ValueError(f"completion metric needs a collective workload, "
                          f"got {w.pattern!r}")
     if experiment.replicas != 1:
@@ -231,8 +279,35 @@ def run_all(experiments, *, cache: Optional[SimulatorCache] = None,
             cache.close()
 
 
+def _collective_program(sim: Simulator, exp: Experiment):
+    """Build and compile the workload program of a collective experiment:
+    the allreduce family defaults to the ``barrier`` schedule (bitwise
+    the host loop), a scheduled ``all2all`` compiles its rounds under
+    the requested mode."""
+    w = exp.workload
+    prog = build_collective_program(
+        w.pattern, sim.S, rounds=w.rounds, ranks=w.ranks,
+        vec_packets=w.vec_packets)
+    return compile_program(prog, schedule=w.schedule or "barrier",
+                           window=w.window)
+
+
+def _run_collective(sim: Simulator, exp: Experiment) -> Result:
+    """One program run on the phase scheduler: every phase, one host sync
+    a chunk."""
+    cp = _collective_program(sim, exp)
+    r = sim.run_program(cp, chunk=exp.chunk, max_slots=exp.max_slots,
+                        seed=exp.seed)
+    return Result(experiment=exp, metric="completion",
+                  slots=int(r["slots"]), completed=bool(r["completed"]),
+                  pool_stall=int(r["pool_stall"]),
+                  phase_slots=tuple(int(s) for s in r["phase_slots"]))
+
+
 def _run_on(sim: Simulator, experiment: Experiment, metric: str) -> Result:
     w = experiment.workload
+    if _is_program(experiment):
+        return _run_collective(sim, experiment)
     traffic = _to_traffic(experiment)
     if metric == "completion":
         r = sim.run_completion(traffic, expected=sim.S * w.rounds,

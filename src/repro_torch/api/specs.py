@@ -107,9 +107,10 @@ class RouteSpec:
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
-    """Traffic program: the reference's fields and validation.  The
-    engine runs the patterns of ``workloads.patterns.ENGINE_PATTERNS``
-    (the free-running ``all2all`` among them) and refuses the others."""
+    """Traffic program: the reference's fields and validation.  The port
+    runs the Bernoulli families and every collective (the scheduled ones
+    and those added through ``register_program_builder`` as workload
+    programs); it refuses the arrival families."""
 
     pattern: str = "uniform"
     load: float = 1.0

@@ -4,8 +4,8 @@ The reference's state, fetched to the host (``jax.device_get``), is a
 dict of numpy arrays; :func:`state_from_jax` turns it into the port's
 state on a device, so a run can continue in the port from a state the
 reference reached.  :func:`state_to_numpy` goes the other way and gives
-exactly the reference's arrays: the PRNG key as uint32 and the pool
-tensors without their pad slot.  The routing tables need no conversion:
+exactly the reference's arrays: the PRNG keys (``key``, and a program
+state's ``key0``) as uint32 and the pool tensors without their pad slot.  The routing tables need no conversion:
 both packages build them from the same numpy code.
 
 :func:`params_from_jax` turns the reference model's parameter tree, as
@@ -19,7 +19,7 @@ import torch
 
 from .models.common import flatten_specs
 from .models.model import build_specs
-from .simulator.engine import POOL_KEYS
+from .simulator.engine import KEY_KEYS, POOL_KEYS
 
 __all__ = ["state_from_jax", "state_to_numpy", "params_from_jax",
            "cache_to_numpy"]
@@ -30,7 +30,7 @@ def state_from_jax(np_state: dict, device) -> dict:
     st = {}
     for k, v in np_state.items():
         a = np.asarray(v)
-        if k == "key":
+        if k in KEY_KEYS:
             a = a.astype(np.uint32).view(np.int32)
         elif k in POOL_KEYS:
             a = np.concatenate([a, np.asarray([POOL_KEYS[k]], a.dtype)])
@@ -43,7 +43,7 @@ def state_to_numpy(st: dict) -> dict:
     out = {}
     for k, v in st.items():
         a = v.detach().cpu().numpy()
-        if k == "key":
+        if k in KEY_KEYS:
             a = a.view(np.uint32)
         elif k in POOL_KEYS:
             a = a[:-1]

@@ -22,8 +22,16 @@ queue-times-distance estimate says so) and ``valiant`` (always an
 intermediate leaf).  Traffic: the Bernoulli families ``uniform``,
 ``rep``, ``rsp``, ``bu``, ``mice_elephant`` and the adversarial
 ``tornado``, ``shift``, ``hotspot`` and ``bursty`` (measured by
-``run_throughput``/``run_latency``) and ``all2all`` (a finite program,
-measured by ``run_completion``).  No failure schedule.
+``run_throughput``/``run_latency``), ``all2all`` (a finite program,
+measured by ``run_completion``), ``phase`` (one exchange with a partner
+row the caller sets, measured by ``run_completion(state=...)``) and
+``program``: a compiled workload program
+(:class:`repro_torch.workloads.CompiledProgram`) run by the phase
+scheduler ``_advance_program`` at the end of every slot and driven by
+``run_program``.  ``schedule="barrier"`` replays the per-phase host loop
+bitwise (a crossing resets the transient state and the key to what a
+fresh state holds); ``schedule="window"`` lets endpoints run ``window``
+phases ahead of the completed ones.  No failure schedule.
 
 State and its lifetime:
 
@@ -39,8 +47,9 @@ State and its lifetime:
   same dict.  A state passed to them is consumed, as a donated state is
   in the reference; clone what you need to keep first.
 * The step makes no host synchronisation: no ``.item()``, no
-  ``nonzero``, no boolean-mask indexing.  ``run_completion`` syncs once
-  per chunk, to test whether to run the next one.
+  ``nonzero``, no boolean-mask indexing.  ``run_completion`` and
+  ``run_program`` sync once per chunk, to test whether to run the next
+  one.
 """
 from __future__ import annotations
 
@@ -58,7 +67,7 @@ from ..kernels.switch_arb.ops import (flat_rows_geometry,
 from ..workloads.patterns import check_engine_pattern
 
 __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
-           "percentiles", "POLICIES", "POOL_KEYS", "LATENCY_QS"]
+           "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "LATENCY_QS"]
 
 POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant")
 _LATER_POLICIES = ("degraded",)
@@ -70,6 +79,11 @@ LATENCY_QS = (0.5, 0.99, 0.999, 0.9999)
 
 # state tensors indexed by packet id; each has a pad slot at index pool
 POOL_KEYS = {"fl_buf": 0, "p_sd": 0, "p_mid": -1, "p_bh": 0}
+# state tensors holding a PRNG key (two uint32 words as int32)
+KEY_KEYS = ("key", "key0")
+# what a barrier crossing sets back to 0, as a fresh state holds it
+_PHASE_RESET = ("slot", "ejected", "prog", "msg_rem", "qhead", "qlen",
+                "oq_head", "oq_len", "eq_head", "eq_len", "fl_head")
 
 _I32 = torch.int32
 
@@ -122,10 +136,19 @@ class Traffic:
       on average, and a long-run offered load of ``load``.
     * ``all2all``: each endpoint sends ``rounds`` single-packet messages
       to ``(e + r + 1) mod S``, free-running (no round synchronization).
+    * ``phase``: each endpoint sends ``phase_packets`` packets to
+      ``partner[e]``, a state row the caller sets (the host-loop idiom).
+    * ``program``: a compiled workload program of ``n_phases`` phases run
+      by the phase scheduler under ``schedule`` (``"barrier"`` replays
+      the host loop bitwise; ``"window"`` lets endpoints run ``window``
+      phases ahead of the globally-completed phase count).  The
+      program's arrays live in the *state* (``make_program_state``);
+      only its shape and schedule live here.
     """
     pattern: str = "uniform"
     load: float = 1.0
     rounds: int = 0
+    phase_packets: int = 0
     elephant_frac: float = 0.1   # fraction of messages that are elephants
     elephant_size: int = 16
     # adversarial Bernoulli knobs
@@ -134,6 +157,10 @@ class Traffic:
     hot_count: int = 1           # hotspot: number of hot endpoints
     burst_len: float = 8.0       # bursty: mean ON duration (slots)
     burst_load: float = 1.0      # bursty: injection probability while ON
+    # compiled workload program (schedule shape; arrays live in the state)
+    n_phases: int = 0
+    schedule: str = "barrier"    # "barrier" | "window"
+    window: int = 1              # lookahead depth for schedule="window"
 
     def __post_init__(self):
         check_engine_pattern(self.pattern)
@@ -205,6 +232,9 @@ class Simulator:
         self._oq_ids = torch.arange(cfg.out_queue, dtype=_I32, device=dev)
         self._qe_ids = torch.arange(self.QE, dtype=_I32, device=dev)
         self._e = torch.arange(self.S, dtype=_I32, device=dev)
+        # a fresh free list, written back at a barrier crossing
+        self._fl_fresh = torch.arange(self.pool, dtype=_I32, device=dev)
+        self._phase_ids = {}        # n_phases -> arange, for the scheduler
         # link phase: downstream input queue of every (switch, port, VC)
         # and the port validity mask (ports with no link stay masked)
         nb0 = np.maximum(nbrs, 0).reshape(-1).astype(np.int64)
@@ -372,7 +402,8 @@ class Simulator:
         ``rep`` adds its endpoint permutation ``perm`` and ``rsp`` its leaf
         permutation ``sigma``, drawn by numpy from ``seed`` as the
         reference draws them; ``bursty`` adds each endpoint's on-off
-        state ``burst`` (all off)."""
+        state ``burst`` (all off); ``phase`` a zero ``partner`` row for
+        the caller to set."""
         self._check_traffic(traffic)
         st = self.init_state()
         rng = np.random.default_rng(seed)
@@ -384,6 +415,9 @@ class Simulator:
                 rng.permutation(self.n1).astype(np.int32), device=self.device)
         if traffic.pattern == "bursty":
             st["burst"] = torch.zeros(self.S, dtype=_I32, device=self.device)
+        if traffic.pattern == "phase":
+            st["partner"] = torch.zeros(self.S, dtype=_I32,
+                                        device=self.device)
         if seed:
             st["key"] = prng.fold_in(st["key"], seed)
         return st
@@ -415,6 +449,29 @@ class Simulator:
         if pat == "all2all":
             start = idle & (st["prog"] < traffic.rounds)
             dst = (e + st["prog"] + 1) % S
+        elif pat == "phase":
+            start = idle & (st["prog"] < 1)
+            dst = st["partner"]
+            size = traffic.phase_packets
+        elif pat == "program":
+            NP = traffic.n_phases
+            if traffic.schedule == "window":
+                # st["prog"] is each endpoint's phase pointer; an endpoint
+                # may start its phase-p message once p is within window
+                # of the count of completed phases (a count, not a prefix)
+                ncomp = (st["phase_done"] >= 0).sum(dtype=_I32)
+                pe = st["prog"]
+                start = idle & (pe < (ncomp + traffic.window).clamp(max=NP))
+                idx = pe.clamp(0, NP - 1).long() * S + e
+                dst = st["prog_partner"].reshape(-1)[idx]
+                size = st["prog_packets"].reshape(-1)[idx]
+            else:
+                # barrier: one message per endpoint per phase, the rows of
+                # the running phase (an index_select: no host sync)
+                ph = st["phase"].clamp(max=NP - 1).reshape(1)
+                start = idle & (st["prog"] < 1) & (st["phase"] < NP)
+                dst = st["prog_partner"].index_select(0, ph)[0]
+                size = st["prog_packets"].index_select(0, ph)[0]
         else:   # the Bernoulli families
             # the reference compares each uniform draw against the float32
             # rounding of its threshold (jax's weakly typed Python floats)
@@ -710,7 +767,7 @@ class Simulator:
                 0, torch.where(reached, pkt0, self.pool).long(), -1)
         return st
 
-    def _step(self, st, traffic: Traffic):
+    def _step(self, st, traffic: Traffic, chunk=None, max_slots=None):
         key, k_inj, k_link, *k_xb = prng.split(
             st["key"], 3 + self.cfg.speedup, partitionable=self._pt)
         st["key"] = key
@@ -719,6 +776,69 @@ class Simulator:
             self._crossbar_round(st, k_xb[r])
         self._link_phase(st, k_link)
         st["slot"] = st["slot"] + 1
+        if traffic.pattern == "program":
+            self._advance_program(st, traffic, chunk, max_slots)
+        return st
+
+    # ------------------------------------------------------------------ #
+    # phase scheduler of the compiled workload programs
+    # ------------------------------------------------------------------ #
+    def _advance_program(self, st, traffic: Traffic, chunk, max_slots):
+        """The phase bookkeeping of ``Traffic("program")`` after a slot.
+
+        ``barrier``: when the running phase's ejection target is met, or
+        its ``max_slots`` budget is gone on a chunk boundary (the phase's
+        own slot count, reset at every crossing, as the host loop sees
+        it), record the crossing slot in ``phase_done``, bump ``phase``
+        and set the transient state back to what a fresh state holds:
+        the slot, ejection and message counters, the seven queue heads
+        and lengths, the free list (its pad slot untouched) and the key
+        (``key0``).  So each phase is bitwise a standalone host-loop
+        ``run_completion`` and ``phase_done`` holds per-phase durations.
+        ``pool_stall``, ``created``, ``hop_sum`` and ``lat_hist`` run on.
+
+        ``window``: no resets; phase ``p`` is complete once the total
+        deliveries reach ``expected_cum[p]`` (``phase_done`` holds
+        cumulative completion slots).
+        """
+        NP = traffic.n_phases
+        if traffic.schedule == "window":
+            newly = (st["phase_done"] < 0) & (
+                st["ejected"] >= st["prog_expected_cum"])
+            st["phase_done"] = torch.where(newly, st["slot"],
+                                           st["phase_done"])
+            st["phase_ok"] = st["phase_ok"] | newly
+            st["phase"] = (st["phase_done"] >= 0).sum(dtype=_I32)
+            return st
+
+        ph = st["phase"]
+        active = ph < NP
+        exp = st["prog_expected"].index_select(
+            0, ph.clamp(max=NP - 1).reshape(1))[0]
+        natural = active & (st["ejected"] >= exp)
+        crossed = natural
+        if max_slots is not None:
+            budget_gone = st["slot"] >= max_slots
+            if chunk is not None:
+                budget_gone = budget_gone & (st["slot"] % chunk == 0)
+            crossed = natural | (active & budget_gone)
+        pids = self._phase_ids.get(NP)
+        if pids is None:
+            pids = self._phase_ids[NP] = torch.arange(
+                NP, dtype=_I32, device=self.device)
+        hot = (pids == ph) & crossed
+        st["phase_done"] = torch.where(hot, st["slot"], st["phase_done"])
+        st["phase_ok"] = st["phase_ok"] | (hot & natural)
+        st["phase"] = ph + crossed.to(_I32)
+        # queue buffers keep stale ids (unreachable at length 0) and the
+        # pool attributes stale packets (unreachable once the free list
+        # is fresh), as behaviour-neutral as in a fresh state
+        for k in _PHASE_RESET:
+            st[k] = torch.where(crossed, 0, st[k])
+        fl = st["fl_buf"][:self.pool]
+        fl.copy_(torch.where(crossed, self._fl_fresh, fl))
+        st["fl_len"] = torch.where(crossed, self.pool, st["fl_len"])
+        st["key"] = torch.where(crossed, st["key0"], st["key"])
         return st
 
     def run_chunk(self, st, traffic: Traffic, n_slots: int):
@@ -750,8 +870,12 @@ class Simulator:
 
     def run_completion(self, traffic: Traffic, expected: int,
                        chunk: int = 128, max_slots: int = 100_000,
-                       seed: int = 0) -> dict:
+                       seed: int = 0, state: Optional[dict] = None) -> dict:
         """Run until ``expected`` packets are delivered (collectives).
+
+        ``state`` (a state of this simulator, consumed) takes the place of
+        a fresh ``make_state(traffic, seed)``: the host-loop idiom sets a
+        ``Traffic("phase")`` state's ``partner`` row and runs it here.
 
         ``slots`` is the exact slot at which the ejection counter first
         reached ``expected``: a ``done`` tensor on the device records it
@@ -766,7 +890,9 @@ class Simulator:
         # shifted value would wrap int32 and corrupt latency measurement
         assert max_slots < (1 << 23), \
             "max_slots overflows the p_bh born-slot packing (< 2^23)"
-        st = self.make_state(traffic, seed)
+        if state is not None:
+            _check_scalar_state(state)
+        st = state if state is not None else self.make_state(traffic, seed)
         done = torch.full((), -1, dtype=_I32, device=self.device)
         while bool(((done < 0) & (st["slot"] < max_slots)).item()):
             for _ in range(chunk):
@@ -786,6 +912,107 @@ class Simulator:
         self.run_chunk(st, traffic, measure)
         hist = (st["lat_hist"] - base).cpu().numpy()
         return {"hist": hist, **percentiles(hist, LATENCY_QS)}
+
+    # ------------------------------------------------------------------ #
+    # compiled workload programs (repro_torch.workloads)
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def program_traffic(program) -> Traffic:
+        """The :class:`Traffic` of a compiled program: only its phase
+        count and schedule (the arrays ride in the state)."""
+        return Traffic("program", n_phases=program.n_phases,
+                       schedule=program.schedule, window=program.window)
+
+    def make_program_state(self, program, seed: int = 0) -> dict:
+        """A fresh state for a compiled program: ``make_state``'s, plus
+        copies of the program's arrays on this simulator's device and the
+        scheduler's registers (the ``phase`` counter, each phase's
+        ``phase_done`` slot and ``phase_ok`` flag, and ``key0``, the key
+        every barrier phase starts from)."""
+        if program.n_endpoints != self.S:
+            raise ValueError(
+                f"program compiled for {program.n_endpoints} endpoints, "
+                f"fabric has {self.S}")
+        dev, n = self.device, program.n_phases
+        st = self.make_state(self.program_traffic(program), seed)
+        for k in ("partner", "packets", "expected", "expected_cum"):
+            st["prog_" + k] = getattr(program, k).to(dev, _I32, copy=True)
+        st["phase"] = torch.zeros((), dtype=_I32, device=dev)
+        st["phase_done"] = torch.full((n,), -1, dtype=_I32, device=dev)
+        st["phase_ok"] = torch.zeros((n,), dtype=torch.bool, device=dev)
+        st["key0"] = st["key"].clone()
+        return st
+
+    def run_program(self, program, *, chunk: int = 16,
+                    max_slots: int = 60_000, seed: int = 0, seeds=None,
+                    state: Optional[dict] = None,
+                    budget_chunks: Optional[int] = None) -> dict:
+        """Run a compiled :class:`repro_torch.workloads.CompiledProgram`
+        to its end.
+
+        ``state`` (a ``make_program_state`` state, consumed) takes the
+        place of a fresh one of ``seed``.  Whether to run the next chunk
+        of ``chunk`` slots is tested before each chunk, and only there
+        (one host sync per chunk): ``barrier`` runs until every phase has
+        crossed (a phase stuck past ``max_slots`` is forced across on a
+        chunk boundary), ``window`` until the last phase completes or
+        ``max_slots`` is reached.  Returns ``slots`` (total),
+        ``completed``, ``pool_stall``, ``phase_slots`` (``[n_phases]``:
+        per-phase durations under ``barrier``, cumulative completion
+        slots under ``window``, where a phase never completed reports
+        the final slot) and ``state``.
+
+        Replicas (``seeds=``, a ``state`` with a replica axis) and the
+        resumable bounded segments (``budget_chunks=``) are not ported
+        yet.
+        """
+        assert max_slots < (1 << 23), \
+            "max_slots overflows the p_bh born-slot packing (< 2^23)"
+        if seeds is not None:
+            raise NotImplementedError(
+                "run_program(seeds=...) runs replicas, which are not ported "
+                "yet (ROADMAP item 6); run one seed at a time")
+        if budget_chunks is not None:
+            raise NotImplementedError(
+                "run_program(budget_chunks=...) is the resumable runtime's "
+                "bounded segment, which is not ported yet (ROADMAP item 9)")
+        traffic = self.program_traffic(program)
+        if state is not None:
+            _check_scalar_state(state)
+        st = (state if state is not None
+              else self.make_program_state(program, seed))
+        NP = traffic.n_phases
+        window = traffic.schedule == "window"
+
+        def running():
+            if window:
+                live = (st["phase_done"][-1] < 0) & (st["slot"] < max_slots)
+            else:
+                live = st["phase"] < NP
+            return bool(live.item())
+
+        while running():
+            for _ in range(chunk):
+                self._step(st, traffic, chunk=chunk, max_slots=max_slots)
+        out = torch.cat([st["phase_done"], st["phase_ok"].to(_I32),
+                         torch.stack([st["slot"], st["pool_stall"]])])
+        out = out.cpu().numpy()
+        done, ok = out[:NP], out[NP:2 * NP] > 0
+        final, stall = int(out[-2]), int(out[-1])
+        if window:
+            done = np.where(done >= 0, done, final).astype(np.int32)
+            slots = int(done[-1])
+        else:
+            slots = int(done.sum())
+        return {"slots": slots, "completed": bool(ok.all()),
+                "pool_stall": stall, "phase_slots": done, "state": st}
+
+
+def _check_scalar_state(st: dict) -> None:
+    if st["ejected"].ndim:
+        raise NotImplementedError(
+            "a state with a replica axis runs replicas, which are not "
+            "ported yet (ROADMAP item 6)")
 
 
 def pack_mask_block(dist_block: torch.Tensor, valid: torch.Tensor,

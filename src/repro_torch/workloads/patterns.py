@@ -2,8 +2,10 @@
 
 The port's own copy of the reference registry, so a spec file names the
 same patterns and fails with the same errors in both packages.  The
-engine runs ``ENGINE_PATTERNS``; :func:`check_engine_pattern` says what
-is still to come.
+registry is mutable: :func:`register_pattern` (called by
+:func:`repro_torch.workloads.programs.register_program_builder`) adds a
+name.  The engine runs ``ENGINE_PATTERNS``; :func:`check_engine_pattern`
+says what is still to come.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ __all__ = [
     "SCHEDULES",
     "ENGINE_PATTERNS",
     "pattern_kinds",
+    "register_pattern",
     "check_pattern",
     "check_engine_pattern",
     "check_schedule",
@@ -37,9 +40,10 @@ ENGINE_ONLY_PATTERNS = ("phase", "program", "arrival")
 # collective execution schedules ("" = per-pattern default)
 SCHEDULES = ("", "barrier", "window")
 
-# what the port's engine runs
-ENGINE_PATTERNS = BERNOULLI_PATTERNS + ("all2all",)
+# what the port's engine runs: "arrival" comes with the open loop
+ENGINE_PATTERNS = BERNOULLI_PATTERNS + ("all2all", "phase", "program")
 
+# mutable: registered collectives (register_pattern) join the built-ins
 _KINDS = (
     {p: "bernoulli" for p in BERNOULLI_PATTERNS}
     | {p: "collective" for p in COLLECTIVE_PATTERNS}
@@ -51,6 +55,20 @@ _KINDS = (
 def pattern_kinds() -> dict:
     """``{pattern name: kind}`` for every pattern of the registry."""
     return dict(_KINDS)
+
+
+def register_pattern(name: str, kind: str = "collective",
+                     *, overwrite: bool = False) -> None:
+    """Register a new pattern name.  Spec-level collectives also need a
+    program builder (use
+    :func:`repro_torch.workloads.programs.register_program_builder`,
+    which calls this)."""
+    if kind not in ("bernoulli", "collective", "arrival", "engine"):
+        raise ValueError(f"unknown pattern kind {kind!r}")
+    if name in _KINDS and not overwrite:
+        raise ValueError(f"pattern {name!r} already registered "
+                         f"({_KINDS[name]})")
+    _KINDS[name] = kind
 
 
 def check_pattern(name: str, *, engine: bool = False) -> str:
@@ -91,8 +109,8 @@ def check_engine_pattern(name: str) -> None:
     if name not in ENGINE_PATTERNS:
         raise NotImplementedError(
             f"pattern {name!r} is not ported yet: the PyTorch engine runs "
-            f"{ENGINE_PATTERNS} only; the workload programs and the "
-            "arrival processes come later")
+            f"{ENGINE_PATTERNS} only; the arrival processes come with the "
+            "open loop (ROADMAP item 7)")
 
 
 def bounded_pareto_mean(alpha: float, cap: int) -> float:

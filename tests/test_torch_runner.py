@@ -131,8 +131,10 @@ def test_run_all_shares_a_given_cache_and_drops_its_own(monkeypatch):
 
 def test_run_all_refuses_before_building(monkeypatch):
     built = _count_builds(monkeypatch)
-    exps = [_exp(port_api), _exp(port_api, workload={"pattern": "allreduce"})]
-    with pytest.raises(NotImplementedError, match="workload program"):
+    # an allreduce runs now; replicas are still to come
+    exps = [_exp(port_api), _exp(port_api, workload={"pattern": "allreduce"}),
+            _exp(port_api, replicas=2)]
+    with pytest.raises(NotImplementedError, match="replicated"):
         port_api.run_all(exps, device="cpu")
     assert built == []
 
@@ -183,6 +185,7 @@ def test_cli_sweep_families_and_patterns(tmp_path, capsys):
     listed = capsys.readouterr().out.splitlines()
     assert "tornado  [bernoulli]" in listed
     assert "all2all  [collective]" in listed
-    assert "allreduce  [collective]  (not ported yet)" in listed
+    for name in ("allreduce", "ring_allreduce", "rd_allreduce"):
+        assert f"{name}  [collective]" in listed
     assert "poisson  [arrival]  (not ported yet)" in listed
     assert not any(line.startswith(("phase", "program")) for line in listed)
