@@ -100,6 +100,26 @@ Phases, in order; any failure ends the script with a non-zero exit:
    two barrier-program slots under the sync debug mode, and the device
    operations and device ms of a barrier-program slot beside a uniform
    slot of the Figure-5 MRLS, from ``torch.profiler``;
+15. replicas — run after phase 14: ``switch_arbitrate_rows`` and
+   ``vc_prearb`` at 4 replicas (``kernels/switch_arb/bench.py``'s
+   ``run_replica_cases`` on seeded Figure-5 states, a different one a
+   replica) bitwise against their plain versions and against one
+   unbatched launch a replica, and their times
+   (``time_replicas``); then Figure 5's MRLS row at the figure's 4
+   replicas through one ``SimulatorCache``: the uniform point (300 + 300
+   slots, seeds 0-3) through ``repro_torch.api.run`` against
+   ``tests/golden/torch_rep_fig5_mrls_uniform_r4.json`` field for field
+   and replica 0 against ``torch_fig5_mrls_u18.json``, and the
+   Rabenseifner allreduce as four seed-only experiments through
+   ``run_all`` (folded into one batched run) against
+   ``torch_rep_fig5_mrls_allreduce_r4.json``, replica 0 against
+   ``torch_prog_fig5_mrls_allreduce.json``; launches as a scalar run's
+   (``vc_prearb`` 3 and ``switch_arbitrate_rows`` 2 a slot, whatever
+   the replicas), run seconds, replica-slots/s and peak device bytes;
+   two batched slots under the sync debug mode; and the R = 4 uniform
+   slot, measured as phase 6 measures the scalar one, beside phase 6's
+   (host ms, replica-slots/s, device ms, device operations, idle share)
+   from ``torch.profiler``;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -120,8 +140,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    memory, the kernels' launches (32 + 32 per prefill, none per decode
    step), and where a prefill's time goes from ``torch.profiler``.
 
-Each phase prints its wall seconds.  The kernels' launches on the main
-paths of phases 5, 8, 12, 13, 14 and 11 are summed.  The last lines are a
+Each phase prints its wall seconds, and the script its total.  The
+kernels' launches on the main paths of phases 5, 8, 12, 13, 14, 15 and
+11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -170,6 +191,12 @@ PROG_GOLDENS = [ROOT / "tests" / "golden" / f"torch_prog_{name}.json"
                 for name in ("fig5_mrls_allreduce", "fig5_mrls_a2a_window",
                              "fig5_oft_allreduce", "fig7_df_allreduce")]
 
+# phase 15: Figure 5's MRLS row at the figure's 4 replicas
+REP_UNIFORM_GOLDEN = (ROOT / "tests" / "golden"
+                      / "torch_rep_fig5_mrls_uniform_r4.json")
+REP_ALLREDUCE_GOLDEN = (ROOT / "tests" / "golden"
+                        / "torch_rep_fig5_mrls_allreduce_r4.json")
+
 HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -198,6 +225,7 @@ KERNELS = {
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _PHASE = {"name": None, "t0": 0.0}
+T_START = time.perf_counter()
 
 
 def phase(name=None) -> None:
@@ -588,10 +616,9 @@ def expected_counts(exp, slots: int, squarings: int) -> dict:
             "minplus_hops": squarings}
 
 
-def run_breakdown(tables, exp) -> dict:
+def run_breakdown(tables, exp) -> tuple:
     """Where one slot of the Fig-5 fabric spends its time on the card.
-    Returns each kernel's device ms per launch on the main path, from the
-    profiler (empty if it saw no device events)."""
+    Returns :func:`breakdown`'s (kernel ms a launch, slot costs)."""
     phase("6. breakdown of a Fig-5 slot")
     return breakdown(tables, exp)
 
@@ -649,19 +676,20 @@ def device_load(rows, n: int) -> tuple:
     return sum(r[0] for r in rows) / n / 1e3, sum(r[1] for r in rows) / n
 
 
-def breakdown(tables, exp) -> dict:
+def breakdown(tables, exp) -> tuple:
     """Where one slot of ``exp``'s uniform traffic on ``tables``' fabric
     spends its time on the card: steady-state ms per slot, per-phase CUDA
     events, the slot's PRNG draws alone, two slots under the sync debug
-    mode, and the profiler's device time and idle share.  Returns each
-    kernel's device ms per launch (empty if the profiler saw no device
-    events)."""
+    mode, and the profiler's device time and idle share.  Returns (each
+    kernel's device ms per launch, empty if the profiler saw no device
+    events; the slot's ``{"ms", "busy_ms", "ops"}``)."""
     import torch
     from repro_torch import prng
     from repro_torch.simulator.engine import Simulator, Traffic
     sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
     tr = Traffic(exp.workload.pattern, load=exp.workload.load)
-    st = sim.make_state(tr, seed=exp.seed)
+    # the step functions take batched states: one replica of exp.seed
+    st = sim.make_batch_state(tr, [exp.seed])
     sim.run_chunk(st, tr, 100)                  # into steady state
     n = 50
     slot_ms = host_ms(lambda: sim._step(st, tr), n)
@@ -693,7 +721,8 @@ def breakdown(tables, exp) -> dict:
     n_ev = 20
     for _ in range(n_ev):
         key, k_inj, k_link, *k_xb = prng.split(
-            st["key"], 3 + sim.cfg.speedup, partitionable=sim._pt)
+            st["key"], 3 + sim.cfg.speedup,
+            partitionable=sim._pt).unbind(-2)
         st["key"] = key
         ev = [torch.cuda.Event(enable_timing=True) for _ in names + [0]]
         ev[0].record()
@@ -725,9 +754,10 @@ def breakdown(tables, exp) -> dict:
     n_prof = 10
     wall_ms, rows = profile_slots(lambda: sim._step(st, tr), n_prof)
     busy_ms, launches = device_load(rows, n_prof)
+    cost = {"ms": slot_ms, "busy_ms": busy_ms, "ops": launches}
     if busy_ms <= 0:
         print("profiler: device time not measured (no device events)")
-        return {}
+        return {}, cost
     print(f"profiler, {n_prof} slots: device busy {busy_ms:.4f} ms per "
           f"slot in {launches:.0f} device operations; profiled slot "
           f"{wall_ms:.4f} ms; idle share {100 * (1 - busy_ms / slot_ms):.1f}"
@@ -742,7 +772,7 @@ def breakdown(tables, exp) -> dict:
     for dev_us, count, k in rows[:10]:
         print(f"  {dev_us / n_prof / 1e3:8.4f} ms/slot {count // n_prof:6d}"
               f"x/slot  {k[:80]}")
-    return per_launch
+    return per_launch, cost
 
 
 def run_tables(points: dict) -> dict:
@@ -897,7 +927,8 @@ def timed_runs(timing: list, peaks: bool = False):
     from repro_torch.simulator.engine import Simulator
     saved = {name: getattr(Simulator, name) for name in
              ("run_completion", "run_throughput", "run_latency",
-              "run_program", "_step")}
+              "run_program", "run_throughput_batch", "run_latency_batch",
+              "_step")}
     steps = [0]
 
     def counted(self, *args, **kw):
@@ -1224,7 +1255,7 @@ def program_slot_costs(tables, exp) -> None:
     sim = Simulator(tables, exp.route.to_sim_config(), device="cuda")
     cp = _collective_program(sim, exp)
     tr = sim.program_traffic(cp)
-    st = sim.make_program_state(cp, seed=exp.seed)
+    st = sim.make_program_batch_state(cp, [exp.seed])
     kw = dict(chunk=exp.chunk, max_slots=exp.max_slots)
     for _ in range(20):                         # past the first phase
         sim._step(st, tr, **kw)
@@ -1248,7 +1279,7 @@ def program_slot_costs(tables, exp) -> None:
     if int(st["phase"]) != ph:
         raise AssertionError("the scheduler crossed a phase on its own")
     uni = Traffic("uniform", load=1.0)
-    st = sim.make_state(uni, seed=exp.seed)
+    st = sim.make_batch_state(uni, [exp.seed])
     sim.run_chunk(st, uni, 100)                 # into steady state
     bern = costs(lambda: sim._step(st, uni), 50)
     for label, (ms, busy_ms, ops) in (
@@ -1294,6 +1325,174 @@ def run_phase14() -> dict:
     print("the cost of a program slot on the Figure-5 MRLS, Polarized:")
     program_slot_costs(mrls_tables, mrls_exp)
     del mrls_tables
+    torch.cuda.empty_cache()
+    return total
+
+
+def _differs(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in want
+                if got.get(k) != want.get(k)}
+        raise AssertionError(f"{label} differs from the JAX reference: "
+                             f"{diff}")
+
+
+def replica_slot_costs(sim, exp, scalar: dict) -> None:
+    """A uniform slot of ``exp``'s batched state (its replicas) on
+    ``sim``, measured as :func:`breakdown` measures the scalar slot
+    (100 slots into steady state, the host time over 50, the profile
+    over 10; two batched slots under the sync debug mode first), beside
+    ``scalar``, phase 6's scalar slot of the same fabric in this call:
+    host ms a slot, replica-slots/s, device-busy ms, device operations,
+    idle share, and each crossbar kernel's device time a launch."""
+    from repro_torch.simulator.engine import Traffic
+    tr = Traffic(exp.workload.pattern, load=exp.workload.load)
+    reps = exp.replicas
+    st = sim.make_batch_state(tr, exp.replica_seeds())
+    sim.run_chunk(st, tr, 100)                  # into steady state
+    no_sync(lambda: sim._step(st, tr), 2)
+    print(f"2 slots of {reps} replicas under torch.cuda.set_sync_debug_mode"
+          "('error'): the batched step makes no host synchronisation")
+    ms = host_ms(lambda: sim._step(st, tr), 50)
+    n_prof = 10
+    _, rows = profile_slots(lambda: sim._step(st, tr), n_prof)
+    busy_ms, ops = device_load(rows, n_prof)
+    del st
+    for r, c in ((1, scalar), (reps, {"ms": ms, "busy_ms": busy_ms,
+                                      "ops": ops})):
+        label = (f"R = {r} uniform slot (load {exp.workload.load}"
+                 + (", phase 6)" if r == 1 else ")"))
+        busy = (f"device busy {c['busy_ms']:.4f} ms in {c['ops']:.0f} "
+                f"device operations, idle share "
+                f"{100 * (1 - c['busy_ms'] / c['ms']):.1f}%"
+                if c["busy_ms"] > 0 else "device time not measured")
+        print(f"{label}: host {c['ms']:.4f} ms a slot = {1e3 / c['ms']:.2f} "
+              f"slots/s = {r * 1e3 / c['ms']:.2f} replica-slots/s; {busy}")
+    print(f"R = {reps} / R = 1: host ms {ms / scalar['ms']:.3f}x, "
+          f"replica-slots/s {reps * scalar['ms'] / ms:.3f}x")
+    for dev_us, count, k in rows:
+        for nm in ("vc_prearb", "switch_arbitrate_rows"):
+            if f"{nm}_kernel" in k:
+                print(f"  {nm}: {dev_us / count:.3f} us a launch on the main "
+                      f"path at R = {reps} ({count // n_prof} a slot)")
+
+
+def run_phase15(scalar_slot: dict) -> dict:
+    """Replicas on the card: the crossbar kernels with a replica axis,
+    Figure 5's MRLS uniform row and Rabenseifner allreduce at the
+    figure's 4 replicas against their goldens (replica 0 against the
+    scalar goldens), their launches, and the cost of a batched slot
+    beside phase 6's scalar one (``scalar_slot``).  Returns the launches
+    summed over the two main-path runs."""
+    import torch
+    from repro_torch.api import Experiment, SimulatorCache, run, run_all
+    from repro_torch.kernels.switch_arb import bench as arb_bench
+    phase("15. replicas: Figure 5's MRLS row at the figure's 4 replicas")
+    geo = arb_bench.geometry("fig5", "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    arb_bench.run_replica_cases(geo, gen)
+    arb_bench.time_replicas(geo, gen)
+    del geo, gen
+
+    total = dict.fromkeys(KERNELS, 0)
+    uniform = json.loads(REP_UNIFORM_GOLDEN.read_text())
+    scalar = json.loads(FIG5_GOLDEN.read_text())
+    allreduce = json.loads(REP_ALLREDUCE_GOLDEN.read_text())
+    scalar_ar = json.loads(PROG_GOLDENS[0].read_text())
+    exp = Experiment.from_dict(uniform["experiment"])
+    exps = [Experiment.from_dict(g["experiment"]) for g in allreduce]
+    assert all((e.network, e.route) == (exp.network, exp.route)
+               for e in exps)
+    timing = []
+    with SimulatorCache() as cache, timed_runs(timing, peaks=True):
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = cache.get(exp.network, exp.route)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"set-up of the Figure-5 simulator: {time.perf_counter() - t0:.3f}"
+              f" s ({sim.tables.squarings} minplus_hops products)")
+        check_counts(counts, {**NO_LAUNCHES,
+                              "minplus_hops": sim.tables.squarings},
+                     "the simulator's set-up")
+
+        # Figure 5's uniform row through run, 4 replicas in one run
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(exp, cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rec = timing.pop()
+        slots = exp.warm + exp.measure
+        got = res.to_dict()
+        print(f"{exp.name} x {exp.replicas} replicas: per replica "
+              f"{got['per_replica']}; {rec['slots_run']} slots of "
+              f"{exp.replicas} replicas in {rec['run_s']:.3f} s "
+              f"({rec['slots_run'] / rec['run_s']:.2f} slots/s = "
+              f"{exp.replicas * rec['slots_run'] / rec['run_s']:.2f} "
+              f"replica-slots/s; {wall:.3f} s through run); peak device "
+              f"memory of the run {rec['peak']} bytes")
+        _differs(exp.name, got, uniform)
+        print(f"{exp.name}: Result equals {REP_UNIFORM_GOLDEN.name} field for"
+              " field")
+        for k in ("throughput", "avg_hops", "ejected", "pool_stall"):
+            if got["per_replica"][k][0] != scalar[k]:
+                raise AssertionError(f"replica 0's {k} is not the scalar "
+                                     f"golden's: {got['per_replica'][k][0]}"
+                                     f" != {scalar[k]}")
+        print(f"replica 0 equals {FIG5_GOLDEN.name}'s scalar fields")
+        if rec["slots_run"] != slots:
+            raise AssertionError(f"{rec['slots_run']} steps for {slots} "
+                                 "slots")
+        check_counts(counts, expected_counts(exp, slots, 0),
+                     f"the {exp.replicas}-replica uniform run")
+        for k in total:
+            total[k] += counts[k]
+
+        # the allreduce as four seed-only experiments: run_all folds them
+        reset_counts()
+        t0 = time.perf_counter()
+        results = run_all(exps, cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if len(timing) != 1:
+            raise AssertionError(f"run_all made {len(timing)} runs, not one "
+                                 "batched run")
+        rec = timing.pop()
+        ran = rec["slots_run"]
+        for res, want in zip(results, allreduce):
+            got = res.to_dict()
+            print(f"{res.name} seed {res.experiment.seed}: slots "
+                  f"{res.slots}, completed {res.completed}, pool_stall "
+                  f"{res.pool_stall}")
+            _differs(f"{res.name} seed {res.experiment.seed}", got, want)
+        print(f"the 4 unfolded Results equal {REP_ALLREDUCE_GOLDEN.name} "
+              f"field for field; one batched run of {ran} steps in "
+              f"{rec['run_s']:.3f} s ({ran / rec['run_s']:.2f} steps/s = "
+              f"{len(exps) * ran / rec['run_s']:.2f} replica-steps/s; "
+              f"{wall:.3f} s through run_all); peak device memory of the "
+              f"run {rec['peak']} bytes")
+        first = results[0].to_dict()
+        for k in ("slots", "completed", "phase_slots", "pool_stall"):
+            if first[k] != scalar_ar[k]:
+                raise AssertionError(f"replica 0's {k} is not the scalar "
+                                     f"golden's: {first[k]} != "
+                                     f"{scalar_ar[k]}")
+        print(f"replica 0 equals {PROG_GOLDENS[0].name}'s "
+              f"({scalar_ar['slots']} slots)")
+        check_counts(counts, {**NO_LAUNCHES,
+                              "vc_prearb": (exp.route.speedup + 1) * ran,
+                              "switch_arbitrate_rows": exp.route.speedup
+                              * ran},
+                     "the folded 4-seed allreduce")
+        for k in total:
+            total[k] += counts[k]
+
+        print("the cost of a batched slot on the Figure-5 MRLS, Polarized:")
+        replica_slot_costs(sim, exp, scalar_slot)
+        del sim
     torch.cuda.empty_cache()
     return total
 
@@ -1641,7 +1840,7 @@ def main() -> int:
     del topos
     run_golden()
     launches = run_full_width(tables.squarings)
-    per_launch = run_breakdown(tables, exp)
+    per_launch, fig5_slot = run_breakdown(tables, exp)
     del tables
     squarings = run_tables(points)
     for k, n in run_all2all(points, squarings).items():
@@ -1651,6 +1850,8 @@ def main() -> int:
     for k, n in run_phase13().items():
         launches[k] += n
     for k, n in run_phase14().items():
+        launches[k] += n
+    for k, n in run_phase15(fig5_slot).items():
         launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
@@ -1676,7 +1877,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 5, 8, 12, 13, 14 and 11.
+    # phases 5, 8, 12, 13, 14, 15 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])
@@ -1687,7 +1888,8 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms")}
            for k, rec in records.items()]
-    print("\nkernels: " + "; ".join(
+    print(f"\nchip_smoke total: {time.perf_counter() - T_START:.3f} s wall")
+    print("kernels: " + "; ".join(
         f"{r['name']} launches {r['launches']} max_abs_err "
         f"{r['max_abs_err']!r} {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} "
         f"ms)" for r in out))

@@ -2,15 +2,21 @@
 
 Commands (each takes ``--device cpu|cuda``; the default is the card):
 
-* ``run <spec.json> [--out f]`` — run an experiment spec (the
-  reference's JSON format) and print its Result as JSON; ``--out`` also
-  writes it to a file.  A file of ``{"experiments": [...]}`` runs them
-  all through one ``run_all`` (a simulator shared by the experiments of
-  a fabric) and prints the list of records.
-* ``sweep <spec.json> [--seed S] [--out f]`` — the spec file holds
-  ``{"base": <experiment>, "axes": {"workload.load": [...], ...}}``;
-  prints one summary line per grid point, ``--out`` writes the Results
-  as a JSON list.  ``--seed`` overrides the base seed.
+* ``run <spec.json> [--replicas R] [--seed S] [--out f]`` — run an
+  experiment spec (the reference's JSON format) and print its Result as
+  JSON; ``--out`` also writes it to a file.  A file of
+  ``{"experiments": [...]}`` runs them all through one ``run_all`` (a
+  simulator shared by the experiments of a fabric, consecutive
+  seed-only experiments folded into one batched run) and prints the
+  list of records.  ``--replicas R`` overrides every experiment's
+  ``replicas`` (R seeds from ``seed`` as one batched run: the record
+  carries ``per_replica``, ``aggregates`` and ``replica_seeds``);
+  ``--seed`` every experiment's seed.
+* ``sweep <spec.json> [--replicas R] [--seed S] [--out f]`` — the spec
+  file holds ``{"base": <experiment>, "axes": {"workload.load": [...],
+  ...}}``; prints one summary line per grid point, ``--out`` writes the
+  Results as a JSON list.  ``--replicas`` and ``--seed`` override the
+  base's.
 * ``families`` — list the topology families the port builds.
 * ``patterns`` — list the workload-pattern registry, each with its kind
   and whether the port runs it (every collective does, the arrival
@@ -33,9 +39,35 @@ from .specs import Experiment
 from .sweep import sweep
 
 
+def load_spec(path: str):
+    """``(experiment dicts, whether the file is a list of them)``: a
+    ``{"experiments": [...]}`` file, an ``{"experiment": {...}}`` wrapper
+    or a bare experiment object."""
+    doc = json.loads(Path(path).read_text())
+    if isinstance(doc, dict) and "experiments" in doc:
+        return list(doc["experiments"]), True
+    if isinstance(doc, dict) and "experiment" in doc:
+        return [doc["experiment"]], False
+    return [doc], False
+
+
+def spec_experiments(path: str, *, replicas: Optional[int] = None,
+                     seed: Optional[int] = None) -> List[Experiment]:
+    """The experiments of a spec file with the shared ``--replicas`` /
+    ``--seed`` overrides applied, as the reference's CLI applies them."""
+    exps = [Experiment.from_dict(d) for d in load_spec(path)[0]]
+    if replicas is not None:
+        exps = [e.override("replicas", replicas) for e in exps]
+    if seed is not None:
+        exps = [e.override("seed", seed) for e in exps]
+    return exps
+
+
 def _summary(res: Result) -> str:
     """One line a Result: its name, metric and the populated fields."""
     bits = [res.name, f"metric={res.metric}"]
+    if res.replica_seeds is not None:
+        bits.append(f"replicas={len(res.replica_seeds)}")
     if res.throughput is not None:
         bits.append(f"throughput={res.throughput:.3f}")
         bits.append(f"avg_hops={res.avg_hops:.2f}")
@@ -49,14 +81,13 @@ def _summary(res: Result) -> str:
 
 
 def _cmd_run(args) -> int:
-    doc = json.loads(Path(args.spec).read_text())
-    if isinstance(doc, dict) and "experiments" in doc:
-        exps = [Experiment.from_dict(d) for d in doc["experiments"]]
+    exps = spec_experiments(args.spec, replicas=args.replicas,
+                            seed=args.seed)
+    if load_spec(args.spec)[1]:
         text = json.dumps([r.to_dict() for r in run_all(
             exps, device=args.device)], indent=1)
     else:
-        text = run(Experiment.from_dict(doc),
-                   device=args.device).to_json(indent=1)
+        text = run(exps[0], device=args.device).to_json(indent=1)
     print(text)
     if args.out:
         Path(args.out).write_text(text + "\n")
@@ -66,6 +97,8 @@ def _cmd_run(args) -> int:
 def _cmd_sweep(args) -> int:
     doc = json.loads(Path(args.spec).read_text())
     base = Experiment.from_dict(doc["base"])
+    if args.replicas is not None:
+        base = base.override("replicas", args.replicas)
     if args.seed is not None:
         base = base.override("seed", args.seed)
     results = sweep(base, doc.get("axes", {}), device=args.device)
@@ -95,10 +128,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     run_p = sub.add_parser("run", help="run one experiment spec")
     sweep_p = sub.add_parser("sweep", help="run a {base, axes} sweep spec")
-    sweep_p.add_argument("--seed", type=int, default=None,
-                         help="override the base experiment's seed")
     for p in (run_p, sweep_p):
         p.add_argument("spec", help="spec JSON file")
+        p.add_argument("--replicas", type=int, default=None,
+                       help="override the replicas (seeds run as one "
+                            "batched run)")
+        p.add_argument("--seed", type=int, default=None,
+                       help="override the seed")
         p.add_argument("--out", default=None,
                        help="also write the Result(s) here")
     sub.add_parser("families", help="list topology families")

@@ -5,14 +5,18 @@ Topology -> ``build_tables`` -> ``Simulator`` -> measurement run, on the
 card by default (the routing tables' distances too).  A
 :class:`SimulatorCache` keeps one simulator (tables, masks and the
 static index tables) per fabric, routing and device, so the experiments
-of one fabric share its set-up.  The port runs one replica of the
-``throughput`` and ``latency`` metrics of the Bernoulli families and the
-``completion`` metric of the collectives: the free-running ``all2all``
-directly, every other collective (a scheduled ``all2all``, the
-allreduce family, anything added through ``register_program_builder``)
-as a compiled workload program on the engine's phase scheduler.  The
-``serving`` and ``resilience`` metrics, the arrival families and
-replicas come later.
+of one fabric share its set-up.  The port runs the ``throughput`` and
+``latency`` metrics of the Bernoulli families and the ``completion``
+metric of the collectives: the free-running ``all2all`` directly, every
+other collective (a scheduled ``all2all``, the allreduce family,
+anything added through ``register_program_builder``) as a compiled
+workload program on the engine's phase scheduler.  An experiment with
+``replicas`` > 1 runs its seeds as one batched run (one step for all
+replicas), and its Result carries ``per_replica``, ``aggregates`` and
+``replica_seeds`` beside the means; ``run_all`` folds consecutive
+experiments that differ only in their seed into one such run.  The
+``serving`` and ``resilience`` metrics and the arrival families come
+later.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import json
 import math
 from typing import Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -34,6 +39,9 @@ from .specs import Experiment, NetworkSpec, RouteSpec
 
 __all__ = ["Result", "SimulatorCache", "open_simulator", "run", "run_all"]
 
+# the metrics the port refuses, with the ROADMAP item that ports each
+_LATER_METRICS = {"serving": "ROADMAP item 7, open-loop arrivals",
+                  "resilience": "ROADMAP item 8, failures"}
 # Result latency labels -> engine percentile keys
 _LATENCY_KEYS = (("p50", "p0.5"), ("p99", "p0.99"), ("p999", "p0.999"),
                  ("p9999", "p0.9999"))
@@ -46,6 +54,17 @@ def _retuple(v):
     return v
 
 
+def _aggregate(values) -> Optional[dict]:
+    """mean/std/min/max over per-replica values (``None`` entries dropped;
+    bools averaged as completion fractions)."""
+    vals = [float(v) for v in values if v is not None]
+    if not vals:
+        return None
+    arr = np.asarray(vals, np.float64)
+    return {"mean": float(arr.mean()), "std": float(arr.std()),
+            "min": float(arr.min()), "max": float(arr.max())}
+
+
 @dataclasses.dataclass(frozen=True)
 class Result:
     """Structured record of one experiment run, field for field the
@@ -53,10 +72,14 @@ class Result:
     Only the fields relevant to ``metric`` are populated; the rest stay
     ``None``.  ``latency`` maps ``p50``/``p99``/``p999``/``p9999`` to
     slots (``None`` when the window ejected nothing); ``phase_slots``
-    holds the per-phase completion slots of a workload program.  The
-    replica fields (``replica_seeds``, ``per_replica``, ``aggregates``)
-    are filled by the reference's batched runs only, until replicas are
-    ported; records that hold them load here all the same."""
+    holds the per-phase completion slots of a workload program.
+
+    For a batched run (``experiment.replicas > 1``) the scalar metric
+    fields hold the across-replica *mean* (``completed`` is the AND), and
+    three extra fields are populated: ``replica_seeds`` (the seeds, in
+    replica order), ``per_replica`` (field name -> tuple of exact
+    per-replica values) and ``aggregates`` (field name ->
+    ``{"mean","std","min","max"}``)."""
 
     experiment: Experiment
     metric: str
@@ -217,15 +240,13 @@ def _check_runnable(experiment: Experiment) -> str:
     if program and metric != "completion":
         raise ValueError(f"{w.pattern} only supports the completion "
                          "metric")
-    if metric not in ("throughput", "latency", "completion"):
+    if metric in _LATER_METRICS:
         raise NotImplementedError(
-            f"metric {metric!r} is not ported yet: the port runs "
-            "'throughput', 'latency' and 'completion'")
+            f"metric {metric!r} is not ported yet ({_LATER_METRICS[metric]}"
+            "): the port runs 'throughput', 'latency' and 'completion'")
     if metric == "completion" and not program and w.pattern != "all2all":
         raise ValueError(f"completion metric needs a collective workload, "
                          f"got {w.pattern!r}")
-    if experiment.replicas != 1:
-        raise NotImplementedError("replicated runs are not ported yet")
     return metric
 
 
@@ -252,12 +273,12 @@ def run_all(experiments, *, cache: Optional[SimulatorCache] = None,
     entries of a fabric.  With a private cache (none passed in), each
     fabric's simulator is dropped right after its last use.
 
-    The reference folds consecutive experiments that differ only in
-    ``seed`` into one batched run when ``fold_seeds`` is set; until
-    replicas are ported, the port runs such a group seed by seed.  The
-    Results are the same either way (the reference's replica ``i`` is
-    bitwise its scalar run with seed ``i``), so ``fold_seeds`` changes
-    nothing here.  Every experiment is checked before anything is built.
+    ``fold_seeds=True`` (default) folds consecutive experiments that
+    differ only in ``seed`` (e.g. a ``sweep`` seed axis) into one
+    batched run, then splits the Results back out: the same Results
+    (replica ``i`` is bitwise the scalar run of the group's ``i``-th
+    experiment), in one run.  Every experiment is checked before
+    anything is built.
     """
     experiments = list(experiments)
     dev = resolve_device(device)
@@ -266,12 +287,23 @@ def run_all(experiments, *, cache: Optional[SimulatorCache] = None,
     owns = cache is None
     if owns:
         cache = SimulatorCache()
+    groups = (_fold_groups(experiments) if fold_seeds
+              else [[e] for e in experiments])
     last_use = {(e.network, e.route): i for i, e in enumerate(experiments)}
+    results = []
+    pos = 0
     try:
-        results = []
-        for i, e in enumerate(experiments):
-            results.append(run(e, cache=cache, device=dev))
-            if owns and last_use[(e.network, e.route)] == i:
+        for group in groups:
+            if len(group) == 1:
+                results.append(run(group[0], cache=cache, device=dev))
+            else:
+                sim = cache.get(group[0].network, group[0].route, dev)
+                metric, per = _batched_metrics(sim, group[0],
+                                               [e.seed for e in group])
+                results.extend(_unfold_batch(group, metric, per))
+            pos += len(group)
+            e = group[-1]
+            if owns and last_use[(e.network, e.route)] == pos - 1:
                 cache.release(e.network, e.route, dev)
         return results
     finally:
@@ -304,8 +336,139 @@ def _run_collective(sim: Simulator, exp: Experiment) -> Result:
                   phase_slots=tuple(int(s) for s in r["phase_slots"]))
 
 
+# ---------------------------------------------------------------------- #
+# batched execution: one step for all replicas
+# ---------------------------------------------------------------------- #
+def _batched_metrics(sim: Simulator, exp: Experiment, seeds) -> Tuple[str,
+                                                                       dict]:
+    """Run ``exp`` once per seed in one batched run.
+
+    Returns ``(metric, per)`` where ``per`` maps metric field names to
+    tuples of exact per-replica Python scalars (``phase_slots``: a tuple
+    of per-replica tuples).  Replica ``i`` is bitwise the scalar run with
+    ``seed=seeds[i]``.
+    """
+    metric = exp.resolved_metric()
+    w = exp.workload
+    seeds = [int(s) for s in seeds]
+    if _is_program(exp):
+        # all R replicas x P phases on the phase scheduler
+        cp = _collective_program(sim, exp)
+        r = sim.run_program(cp, chunk=exp.chunk, max_slots=exp.max_slots,
+                            seeds=seeds)
+        return metric, {
+            "slots": tuple(int(x) for x in r["slots"]),
+            "completed": tuple(bool(x) for x in r["completed"]),
+            "pool_stall": tuple(int(x) for x in r["pool_stall"]),
+            "phase_slots": tuple(tuple(int(v) for v in row)
+                                 for row in r["phase_slots"]),
+        }
+    traffic = _to_traffic(exp)
+    if metric == "throughput":
+        r = sim.run_throughput_batch(traffic, seeds, warm=exp.warm,
+                                     measure=exp.measure)
+        return metric, {
+            "throughput": tuple(float(x) for x in r["throughput"]),
+            "avg_hops": tuple(float(x) for x in r["avg_hops"]),
+            "ejected": tuple(int(x) for x in r["ejected"]),
+            "pool_stall": tuple(int(x) for x in r["pool_stall"]),
+        }
+    if metric == "latency":
+        r = sim.run_latency_batch(traffic, seeds, warm=exp.warm,
+                                  measure=exp.measure)
+        return metric, {lbl: tuple(_nan_none(v) for v in r[k])
+                        for lbl, k in _LATENCY_KEYS}
+    # completion of the free-running all2all (_check_runnable let no
+    # other metric through)
+    r = sim.run_completion_batch(traffic, expected=sim.S * w.rounds,
+                                 seeds=seeds, chunk=exp.chunk,
+                                 max_slots=exp.max_slots)
+    return metric, {
+        "slots": tuple(int(x) for x in r["slots"]),
+        "completed": tuple(bool(x) for x in r["completed"]),
+        "pool_stall": tuple(int(x) for x in r["pool_stall"]),
+    }
+
+
+def _batched_result(exp: Experiment, seeds, metric: str, per: dict) -> Result:
+    """The Result of a batched run: the means in the metric fields,
+    ``per_replica``, ``aggregates`` and ``replica_seeds``."""
+    agg = {}
+    for k, vals in per.items():
+        if k == "phase_slots":
+            continue
+        a = _aggregate(vals)
+        if a is not None:
+            agg[k] = a
+
+    def mean(k):
+        return agg[k]["mean"] if k in agg else None
+
+    if metric == "throughput":
+        kw = dict(throughput=mean("throughput"), avg_hops=mean("avg_hops"),
+                  ejected=mean("ejected"), pool_stall=mean("pool_stall"))
+    elif metric == "latency":
+        kw = dict(latency={lbl: mean(lbl) for lbl, _ in _LATENCY_KEYS})
+    else:
+        kw = dict(slots=mean("slots"),
+                  completed=bool(all(per["completed"])),
+                  pool_stall=mean("pool_stall"))
+        if "phase_slots" in per:
+            rows = per["phase_slots"]
+            kw["phase_slots"] = tuple(
+                float(np.mean([row[i] for row in rows]))
+                for i in range(len(rows[0])))
+    return Result(experiment=exp, metric=metric,
+                  replica_seeds=tuple(int(s) for s in seeds),
+                  per_replica=per, aggregates=agg, **kw)
+
+
+def _unfold_batch(group, metric: str, per: dict) -> list:
+    """Split one batched run back into per-experiment scalar Results (the
+    folded seed-only group of ``run_all``: replica ``i`` is bitwise the
+    scalar run of ``group[i]``, so the Results are interchangeable)."""
+    out = []
+    for i, e in enumerate(group):
+        if metric == "throughput":
+            kw = dict(throughput=per["throughput"][i],
+                      avg_hops=per["avg_hops"][i],
+                      ejected=per["ejected"][i],
+                      pool_stall=per["pool_stall"][i])
+        elif metric == "latency":
+            kw = dict(latency={lbl: per[lbl][i]
+                               for lbl, _ in _LATENCY_KEYS})
+        else:
+            kw = dict(slots=per["slots"][i], completed=per["completed"][i],
+                      pool_stall=per["pool_stall"][i])
+            if "phase_slots" in per:
+                kw["phase_slots"] = per["phase_slots"][i]
+        out.append(Result(experiment=e, metric=metric, **kw))
+    return out
+
+
+def _fold_key(e: Experiment) -> Experiment:
+    return dataclasses.replace(e, seed=0, name="")
+
+
+def _fold_groups(experiments) -> list:
+    """Group consecutive experiments that differ only in ``seed``/``name``
+    (unbatched ones): each group becomes one batched run."""
+    groups = []
+    for e in experiments:
+        if (groups and e.replicas == 1 and groups[-1][0].replicas == 1
+                and _fold_key(groups[-1][0]) == _fold_key(e)):
+            groups[-1].append(e)
+        else:
+            groups.append([e])
+    return groups
+
+
 def _run_on(sim: Simulator, experiment: Experiment, metric: str) -> Result:
     w = experiment.workload
+    if experiment.replicas > 1:
+        seeds = experiment.replica_seeds()
+        metric, per = _batched_metrics(sim, experiment, seeds)
+        return _batched_result(experiment, seeds, metric, per)
     if _is_program(experiment):
         return _run_collective(sim, experiment)
     traffic = _to_traffic(experiment)

@@ -202,8 +202,9 @@ class Experiment:
     ``metric`` is ``auto`` (Bernoulli patterns -> ``throughput``,
     collectives -> ``completion``, arrival processes -> ``serving``),
     ``throughput`` or ``latency``; the port's runner executes the
-    throughput, latency and completion metrics of one replica.  ``seed``
-    drives the simulator's PRNG stream.
+    throughput, latency and completion metrics.  ``seed`` drives the
+    simulator's PRNG stream; ``replicas`` > 1 runs the seeds ``seed ..
+    seed + replicas - 1`` as one batched run.
     """
 
     network: NetworkSpec
@@ -234,6 +235,10 @@ class Experiment:
         if kind == "arrival":
             return "serving"
         return "throughput"
+
+    def replica_seeds(self) -> Tuple[int, ...]:
+        """The per-replica seeds a batched run uses: ``seed .. seed+R-1``."""
+        return tuple(self.seed + i for i in range(self.replicas))
 
     def label(self) -> str:
         return self.name or (f"{self.network.family}"

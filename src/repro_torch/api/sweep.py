@@ -9,8 +9,8 @@ point in row-major order (last axis fastest).  Grid points that share a
 ``(network, route)`` pair reuse one simulator via
 :class:`SimulatorCache`; axes are ordered so fabric-changing axes vary
 slowest (maximizing reuse runs between rebuilds) and a ``seed`` axis
-varies fastest (the reference folds such a stretch into one batched
-run; the port runs it seed by seed, with the same Results).
+varies fastest (``run_all`` folds such a stretch into one batched
+run).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def sweep(base: Experiment, axes: Mapping[str, Sequence], *,
     With a private cache (none passed in), each fabric's simulator is
     dropped right after its last grid point — fabric axes vary slowest,
     so at most one simulator is live at a time.  ``fold_seeds`` is passed
-    to :func:`~repro_torch.api.run_all`, where it changes nothing yet.
+    to :func:`~repro_torch.api.run_all`.
     """
     return run_all(expand_axes(base, axes), cache=cache,
                    fold_seeds=fold_seeds, device=device)

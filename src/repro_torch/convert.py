@@ -5,7 +5,11 @@ dict of numpy arrays; :func:`state_from_jax` turns it into the port's
 state on a device, so a run can continue in the port from a state the
 reference reached.  :func:`state_to_numpy` goes the other way and gives
 exactly the reference's arrays: the PRNG keys (``key``, and a program
-state's ``key0``) as uint32 and the pool tensors without their pad slot.  The routing tables need no conversion:
+state's ``key0``) as uint32 and the pool tensors without their pad slot.
+Both take batched states too (a leading replica axis, as the
+reference's ``make_batch_state`` stacks them): the pad slot is on the
+last axis, and a program's shared arrays (``PROG_SHARED``) stay
+unbatched, in both packages.  The routing tables need no conversion:
 both packages build them from the same numpy code.
 
 :func:`params_from_jax` turns the reference model's parameter tree, as
@@ -33,7 +37,8 @@ def state_from_jax(np_state: dict, device) -> dict:
         if k in KEY_KEYS:
             a = a.astype(np.uint32).view(np.int32)
         elif k in POOL_KEYS:
-            a = np.concatenate([a, np.asarray([POOL_KEYS[k]], a.dtype)])
+            pad = np.full(a.shape[:-1] + (1,), POOL_KEYS[k], a.dtype)
+            a = np.concatenate([a, pad], axis=-1)
         st[k] = torch.as_tensor(np.array(a, copy=True), device=device)
     return st
 
@@ -46,7 +51,7 @@ def state_to_numpy(st: dict) -> dict:
         if k in KEY_KEYS:
             a = a.view(np.uint32)
         elif k in POOL_KEYS:
-            a = a[:-1]
+            a = a[..., :-1]
         out[k] = a
     return out
 

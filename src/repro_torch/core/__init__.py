@@ -4,7 +4,8 @@ paper's analytic metrics and the collectives' phase lists."""
 from .topology import (Topology, dragonfly, dragonfly_plus, fat_tree,
                        jellyfish, mrls, oft, rfc)
 from .routing import (bfs_distances, minplus_distances, RoutingTables,
-                      build_tables)
+                      build_tables, polarized_port_mask, route_packet_host,
+                      find_corners)
 from .analytics import (Metrics, exact_metrics, theta, cost_links,
                         cost_switches, mrls_distance_distribution,
                         mrls_expected_A, mrls_expected_A_star,
@@ -22,7 +23,9 @@ TOPOLOGY_FAMILIES = {"mrls": mrls, "fat_tree": fat_tree, "oft": oft,
 
 __all__ = ["Topology", "mrls", "fat_tree", "oft", "dragonfly",
            "dragonfly_plus", "rfc", "jellyfish", "bfs_distances",
-           "minplus_distances", "RoutingTables", "build_tables", "Metrics",
+           "minplus_distances", "RoutingTables", "build_tables",
+           "polarized_port_mask", "route_packet_host", "find_corners",
+           "Metrics",
            "exact_metrics", "theta", "cost_links", "cost_switches",
            "mrls_distance_distribution", "mrls_expected_A",
            "mrls_expected_A_star", "prob_dstar_leq", "dstar_thresholds",

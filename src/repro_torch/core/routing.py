@@ -13,6 +13,9 @@ same powering, the counterpart of the reference's
 these rows on its own device (``simulator.engine.pack_mask_block``);
 :func:`_pack_mask_block` is the reference's numpy packing, kept as the
 host version that the device words are checked against.
+:func:`route_packet_host`, :func:`polarized_port_mask` and
+:func:`find_corners` are the reference's host router in numpy (one
+packet switch by switch, and the Polarized corner count).
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ __all__ = [
     "hop_distances",
     "RoutingTables",
     "build_tables",
+    "polarized_port_mask",
+    "route_packet_host",
+    "find_corners",
 ]
 
 
@@ -265,3 +271,144 @@ def build_tables(topo: Topology, full: bool = False, *,
             if full else None)
     return RoutingTables(topo, dist_leaf, topo.leaf_rank(), dist_full,
                          leaf_block=leaf_block, squarings=squarings)
+
+
+# ---------------------------------------------------------------------- #
+# Polarized port classification and the host-side reference router
+# (tests, analytics, corner detection): numpy, the reference's own
+# ---------------------------------------------------------------------- #
+def polarized_port_mask(d_cs, d_ct, d_ns, d_nt, hops, max_hops, valid):
+    """Vectorized Polarized filter on numpy arrays.
+
+    Args are broadcastable: ``d_cs, d_ct, hops`` per packet, ``d_ns, d_nt,
+    valid`` per (packet, port).  Returns ``(allowed, is_deroute)`` masks.
+    A deroute (Expansion/Contraction) additionally requires that the hop
+    budget still admits finishing: ``hops + 1 + d_nt <= max_hops``.
+    """
+    fwd = (d_ns == d_cs + 1) & (d_nt == d_ct - 1)
+    exp_ = (d_ns == d_cs + 1) & (d_nt == d_ct + 1) & (d_cs < d_ct)
+    con = (d_ns == d_cs - 1) & (d_nt == d_ct - 1) & (d_cs >= d_ct)
+    budget_ok = (hops + 1 + d_nt) <= max_hops
+    deroute = exp_ | con
+    allowed = valid & (fwd | (deroute & budget_ok))
+    return allowed, deroute & valid
+
+
+def route_packet_host(
+    tables: RoutingTables,
+    src_leaf: int,
+    dst_leaf: int,
+    policy: str = "polarized",
+    max_hops: Optional[int] = None,
+    occupancy: Optional[np.ndarray] = None,     # [N, P] synthetic load
+    rng: Optional[np.random.Generator] = None,
+    deroute_penalty: float = 10.0,
+) -> list:
+    """Route one packet switch by switch on the host; returns the list of
+    visited switches (src and dst included).  Raises RuntimeError on a
+    *corner* (no allowed port, Section 4.3.2) or when the hop budget runs
+    out.  The distances come to the host from wherever ``tables`` holds
+    them; the draws of ``rng`` are the reference's, so the same ``rng``
+    gives the same path."""
+    if max_hops is None:
+        max_hops = _default_max_hops(tables, policy)
+    return _route_packet(tables.topo, tables.dist_leaf.cpu().numpy(),
+                         tables.leaf_rank, src_leaf, dst_leaf, policy,
+                         max_hops, occupancy, rng, deroute_penalty)
+
+
+def _default_max_hops(tables: RoutingTables, policy: str) -> int:
+    return (2 * tables.diameter_star - 2 if policy == "polarized"
+            else tables.diameter_leaf)
+
+
+def _route_packet(topo, dist: np.ndarray, lr: np.ndarray, src_leaf: int,
+                  dst_leaf: int, policy: str, max_hops: int,
+                  occupancy: Optional[np.ndarray],
+                  rng: Optional[np.random.Generator],
+                  deroute_penalty: float) -> list:
+    """:func:`route_packet_host` on a host copy ``dist`` of the leaf-row
+    distances and a resolved ``max_hops``."""
+    s, t = lr[src_leaf], lr[dst_leaf]
+    assert s >= 0 and t >= 0, "src/dst must be leaves"
+    rng = rng or np.random.default_rng(0)
+    occ = (occupancy if occupancy is not None
+           else np.zeros_like(topo.nbrs, np.float64))
+
+    path = [src_leaf]
+    cur, hops = src_leaf, 0
+    mid = None
+    if policy in ("valiant", "ugal"):
+        mid = int(rng.choice(topo.leaf_ids))
+        if policy == "ugal":       # UGAL-L: Valiant only if MIN looks busier
+            min_ports = np.nonzero(
+                (topo.nbrs[cur] >= 0)
+                & (dist[t, topo.nbrs[cur]] == dist[t, cur] - 1))[0]
+            val_ports = np.nonzero(
+                (topo.nbrs[cur] >= 0)
+                & (dist[lr[mid], topo.nbrs[cur]]
+                   == dist[lr[mid], cur] - 1))[0]
+            q_min = occ[cur, min_ports].min() if min_ports.size else np.inf
+            q_val = occ[cur, val_ports].min() if val_ports.size else np.inf
+            d_min, d_val = dist[t, cur], dist[lr[mid], cur] + dist[t, mid]
+            if q_min * d_min <= q_val * d_val:
+                mid = None        # go minimal
+    target_rank = t if mid is None else lr[mid]
+
+    while cur != dst_leaf:
+        if hops >= max_hops:
+            raise RuntimeError(f"hop budget exhausted at {cur} ({policy})")
+        nb = topo.nbrs[cur]
+        valid = nb >= 0
+        nb_safe = np.where(valid, nb, 0)
+        if policy == "polarized":
+            allowed, deroute = polarized_port_mask(
+                dist[s, cur], dist[t, cur],
+                dist[s, nb_safe], dist[t, nb_safe],
+                hops, max_hops, valid)
+            if not allowed.any():
+                raise RuntimeError(f"corner at switch {cur} for pair "
+                                   f"({src_leaf},{dst_leaf})")
+            score = (occ[cur] + deroute_penalty * deroute
+                     + rng.uniform(0, 1e-6, nb.shape))
+            score = np.where(allowed, score, np.inf)
+            port = int(np.argmin(score))
+        else:
+            # minimal (adaptive / random) toward the current target
+            min_mask = valid & (dist[target_rank, nb_safe]
+                                == dist[target_rank, cur] - 1)
+            if not min_mask.any():
+                raise RuntimeError(f"no minimal port at {cur}")
+            ports = np.nonzero(min_mask)[0]
+            if policy == "ksp":
+                port = int(rng.choice(ports))      # randomized minimal walk
+            else:                                  # the adaptive policies
+                port = int(ports[np.argmin(occ[cur, ports])])
+        cur = int(topo.nbrs[cur, port])
+        hops += 1
+        path.append(cur)
+        if mid is not None and cur == mid:
+            mid = None
+            target_rank = t
+    return path
+
+
+def find_corners(tables: RoutingTables, n_samples: int = 2000,
+                 seed: int = 0) -> int:
+    """Sample (s, t) leaf pairs and count Polarized routing failures
+    (corners).  The paper re-rolls the MRLS if any corner exists; for
+    random topologies the probability is negligible (Section 4.3.2)."""
+    rng = np.random.default_rng(seed)
+    topo = tables.topo
+    leaves = topo.leaf_ids
+    dist = tables.dist_leaf.cpu().numpy()      # one copy for every sample
+    max_hops = _default_max_hops(tables, "polarized")
+    corners = 0
+    for _ in range(n_samples):
+        a, b = rng.choice(leaves, 2, replace=False)
+        try:
+            _route_packet(topo, dist, tables.leaf_rank, int(a), int(b),
+                          "polarized", max_hops, None, rng, 10.0)
+        except RuntimeError:
+            corners += 1
+    return corners

@@ -22,14 +22,18 @@ It builds only ``switch_arb`` (``_build.build_all(["switch_arb"])``, with
    0, 0.3 and 1, with tiebreaks on four levels and colliding priorities;
    the dense ``switch_arbitrate``; ``vc_prearb`` with and without its
    head-packet gather, at the Figure-5 and Figure-7 shapes (V = 4) and at
-   other V;
+   other V; then both engine kernels at 4 replicas
+   (:func:`run_replica_cases`) on the golden and Figure-5 geometries, a
+   different seeded state a replica, against their plain versions and
+   against one unbatched launch a replica;
 3. times, at the Figure-5, Fat-Tree, Dragonfly and Dragonfly+
    geometries, the dense kernel,
    ``switch_arbitrate_rows`` with each number of lanes a row,
    ``vc_prearb`` with and without the gather and an empty kernel: back to
    back by CUDA events (the C entry point on preallocated outputs) and
    each launch's own device time from ``torch.profiler``; beside each,
-   the bound from the shapes.
+   the bound from the shapes; and the two engine kernels at 4 replicas
+   on the Figure-5 geometry (:func:`time_replicas`).
 
 It exits with 1 if any kernel differs from its plain version in any bit.
 ``chip_smoke.py`` phase 3 calls :func:`geometry`, :func:`run_cases` and
@@ -59,6 +63,7 @@ from .ops import flat_rows_geometry
 
 __all__ = ["Geometry", "geometry", "GEOMETRIES", "rows_inputs",
            "rows_bytes", "rows_label", "run_cases", "time_point",
+           "replica_inputs", "run_replica_cases", "time_replicas",
            "sass_counts", "main"]
 
 # the fabrics (functions of repro_torch.core) and the engine's defaults
@@ -128,14 +133,18 @@ def rows_inputs(geo: Geometry, gen: torch.Generator, density: float,
     return args, kw
 
 
-def rows_bytes(geo: Geometry, zero_occ: bool = False) -> int:
+def rows_bytes(geo: Geometry, zero_occ: bool = False,
+               replicas: int = 1) -> int:
     """Bytes ``switch_arbitrate_rows`` must move: tie, allowed, deroute
     (6 a row and port), route, rnd, next_vc (9 a row), oq_len and
     nic_first, qlen and dq_base unless ``zero_occ``, then port, win and
-    seg out."""
+    seg out. At ``replicas`` every array but the geometry (``nic_first``,
+    ``dq_base``), which the replicas share, is counted once a replica."""
     nr, np_, nq = geo.nr, geo.n * geo.p, geo.n * geo.p * V
-    occ = nq * 4 + geo.n * 4 + (0 if zero_occ else nq * 4 + np_ * 4)
-    return nr * geo.p * 6 + nr * 9 + occ + nr * 8 + np_ * 4
+    shared = geo.n * 4 + (0 if zero_occ else np_ * 4)
+    occ = nq * 4 + (0 if zero_occ else nq * 4)
+    per_replica = nr * geo.p * 6 + nr * 9 + occ + nr * 8 + np_ * 4
+    return replicas * per_replica + shared
 
 
 def dense_bytes(n: int, r: int, p: int) -> int:
@@ -245,6 +254,96 @@ def run_cases(geos: dict, gen: torch.Generator) -> dict:
     return dict(errs)
 
 
+def replica_inputs(geo: Geometry, gen: torch.Generator, replicas: int,
+                   policy: str = "polarized", density: float = 0.3):
+    """``(args, kw, per)`` of a batched ``switch_arbitrate_rows`` call:
+    ``replicas`` seeded states of :func:`rows_inputs`, a different one a
+    replica, stacked on a leading axis; ``per`` holds each replica's own
+    ``args``."""
+    per = [rows_inputs(geo, gen, density, policy)[0]
+           for _ in range(replicas)]
+    kw = rows_inputs(geo, gen, density, policy)[1]
+    args = tuple(torch.stack(xs) for xs in zip(*per))
+    return args, kw, per
+
+
+def run_replica_cases(geo: Geometry, gen: torch.Generator,
+                      replicas: int = 4) -> dict:
+    """The crossbar kernels with a replica axis, bitwise on the card:
+    ``switch_arbitrate_rows`` (the engine's lanes a row) at ``replicas``
+    on seeded states of ``geo``, a different state a replica, under each
+    policy's settings against its plain version and against one
+    unbatched launch a replica; ``vc_prearb`` with its gather on
+    ``replicas`` stacked states (``R*N`` switches) against its plain
+    version and the unbatched launches.  Raises on the first difference;
+    returns ``{kernel name: max_abs_err}``."""
+    errs = collections.defaultdict(int)
+    name = "switch_arbitrate_rows"
+    for policy in POLICIES:
+        args, kw, per = replica_inputs(geo, gen, replicas, policy)
+        got = kernel.switch_arbitrate_rows(*args, **kw)
+        want = ref.switch_arbitrate_rows_ref(*args, **kw)
+        label = f"{name} {geo.label} R={replicas} {policy}"
+        errs[name] = max(errs[name], _hold(f"{label} vs plain", got, want))
+        singles = [kernel.switch_arbitrate_rows(*a, **kw) for a in per]
+        errs[name] = max(errs[name], _hold(
+            f"{label} vs {replicas} unbatched launches", got,
+            [torch.stack(xs) for xs in zip(*singles)]))
+        del args, per, got, want, singles
+    n, p = geo.n, geo.p
+    states = [vc_inputs(gen, n, p, V, Q) for _ in range(replicas)]
+    qlen, rand, buf, head = (torch.stack(xs) for xs in zip(*states))
+    got = kernel.vc_prearb(qlen.reshape(replicas * n, p, V),
+                           rand.reshape(replicas * n, p, V),
+                           buf.reshape(-1, Q), head.reshape(-1))
+    label = f"vc_prearb + gather {geo.label} R={replicas} ({replicas}*N rows)"
+    errs["vc_prearb"] = _hold(f"{label} vs plain", got, ref.vc_prearb_ref(
+        qlen.reshape(replicas * n, p, V), rand.reshape(replicas * n, p, V),
+        buf.reshape(-1, Q), head.reshape(-1)))
+    singles = [kernel.vc_prearb(*st) for st in states]
+    errs["vc_prearb"] = max(errs["vc_prearb"], _hold(
+        f"{label} vs {replicas} unbatched launches", got,
+        [torch.cat(xs) for xs in zip(*singles)]))
+    return dict(errs)
+
+
+def time_replicas(geo: Geometry, gen: torch.Generator, replicas: int = 4,
+                  iters: int = 200, plain_iters: int = 20) -> dict:
+    """Per-launch times of the engine's two crossbar kernels at
+    ``replicas`` on ``geo`` (polarized, density 0.3), through the
+    wrappers: ``{kernel name: {"ms", "device_ms", "plain_ms",
+    "bound_ms", "bytes"}}``, the bound from ``replicas`` times one
+    replica's bytes and the shared geometry once."""
+    out = {}
+
+    def rec(name, launch, n_bytes, plain):
+        r = dict(ms=cuda_ms(launch, iters=iters, warmup=20),
+                 device_ms=device_ms(launch, f"{name}_kernel"),
+                 plain_ms=cuda_ms(plain, iters=plain_iters, warmup=2),
+                 bound_ms=bound_ms(n_bytes), bytes=n_bytes)
+        out[name] = r
+        print(f"{geo.label} {name} R={replicas}: {r['ms'] * 1e3:.3f} us back "
+              f"to back, {(r['device_ms'] or 0) * 1e3:.3f} us on the device "
+              f"(profiler); bound {r['bound_ms'] * 1e3:.3f} us ({n_bytes} "
+              f"bytes); plain {r['plain_ms']:.6f} ms", flush=True)
+
+    args, kw, _ = replica_inputs(geo, gen, replicas)
+    rec("switch_arbitrate_rows",
+        lambda: kernel.switch_arbitrate_rows(*args, **kw),
+        rows_bytes(geo, replicas=replicas),
+        lambda: ref.switch_arbitrate_rows_ref(*args, **kw))
+    del args
+    n, p = geo.n, geo.p
+    qlen, rand, buf, head = vc_inputs(gen, replicas * n, p, V, Q)
+    n_has = int((qlen > 0).any(dim=-1).sum())
+    vc = (qlen, rand, buf, head)
+    rec("vc_prearb", lambda: kernel.vc_prearb(*vc),
+        vc_bytes(replicas * n * p, V, n_has), lambda: ref.vc_prearb_ref(*vc))
+    del vc, qlen, rand, buf, head
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_ms(fn, name: str, iters: int = 100) -> Optional[float]:
     """Mean device time of the kernels whose name holds ``name``, per
     launch, over ``iters`` calls of ``fn`` under ``torch.profiler``; None
@@ -314,7 +413,7 @@ def time_point(geo: Geometry, gen: torch.Generator, iters: int = 200,
     for m in kernel.ROWS_LANES:
         rec(rows_label(m),
             _launcher(lib.switch_arbitrate_rows_launch, *ptrs, geo.n, geo.p,
-                      V, geo.d, PENALTY, OQ, 0, m, stream),
+                      V, geo.d, PENALTY, OQ, 0, m, 1, geo.nr, stream),
             "switch_arbitrate_rows_kernel", rows_bytes(geo),
             lambda: ref.switch_arbitrate_rows_ref(*args, **kw))
     del args, outs, ptrs
@@ -370,9 +469,10 @@ def _function_label(head: str) -> Optional[str]:
     if m:
         return (f"vc_prearb_kernel<{'int4' if m.group(1) == '1' else 'loop'}"
                 f"{', gather' if m.group(2) == '1' else ''}>")
-    m = re.search(r"switch_arbitrate_rows_kernelILi(\d+)E", head)
+    m = re.search(r"switch_arbitrate_rows_kernelILi(\d+)ELb(\d)E", head)
     if m:
-        return f"switch_arbitrate_rows_kernel<{m.group(1)} lanes a row>"
+        return (f"switch_arbitrate_rows_kernel<{m.group(1)} lanes a row"
+                f"{', replicas' if m.group(2) == '1' else ''}>")
     if "switch_arbitrate_kernel" in head:
         return "switch_arbitrate_kernel"
     return None
@@ -433,12 +533,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(18)
     try:
         errs = run_cases(geos, gen)
+        for label in ("golden", "fig5"):
+            for k, e in run_replica_cases(geos[label], gen).items():
+                errs[k] = max(errs.get(k, 0), e)
     except AssertionError as e:
         print(f"FAILED: {e}")
         return 1
     print(f"main path: {kernel.ROWS_MAIN_LANES} lanes a row")
     timed = {label: time_point(geos[label], gen)
              for label in ("fig5", "ft50", "df", "dfplus")}
+    timed["fig5 R=4"] = time_replicas(geos["fig5"], gen)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"sass": counts, "max_abs_err": errs,
                       "main_lanes": kernel.ROWS_MAIN_LANES,

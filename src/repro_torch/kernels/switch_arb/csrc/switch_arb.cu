@@ -212,6 +212,15 @@ __global__ void switch_arbitrate_kernel(const int* __restrict__ occ,
 // multiplied, with the same bits.
 // The segmented max lives in shared memory, built with atomicMax on
 // int32 (order-independent, so exact).  Any P, d and R = P + d work.
+//
+// Replicas: kBatched adds the grid's y dimension, one replica a block
+// row.  A block moves every per-replica pointer (tie, allowed, deroute
+// [R, NR, P]; route, rnd, next_vc, port, win [R, NR]; oq_len, qlen
+// [R, N*P*V]; seg [R, N*P]) to its replica's slice and shares the
+// geometry (nic_first, dq_base); the row index i in a priority word
+// stays the row within the fabric, so replica r is bitwise the
+// unbatched launch on its slices.  A launch of one replica takes the
+// unbatched instantiation, whose code has no replica arithmetic at all.
 // ---------------------------------------------------------------------- //
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
@@ -271,7 +280,7 @@ __device__ __forceinline__ unsigned char* stage(unsigned char* dst,
   return out;
 }
 
-template <int kLanes>
+template <int kLanes, bool kBatched>
 __global__ void __launch_bounds__(256) switch_arbitrate_rows_kernel(
     const float* __restrict__ tie, const unsigned char* __restrict__ allowed,
     const unsigned char* __restrict__ der,
@@ -280,7 +289,23 @@ __global__ void __launch_bounds__(256) switch_arbitrate_rows_kernel(
     const int* __restrict__ qlen, const int* __restrict__ nic_first,
     const int* __restrict__ dq_base, int* __restrict__ port,
     int* __restrict__ win, int* __restrict__ seg, int p, int v, int d,
-    float penalty, int out_queue, int zero_occ) {
+    float penalty, int out_queue, int zero_occ, int nr) {
+  if constexpr (kBatched) {   // this block's replica
+    const size_t rep = blockIdx.y;
+    const size_t rows = rep * nr;
+    const size_t words = rep * gridDim.x * p * v;
+    tie += rows * p;
+    allowed += rows * p;
+    der += rows * p;
+    route += rows;
+    rnd += rows;
+    next_vc += rows;
+    port += rows;
+    win += rows;
+    oq_len += words;
+    qlen += words;
+    seg += rep * gridDim.x * p;
+  }
   extern __shared__ __align__(16) unsigned char smem_rows[];
   unsigned char* smem = smem_rows;
   const RowsLayout l = rows_layout(p, v, d);
@@ -447,24 +472,20 @@ extern "C" int switch_arbitrate_rows_smem(int p, int v, int d) {
 
 // lanes: 1, 2, 4, 8, 16 or 32 lanes a row; a block has the threads for
 // all P + d rows of a leaf in one pass, a multiple of 32, at most 256.
-extern "C" int switch_arbitrate_rows_launch(
-    const float* tie, const unsigned char* allowed, const unsigned char* der,
-    const unsigned char* route, const int* rnd, const int* next_vc,
-    const int* oq_len, const int* qlen, const int* nic_first,
-    const int* dq_base, int* port, int* win, int* seg, int n, int p, int v,
-    int d, float penalty, int out_queue, int zero_occ, int lanes,
-    void* stream) {
-  decltype(&switch_arbitrate_rows_kernel<1>) kernel;
-  switch (lanes) {
-    case 1: kernel = &switch_arbitrate_rows_kernel<1>; break;
-    case 2: kernel = &switch_arbitrate_rows_kernel<2>; break;
-    case 4: kernel = &switch_arbitrate_rows_kernel<4>; break;
-    case 8: kernel = &switch_arbitrate_rows_kernel<8>; break;
-    case 16: kernel = &switch_arbitrate_rows_kernel<16>; break;
-    case 32: kernel = &switch_arbitrate_rows_kernel<32>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int threads = ((p + d) * lanes + 31) / 32 * 32;
+// replicas: the grid's y extent (1: the unbatched kernel); nr: the
+// requester rows of one replica.
+template <int kLanes>
+static int rows_launch(const float* tie, const unsigned char* allowed,
+                       const unsigned char* der, const unsigned char* route,
+                       const int* rnd, const int* next_vc, const int* oq_len,
+                       const int* qlen, const int* nic_first,
+                       const int* dq_base, int* port, int* win, int* seg,
+                       int n, int p, int v, int d, float penalty,
+                       int out_queue, int zero_occ, int replicas, int nr,
+                       cudaStream_t stream) {
+  auto kernel = replicas > 1 ? &switch_arbitrate_rows_kernel<kLanes, true>
+                             : &switch_arbitrate_rows_kernel<kLanes, false>;
+  int threads = ((p + d) * kLanes + 31) / 32 * 32;
   if (threads > 256) threads = 256;
   const int shared = rows_layout(p, v, d).total;
   if (shared > 48 * 1024) {
@@ -472,8 +493,32 @@ extern "C" int switch_arbitrate_rows_launch(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<n, threads, shared, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(n, replicas), threads, shared, stream>>>(
       tie, allowed, der, route, rnd, next_vc, oq_len, qlen, nic_first,
-      dq_base, port, win, seg, p, v, d, penalty, out_queue, zero_occ);
+      dq_base, port, win, seg, p, v, d, penalty, out_queue, zero_occ, nr);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int switch_arbitrate_rows_launch(
+    const float* tie, const unsigned char* allowed, const unsigned char* der,
+    const unsigned char* route, const int* rnd, const int* next_vc,
+    const int* oq_len, const int* qlen, const int* nic_first,
+    const int* dq_base, int* port, int* win, int* seg, int n, int p, int v,
+    int d, float penalty, int out_queue, int zero_occ, int lanes,
+    int replicas, int nr, void* stream) {
+  if (replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&rows_launch<1>) launch;
+  switch (lanes) {
+    case 1: launch = &rows_launch<1>; break;
+    case 2: launch = &rows_launch<2>; break;
+    case 4: launch = &rows_launch<4>; break;
+    case 8: launch = &rows_launch<8>; break;
+    case 16: launch = &rows_launch<16>; break;
+    case 32: launch = &rows_launch<32>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(tie, allowed, der, route, rnd, next_vc, oq_len, qlen,
+                nic_first, dq_base, port, win, seg, n, p, v, d, penalty,
+                out_queue, zero_occ, replicas, nr,
+                static_cast<cudaStream_t>(stream));
 }

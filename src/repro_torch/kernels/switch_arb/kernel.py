@@ -17,7 +17,8 @@ from .. import _build
 
 __all__ = ["vc_prearb", "switch_arbitrate", "switch_arbitrate_rows",
            "rows_geometry", "launch_counts", "reset_launch_counts",
-           "MAX_SHARED_BYTES", "MAX_ROWS", "ROWS_LANES", "ROWS_MAIN_LANES"]
+           "MAX_SHARED_BYTES", "MAX_ROWS", "MAX_GRID_Y", "ROWS_LANES",
+           "ROWS_MAIN_LANES"]
 
 # static shared memory limit a block may ask for without an opt-in
 MAX_SHARED_BYTES = 48 * 1024
@@ -29,6 +30,8 @@ MAX_ROWS = 1 << 23
 # row, 32: a warp a row), and the engine's
 ROWS_LANES = (1, 2, 4, 8, 32)
 ROWS_MAIN_LANES = 4
+# the most replicas a launch takes: the grid's y extent
+MAX_GRID_Y = 65535
 
 _launches = {"vc_prearb": 0, "switch_arbitrate": 0,
              "switch_arbitrate_rows": 0}
@@ -58,7 +61,7 @@ def _lib() -> ctypes.CDLL:
         lib.switch_arbitrate_rows_smem.argtypes = [_I, _I, _I]
         lib.switch_arbitrate_rows_smem.restype = _I
         lib.switch_arbitrate_rows_launch.argtypes = (
-            [_P] * 13 + [_I, _I, _I, _I, _F, _I, _I, _I, _P])
+            [_P] * 13 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])
         lib.switch_arbitrate_rows_launch.restype = _I
         lib.empty_launch.argtypes = [_I, _I, _P]
         lib.empty_launch.restype = _I
@@ -85,7 +88,13 @@ def vc_prearb(qlen: torch.Tensor, rand: torch.Tensor, buf=None, head=None):
     """CUDA ``vc_prearb``: int32 [N, P, V] + float32 [N, P, V] ->
     int32 ``(sel, has)`` [N, P], and with int32 ``buf`` [N*P*V, depth] and
     ``head`` [N*P*V] also the chosen queue's head packet ``pkt`` [N, P]
-    (see ``ref.vc_prearb_ref``)."""
+    (see ``ref.vc_prearb_ref``).
+
+    Replicas need no axis of their own: the result of a row holds no row
+    index, and the gather reads ``buf[(row*V + sel)*depth + head]``, so R
+    contiguous replicas of ``[N, P, V]`` inputs and ``[N*P*V, depth]``
+    buffers go through as ``R*N`` switches, each replica's rows bitwise
+    its own call's."""
     if qlen.device.type != "cuda":
         raise ValueError(f"vc_prearb kernel needs CUDA tensors, got "
                          f"{qlen.device}")
@@ -165,12 +174,19 @@ def switch_arbitrate(occ, deroute, mask, tie, route, rnd, lo, *,
 def rows_geometry(tie, allowed, deroute, route, rnd, next_vc, oq_len, qlen,
                   nic_first, dq_base, d: int):
     """Check the inputs of ``switch_arbitrate_rows`` (either device) and
-    return ``(N, P, V, NR)``.  Raises on NR >= 2**23 (the row index must
+    return ``(N, P, V, NR)``.  Inputs may carry a leading replica axis
+    ``[R, ...]`` (``tie`` [R, NR, P]; every input but ``nic_first`` and
+    ``dq_base`` has it then).  Raises on NR >= 2**23 (the row index must
     fit a priority word's 23 low bits), a wrong dtype or shape, mixed
     devices or a non-contiguous tensor."""
-    if tie.dim() != 2 or tie.shape[1] < 1:
-        raise ValueError(f"tie must be [NR, P>=1], got {tuple(tie.shape)}")
-    nr, p = tie.shape
+    if tie.dim() not in (2, 3) or tie.shape[-1] < 1:
+        raise ValueError(f"tie must be [NR, P>=1] or [R, NR, P>=1], got "
+                         f"{tuple(tie.shape)}")
+    reps = None if tie.dim() == 2 else tie.shape[0]
+    lead = () if reps is None else (reps,)
+    if reps is not None and reps < 1:
+        raise ValueError(f"tie has {reps} replicas")
+    nr, p = tie.shape[-2:]
     if nr >= MAX_ROWS:
         raise ValueError(f"{nr} requester rows: the priority word holds a "
                          f"row index below 2**23 = {MAX_ROWS}")
@@ -178,21 +194,22 @@ def rows_geometry(tie, allowed, deroute, route, rnd, next_vc, oq_len, qlen,
         raise ValueError(f"nic_first must be [N], got "
                          f"{tuple(nic_first.shape)}")
     n = nic_first.shape[0]
-    if n == 0 or oq_len.numel() % (n * p):
-        raise ValueError(f"oq_len has {oq_len.numel()} elements, not a "
-                         f"multiple of N*P = {n * p}")
-    v = oq_len.numel() // (n * p)
+    per = oq_len.numel() // max(reps or 1, 1)
+    if n == 0 or per % (n * p):
+        raise ValueError(f"oq_len has {oq_len.numel()} elements, not "
+                         f"{reps or 1} times a multiple of N*P = {n * p}")
+    v = per // (n * p)
     if v < 1 or d < 1 or nr < n * p:
         raise ValueError(f"V={v}, d={d}, NR={nr} < N*P={n * p}")
     dev = tie.device
-    _check("tie", tie, torch.float32, (nr, p), dev)
-    _check("allowed", allowed, torch.bool, (nr, p), dev)
-    _check("deroute", deroute, torch.bool, (nr, p), dev)
-    _check("route", route, torch.bool, (nr,), dev)
-    _check("rnd", rnd, torch.int32, (nr,), dev)
-    _check("next_vc", next_vc, torch.int32, (nr,), dev)
-    _check("oq_len", oq_len, torch.int32, (n * p * v,), dev)
-    _check("qlen", qlen, torch.int32, (n * p * v,), dev)
+    _check("tie", tie, torch.float32, lead + (nr, p), dev)
+    _check("allowed", allowed, torch.bool, lead + (nr, p), dev)
+    _check("deroute", deroute, torch.bool, lead + (nr, p), dev)
+    _check("route", route, torch.bool, lead + (nr,), dev)
+    _check("rnd", rnd, torch.int32, lead + (nr,), dev)
+    _check("next_vc", next_vc, torch.int32, lead + (nr,), dev)
+    _check("oq_len", oq_len, torch.int32, lead + (n * p * v,), dev)
+    _check("qlen", qlen, torch.int32, lead + (n * p * v,), dev)
     _check("nic_first", nic_first, torch.int32, (n,), dev)
     _check("dq_base", dq_base, torch.int32, (n * p,), dev)
     return n, p, v, nr
@@ -206,12 +223,17 @@ def switch_arbitrate_rows(tie, allowed, deroute, route, rnd, next_vc,
     """CUDA ``switch_arbitrate_rows`` on the engine's flat requester rows;
     returns int32 ``(port [NR], win [NR], seg [N*P])`` (see
     ``ref.switch_arbitrate_rows_ref``).  ``lanes`` a row in the argmin
-    (one of ``ROWS_LANES``; default ``ROWS_MAIN_LANES``)."""
+    (one of ``ROWS_LANES``; default ``ROWS_MAIN_LANES``).
+
+    Inputs with a leading replica axis ``[R, ...]`` (the geometry
+    shared) give outputs ``[R, ...]`` from one launch, a block per
+    (switch, replica); at R = 1 that launch is the unbatched one."""
     if tie.device.type != "cuda":
         raise ValueError(f"switch_arbitrate_rows kernel needs CUDA tensors, "
                          f"got {tie.device}")
     n, p, v, nr = rows_geometry(tie, allowed, deroute, route, rnd, next_vc,
                                 oq_len, qlen, nic_first, dq_base, d)
+    reps = tie.shape[0] if tie.dim() == 3 else None
     lanes = lanes or ROWS_MAIN_LANES
     if lanes not in ROWS_LANES:
         raise ValueError(f"lanes {lanes} is not one of {ROWS_LANES}")
@@ -221,17 +243,21 @@ def switch_arbitrate_rows(tie, allowed, deroute, route, rnd, next_vc,
         raise ValueError(f"P={p}, V={v}, d={d} need {shared} bytes of "
                          f"shared memory per block, more than "
                          f"{MAX_DYNAMIC_SHARED_BYTES}")
+    if reps is not None and reps > MAX_GRID_Y:
+        raise ValueError(f"{reps} replicas: a launch takes at most "
+                         f"{MAX_GRID_Y}")
     dev = tie.device
-    port = torch.empty((nr,), dtype=torch.int32, device=dev)
-    win = torch.empty((nr,), dtype=torch.int32, device=dev)
-    seg = torch.empty((n * p,), dtype=torch.int32, device=dev)
+    lead = () if reps is None else (reps,)
+    port = torch.empty(lead + (nr,), dtype=torch.int32, device=dev)
+    win = torch.empty(lead + (nr,), dtype=torch.int32, device=dev)
+    seg = torch.empty(lead + (n * p,), dtype=torch.int32, device=dev)
     err = lib.switch_arbitrate_rows_launch(
         tie.data_ptr(), allowed.data_ptr(), deroute.data_ptr(),
         route.data_ptr(), rnd.data_ptr(), next_vc.data_ptr(),
         oq_len.data_ptr(), qlen.data_ptr(), nic_first.data_ptr(),
         dq_base.data_ptr(), port.data_ptr(), win.data_ptr(), seg.data_ptr(),
         n, p, v, d, float(penalty), int(out_queue), int(bool(zero_occ)),
-        lanes, _stream(dev))
+        lanes, reps or 1, nr, _stream(dev))
     if err:
         raise RuntimeError(f"switch_arbitrate_rows launch failed with CUDA "
                            f"error {err}")

@@ -108,10 +108,22 @@ def switch_arbitrate_rows_ref(tie, allowed, deroute, route, rnd, next_vc,
     out_queue)``, as ``switch_arbitrate_ref`` with ``lo = i``;
     ``zero_occ`` (ksp) scores the tiebreak alone (occupancy and deroute
     0).  Returns int32 ``(port [NR], win [NR], seg [N*P])``.
+
+    Replicas: every input but the geometry (``nic_first``, ``dq_base``)
+    may carry a leading ``[R]`` axis, and so do the outputs.  Replica
+    ``r`` is arbitrated alone, with the row index ``i`` within its own
+    fabric in its priority words, so it is bitwise the unbatched call
+    on its slices.
     """
-    nr, p = tie.shape
+    batched = tie.dim() == 3
+    if not batched:
+        tie, allowed, deroute, route, rnd, next_vc, oq_len, qlen = (
+            x.unsqueeze(0) for x in (tie, allowed, deroute, route, rnd,
+                                     next_vc, oq_len, qlen))
+    r, nr, p = tie.shape
     n = nic_first.shape[0]
-    v = oq_len.numel() // (n * p)
+    nq = oq_len.shape[1]
+    v = nq // (n * p)
     dev = tie.device
     # every row's switch: network inputs by their index, NICs by nic_first
     cur = torch.arange(nr, device=dev) // p
@@ -119,10 +131,12 @@ def switch_arbitrate_rows_ref(tie, allowed, deroute, route, rnd, next_vc,
     nic_rows = (nic_first[leaves].long()[:, None]
                 + torch.arange(d, device=dev)).reshape(-1)
     cur[nic_rows] = leaves.repeat_interleave(d)
-    vc = next_vc.long()[:, None]
+    # flat offsets of each replica's queue words and output ports
+    rep = torch.arange(r, device=dev)[:, None, None]
+    vc = next_vc.long()[..., None]                               # [R, NR, 1]
     sp = (cur * p)[:, None] + torch.arange(p, device=dev)        # [NR, P]
-    oq = oq_len[sp * v + vc]
-    occ = oq + qlen[dq_base.long()[sp] + vc]
+    oq = oq_len.reshape(-1)[rep * nq + sp * v + vc]
+    occ = oq + qlen.reshape(-1)[rep * nq + dq_base.long()[sp] + vc]
     mask = allowed & (oq < out_queue)
     der = deroute
     if zero_occ:        # random walk: the score is the tiebreak alone
@@ -134,8 +148,9 @@ def switch_arbitrate_rows_ref(tie, allowed, deroute, route, rnd, next_vc,
     can = route & (best < BIG)
     lo = torch.arange(nr, dtype=torch.int32, device=dev)
     prio = torch.where(can, (rnd << 23) | lo, -1)
-    key = cur * p + port
-    seg = torch.full((n * p,), -1, dtype=torch.int32, device=dev)
-    seg.scatter_reduce_(0, key, prio, reduce="amax")
+    key = rep[..., 0] * (n * p) + cur * p + port                  # [R, NR]
+    seg = torch.full((r * n * p,), -1, dtype=torch.int32, device=dev)
+    seg.scatter_reduce_(0, key.reshape(-1), prio.reshape(-1), reduce="amax")
     win = can & (seg[key] == prio)
-    return port.to(torch.int32), win.to(torch.int32), seg
+    out = (port.to(torch.int32), win.to(torch.int32), seg.reshape(r, n * p))
+    return out if batched else tuple(x[0] for x in out)

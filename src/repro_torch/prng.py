@@ -15,8 +15,13 @@ two halves.  ``split``, ``random_bits``, ``uniform`` and ``randint`` take
 ``partitionable=`` to pick one; ``fold_in`` is the same in both.
 
 A key is an int32 tensor ``[2]`` holding the two uint32 words as a bit
-pattern (the engine keeps it in its state, on the state's device).  The
-arithmetic runs in int64 tensors masked to 32 bits: shifts on
+pattern (the engine keeps it in its state, on the state's device).
+``split``, ``random_bits``, ``uniform`` and ``randint`` also take a
+batch of keys ``[..., 2]`` (a replica axis) and return ``[..., *shape]``:
+each key's draws are bitwise those of a call with that key alone, as
+``jax.vmap`` of the same call gives them.  ``fold_in`` takes one key.
+
+The arithmetic runs in int64 tensors masked to 32 bits: shifts on
 ``torch.uint32`` are not implemented on every backend, and an int64
 holding a uint32 value shifts, adds and rotates exactly.
 
@@ -53,9 +58,14 @@ def threefry2x32(k1, k2, x1, x2):
     return x0, x1
 
 
-def _words(key: torch.Tensor):
+def _words(key: torch.Tensor, n_dims: int = 0):
+    """The key's two words as int64 tensors of shape ``key.shape[:-1] +
+    (1,) * n_dims``: a batch of keys broadcasts against ``n_dims``
+    counter axes."""
     k = key.to(torch.int64) & _MASK
-    return k[0], k[1]
+    tail = (1,) * n_dims
+    return (k[..., 0].reshape(k.shape[:-1] + tail),
+            k[..., 1].reshape(k.shape[:-1] + tail))
 
 
 def _to_key(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -75,12 +85,14 @@ def _counts(shape, device):
 
 def _threefry_flat(k1, k2, count: torch.Tensor) -> torch.Tensor:
     """``jax._src.prng.threefry_2x32`` on a flat count vector: the two
-    halves (zero-padded to even length) are the cipher's two words."""
+    halves (zero-padded to even length) are the cipher's two words.
+    ``k1``/``k2`` are ``[..., 1]``: the batch axes stay apart from the
+    counter axis, which is halved alone."""
     n = count.shape[0]
     if n % 2:
         count = torch.cat([count, count.new_zeros(1)])
     x0, x1 = count.chunk(2)
-    return torch.cat(threefry2x32(k1, k2, x0, x1))[:n]
+    return torch.cat(threefry2x32(k1, k2, x0, x1), dim=-1)[..., :n]
 
 
 def prng_key(seed: int, device=None) -> torch.Tensor:
@@ -94,17 +106,21 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2, *,
           partitionable: bool = True) -> torch.Tensor:
-    """``jax.random.split(key, num)``: ``[num, 2]`` int32 keys."""
-    k1, k2 = _words(key)
+    """``jax.random.split(key, num)``: ``[..., num, 2]`` int32 keys."""
+    k1, k2 = _words(key, 1)
     if not partitionable:
         count = torch.arange(2 * num, dtype=torch.int64, device=key.device)
-        return _threefry_flat(k1, k2, count).reshape(num, 2).to(torch.int32)
+        return _threefry_flat(k1, k2, count).reshape(
+            key.shape[:-1] + (num, 2)).to(torch.int32)
     hi, lo = _counts((num,), key.device)
     return _to_key(*threefry2x32(k1, k2, hi, lo))
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
+    """``jax.random.fold_in(key, data)`` for one key ``[2]`` and a uint32
+    ``data``."""
+    if key.shape != (2,):
+        raise ValueError(f"fold_in takes one key [2], got {tuple(key.shape)}")
     data = int(data)
     if not 0 <= data <= _MASK:
         raise ValueError(f"fold_in data {data} does not fit in uint32")
@@ -116,14 +132,18 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, shape, *,
                 partitionable: bool = True) -> torch.Tensor:
-    """32 random bits per element as int64 values in ``[0, 2**32)``."""
-    k1, k2 = _words(key)
-    hi, lo = _counts(tuple(shape), key.device)
+    """32 random bits per element as int64 values in ``[0, 2**32)``,
+    ``[..., *shape]`` for keys ``[..., 2]``."""
+    shape = tuple(shape)
+    hi, lo = _counts(shape, key.device)
     if not partitionable:
         if hi.numel() >= _MASK:
             raise ValueError("the original threefry mode draws fewer than "
                              "2**32 - 1 values per call")
-        return _threefry_flat(k1, k2, lo.reshape(-1)).reshape(lo.shape)
+        k1, k2 = _words(key, 1)
+        return _threefry_flat(k1, k2, lo.reshape(-1)).reshape(
+            key.shape[:-1] + shape)
+    k1, k2 = _words(key, len(shape))
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return b1 ^ b2
 
@@ -150,7 +170,7 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int, *,
     minval, maxval = int(minval), int(maxval)
     if not -(1 << 31) <= minval <= maxval <= (1 << 31) - 1:
         raise ValueError(f"randint range [{minval}, {maxval}) is not int32")
-    k_hi, k_lo = split(key, 2, partitionable=partitionable)
+    k_hi, k_lo = split(key, 2, partitionable=partitionable).unbind(-2)
     higher = random_bits(k_hi, shape, partitionable=partitionable)
     lower = random_bits(k_lo, shape, partitionable=partitionable)
     span = max(maxval - minval, 1)

@@ -33,14 +33,34 @@ bitwise (a crossing resets the transient state and the key to what a
 fresh state holds); ``schedule="window"`` lets endpoints run ``window``
 phases ahead of the completed ones.  No failure schedule.
 
+Replicas, the counterpart of the reference's ``jax.vmap``: a batched
+state (``make_batch_state``, ``make_program_batch_state``) stacks R
+independently seeded states on a leading ``[R]`` axis, and one step
+advances all of them, with the same kernel launches as one replica:
+the PRNG draws with ``[R, 2]`` keys, ``vc_prearb`` takes the replicas'
+switches as ``R*N`` switches and ``switch_arbitrate_rows`` takes the
+replica axis as a grid dimension.  Replica ``i`` is bitwise the scalar
+run with seed ``seeds[i]``.  The step works on batched states: a scalar
+state runs as one replica through ``unsqueeze(0)`` views, taken at the
+entry of a run and written back at its exit, so the scalar path is the
+same step.  The step functions themselves (``_step``, ``_inject``,
+``_crossbar_round``, ``_link_phase``, ``_advance_program``) take
+batched states only: a caller that drives them slot by slot makes an
+``R = 1`` state with ``make_batch_state(traffic, [seed])``.  Measured by
+``run_throughput_batch``, ``run_latency_batch``, ``run_completion``
+(``run_completion_batch``) and ``run_program(seeds=)``, which go on a
+chunk at a time until every replica is done, as the reference's loops.
+
 State and its lifetime:
 
 * The state is a dict of tensors on the simulator's device, with the
   reference's keys and dtypes.  The PRNG key is an int32 ``[2]`` tensor
-  holding the reference's two uint32 words (see :mod:`repro_torch.prng`).
+  (``[R, 2]`` batched) holding the reference's two uint32 words (see
+  :mod:`repro_torch.prng`).
 * The pool-indexed tensors (``POOL_KEYS``) carry one pad slot at index
-  ``pool``: the reference's ``mode="drop"`` scatters aim non-writers at
-  index ``pool``; here they land in the pad slot, with no host sync.
+  ``pool`` of their last axis: the reference's ``mode="drop"`` scatters
+  aim non-writers at index ``pool``; here they land in the pad slot,
+  with no host sync.
   :func:`repro_torch.convert.state_to_numpy` strips it.
 * ``run_chunk`` and the step functions update the state **in place**:
   they write into its tensors and rebind its entries, and return the
@@ -49,7 +69,8 @@ State and its lifetime:
 * The step makes no host synchronisation: no ``.item()``, no
   ``nonzero``, no boolean-mask indexing.  ``run_completion`` and
   ``run_program`` sync once per chunk, to test whether to run the next
-  one.
+  one.  Nor does it loop over replicas: a replica's gathers and scatters
+  into its own state rows go through flat offsets (``_flat``).
 """
 from __future__ import annotations
 
@@ -67,7 +88,8 @@ from ..kernels.switch_arb.ops import (flat_rows_geometry,
 from ..workloads.patterns import check_engine_pattern
 
 __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
-           "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "LATENCY_QS"]
+           "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "LATENCY_QS",
+           "PROG_SHARED"]
 
 POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant")
 _LATER_POLICIES = ("degraded",)
@@ -81,6 +103,14 @@ LATENCY_QS = (0.5, 0.99, 0.999, 0.9999)
 POOL_KEYS = {"fl_buf": 0, "p_sd": 0, "p_mid": -1, "p_bh": 0}
 # state tensors holding a PRNG key (two uint32 words as int32)
 KEY_KEYS = ("key", "key0")
+# the state tensors the step writes into in place (index_put_ and
+# index_add_ on their flat views)
+_IN_PLACE = tuple(POOL_KEYS) + ("lat_hist",)
+# the compiled program's arrays: the same for every replica, so a batched
+# state keeps one unstacked copy (key -> its unbatched ndim, by which a
+# caller-built state that stacked them is told apart)
+PROG_SHARED = {"prog_partner": 2, "prog_packets": 2, "prog_expected": 1,
+               "prog_expected_cum": 1}
 # what a barrier crossing sets back to 0, as a fresh state holds it
 _PHASE_RESET = ("slot", "ejected", "prog", "msg_rem", "qhead", "qlen",
                 "oq_head", "oq_len", "eq_head", "eq_len", "fl_head")
@@ -235,6 +265,7 @@ class Simulator:
         # a fresh free list, written back at a barrier crossing
         self._fl_fresh = torch.arange(self.pool, dtype=_I32, device=dev)
         self._phase_ids = {}        # n_phases -> arange, for the scheduler
+        self._rep_offsets = {}      # (R, size, ndim) -> replica offsets
         # link phase: downstream input queue of every (switch, port, VC)
         # and the port validity mask (ports with no link stay masked)
         nb0 = np.maximum(nbrs, 0).reshape(-1).astype(np.int64)
@@ -423,11 +454,83 @@ class Simulator:
         return st
 
     # ------------------------------------------------------------------ #
+    # replicas: a batched state carries a leading [R] axis on every
+    # per-replica entry; the step works on batched states only (a scalar
+    # run goes through one-replica views at its entry and exit)
+    # ------------------------------------------------------------------ #
+    def make_batch_state(self, traffic: Traffic, seeds) -> dict:
+        """``make_state`` of each seed, stacked on a leading replica axis:
+        replica ``i`` is exactly ``make_state(traffic, seeds[i])``, its
+        key and its seed-drawn permutations included."""
+        states = [self.make_state(traffic, int(s)) for s in seeds]
+        if not states:
+            raise ValueError("a batched state needs at least one seed")
+        return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+    @staticmethod
+    def _batched(st: dict):
+        """``(batched view of st, whether st is scalar)``.  A scalar state
+        runs as one replica through ``unsqueeze(0)`` views (the program
+        arrays of ``PROG_SHARED`` are unbatched either way);
+        :func:`_unbatch` writes the entries back.  The entries the step
+        scatters into in place through a flat view are made contiguous
+        (a no-op for the states this module makes)."""
+        scalar = not st["ejected"].ndim
+        b = ({k: v if k in PROG_SHARED else v.unsqueeze(0)
+              for k, v in st.items()} if scalar else st)
+        for k in _IN_PLACE:
+            b[k] = b[k].contiguous()
+        return b, scalar
+
+    def _offsets(self, reps: int, size: int, ndim: int) -> torch.Tensor:
+        """int64 ``[R, 1, ...]`` (``ndim`` axes): replica r's first flat
+        index in a ``[R, size]`` layout."""
+        key = (reps, size, ndim)
+        off = self._rep_offsets.get(key)
+        if off is None:
+            off = self._rep_offsets[key] = (
+                torch.arange(reps, dtype=torch.int64, device=self.device)
+                * size).reshape((reps,) + (1,) * (ndim - 1))
+        return off
+
+    def _flat(self, idx: torch.Tensor, size: int) -> torch.Tensor:
+        """``idx`` [R, ...] (indices into each replica's ``size`` flat
+        elements) as indices into the flat ``[R * size]`` layout; at one
+        replica the indices themselves."""
+        reps = idx.shape[0]
+        return idx if reps == 1 else idx + self._offsets(reps, size,
+                                                          idx.ndim)
+
+    def _take(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``x[r].flatten()[idx[r]]`` for every replica r of a
+        contiguous ``x`` [R, ...]."""
+        return x.reshape(-1)[self._flat(idx, x[0].numel())]
+
+    def _phase_rows(self, st, k: str, ph: torch.Tensor) -> torch.Tensor:
+        """Row ``ph[r]`` of program array ``k`` for every replica r: one
+        shared copy (``PROG_SHARED``) or, in a caller-built state that
+        stacked it, replica r's own (told apart by ``ndim``)."""
+        x = st[k]
+        if x.ndim == PROG_SHARED[k]:
+            return x.index_select(0, ph)
+        reps, n = x.shape[:2]
+        return x.reshape((reps * n,) + x.shape[2:]).index_select(
+            0, ph + self._offsets(reps, n, 1))
+
+    def _prog_take(self, st, k: str, idx: torch.Tensor) -> torch.Tensor:
+        """Program array ``k`` [n_phases, S] at flat index ``idx`` [R, S]
+        of every replica, shared or stacked."""
+        x = st[k]
+        if x.ndim == PROG_SHARED[k]:
+            return x.reshape(-1)[idx]
+        return self._take(x, idx)
+
+    # ------------------------------------------------------------------ #
     def _port_bits(self, table, t_lr, cur):
-        """[len(t_lr), P] bool port mask: one word gather per requester
-        and a bit test (exact on the int32 views of the uint32 words)."""
+        """[..., P] bool port mask: one word gather per requester and a
+        bit test (exact on the int32 views of the uint32 words)."""
         words = table[t_lr * self.N + cur]                       # [., W]
-        return ((words[:, self._w_idx] >> self._b_idx) & 1).bool()
+        return ((words[..., self._w_idx] >> self._b_idx) & 1).bool()
 
     @staticmethod
     def _mean_msg(t: Traffic) -> float:
@@ -437,12 +540,13 @@ class Simulator:
         return 1.0
 
     def _inject(self, st, key, traffic: Traffic):
-        """Start messages + push one packet per eligible endpoint."""
+        """Start messages + push one packet per eligible endpoint, in
+        every replica of the batched state ``st``."""
         S, d, pool, pt = self.S, self.d_leaf, self.pool, self._pt
         e = self._e
-        k1, k2, k3, k4 = prng.split(key, 4, partitionable=pt)
+        k1, k2, k3, k4 = prng.split(key, 4, partitionable=pt).unbind(-2)
 
-        idle = st["msg_rem"] == 0
+        idle = st["msg_rem"] == 0                                  # [R, S]
         pat = traffic.pattern
         size = 1
         burst_new = None
@@ -459,19 +563,21 @@ class Simulator:
                 # st["prog"] is each endpoint's phase pointer; an endpoint
                 # may start its phase-p message once p is within window
                 # of the count of completed phases (a count, not a prefix)
-                ncomp = (st["phase_done"] >= 0).sum(dtype=_I32)
+                ncomp = (st["phase_done"] >= 0).sum(-1, dtype=_I32)
                 pe = st["prog"]
-                start = idle & (pe < (ncomp + traffic.window).clamp(max=NP))
+                start = idle & (pe < (ncomp + traffic.window).clamp(
+                    max=NP)[:, None])
                 idx = pe.clamp(0, NP - 1).long() * S + e
-                dst = st["prog_partner"].reshape(-1)[idx]
-                size = st["prog_packets"].reshape(-1)[idx]
+                dst = self._prog_take(st, "prog_partner", idx)
+                size = self._prog_take(st, "prog_packets", idx)
             else:
                 # barrier: one message per endpoint per phase, the rows of
                 # the running phase (an index_select: no host sync)
-                ph = st["phase"].clamp(max=NP - 1).reshape(1)
-                start = idle & (st["prog"] < 1) & (st["phase"] < NP)
-                dst = st["prog_partner"].index_select(0, ph)[0]
-                size = st["prog_packets"].index_select(0, ph)[0]
+                ph = st["phase"].clamp(max=NP - 1)
+                start = (idle & (st["prog"] < 1)
+                         & (st["phase"] < NP)[:, None])
+                dst = self._phase_rows(st, "prog_partner", ph)
+                size = self._phase_rows(st, "prog_packets", ph)
         else:   # the Bernoulli families
             # the reference compares each uniform draw against the float32
             # rounding of its threshold (jax's weakly typed Python floats)
@@ -483,7 +589,7 @@ class Simulator:
                 rho = min(traffic.load / traffic.burst_load, 0.999)
                 p_off = 1.0 / max(traffic.burst_len, 1.0)
                 p_on = min(1.0, p_off * rho / max(1.0 - rho, 1e-9))
-                ka, kb = prng.split(k3, 2, partitionable=pt)
+                ka, kb = prng.split(k3, 2, partitionable=pt).unbind(-2)
                 stay = (prng.uniform(ka, (S,), partitionable=pt)
                         >= _f32(p_off))
                 rise = prng.uniform(kb, (S,), partitionable=pt) < _f32(p_on)
@@ -498,7 +604,7 @@ class Simulator:
             elif pat == "rep":
                 dst = st["perm"]
             elif pat == "rsp":
-                dst = st["sigma"][e // d] * d + e % d
+                dst = st["sigma"][:, e // d] * d + e % d
             elif pat == "bu":   # the two halves exchange uniformly
                 half = S // 2
                 r = prng.randint(k2, (S,), 0, half, partitionable=pt)
@@ -513,7 +619,7 @@ class Simulator:
                 # remainder takes the sign of S, as jnp's
                 dst = (e + traffic.shift) % S
             else:   # hotspot: incast a share onto a few hot endpoints
-                kh, ki = prng.split(k3, 2, partitionable=pt)
+                kh, ki = prng.split(k3, 2, partitionable=pt).unbind(-2)
                 hot = (prng.uniform(kh, (S,), partitionable=pt)
                        < _f32(traffic.hot_frac))
                 dst = torch.where(
@@ -540,27 +646,28 @@ class Simulator:
 
         # free-list pop: requester of rank r takes the r-th ring entry;
         # requesters past the free count get -1 (a pool stall)
-        rank = torch.cumsum(want_net.to(_I32), 0, dtype=_I32) - 1
-        ok = want_net & (rank < st["fl_len"])
-        slot_idx = (st["fl_head"] + rank.clamp(min=0)) % pool
-        pid = torch.where(ok, st["fl_buf"][slot_idx], -1)
-        n_pop = ok.sum(dtype=_I32)
+        rank = torch.cumsum(want_net.to(_I32), -1, dtype=_I32) - 1
+        ok = want_net & (rank < st["fl_len"][:, None])
+        slot_idx = (st["fl_head"][:, None] + rank.clamp(min=0)) % pool
+        pid = torch.where(ok, self._take(st["fl_buf"], slot_idx), -1)
+        n_pop = ok.sum(-1, dtype=_I32)
 
         # non-injectors write into the pad slot at index pool
-        widx = torch.where(ok, pid.clamp(min=0), pool)
+        widx = self._flat(torch.where(ok, pid.clamp(min=0), pool), pool + 1)
         if burst_new is not None:
             st["burst"] = burst_new
         st["fl_head"] = (st["fl_head"] + n_pop) % pool
         st["fl_len"] = st["fl_len"] - n_pop
-        st["p_sd"].index_put_((widx,), (src_lr << 16) | dst_lr)
+        st["p_sd"].reshape(-1).index_put_((widx,), (src_lr << 16) | dst_lr)
         if self.cfg.policy in _VALIANT_POLICIES:
-            st["p_mid"].index_put_((widx,), self._intermediate(
+            st["p_mid"].reshape(-1).index_put_((widx,), self._intermediate(
                 st, k4, src_lr, dst_lr))
-        st["p_bh"].index_put_((widx,), (st["slot"] << 8).expand(S))
+        st["p_bh"].reshape(-1).index_put_(
+            (widx,), (st["slot"] << 8)[:, None].expand(-1, S))
         # push into the NIC queue (dense one-hot write, one row each)
         pos = (st["eq_head"] + st["eq_len"]) % self.QE
-        slot_hot = ok[:, None] & (self._qe_ids[None, :] == pos[:, None])
-        st["eq_buf"] = torch.where(slot_hot, pid.clamp(min=0)[:, None],
+        slot_hot = ok[..., None] & (self._qe_ids == pos[..., None])
+        st["eq_buf"] = torch.where(slot_hot, pid.clamp(min=0)[..., None],
                                    st["eq_buf"])
         st["eq_len"] = st["eq_len"] + ok.to(_I32)
 
@@ -568,12 +675,12 @@ class Simulator:
         st["msg_rem"] = msg_rem - consumed.to(_I32)
         st["msg_dst"] = msg_dst
         st["prog"] = prog
-        n_local = deliver_local.sum(dtype=_I32)
-        st["created"] = st["created"] + ok.sum(dtype=_I32) + n_local
+        n_local = deliver_local.sum(-1, dtype=_I32)
+        st["created"] = st["created"] + ok.sum(-1, dtype=_I32) + n_local
         st["ejected"] = st["ejected"] + n_local
         st["pool_stall"] = st["pool_stall"] + (want_net & ~ok).sum(
-            dtype=_I32)
-        st["lat_hist"][1] += n_local
+            -1, dtype=_I32)
+        st["lat_hist"][:, 1] += n_local
         return st
 
     def _intermediate(self, st, key, src_lr, dst_lr):
@@ -584,15 +691,15 @@ class Simulator:
         at the source switch."""
         N = self.N
         mid_lr = prng.randint(key, (self.S,), 0, self.n1,
-                              partitionable=self._pt)
+                              partitionable=self._pt)          # [R, S]
         if self.cfg.policy == "valiant":
             return mid_lr
         sw = self.leaf_ids[src_lr]
-        occ0 = st["qlen"][self._ugal_occ_idx]                      # [S, P]
+        occ0 = st["qlen"][:, self._ugal_occ_idx]                # [R, S, P]
 
         def best(t_lr):
             m = self._port_bits(self.min_mask, t_lr, sw)
-            return torch.where(m, occ0, 1 << 20).amin(dim=1)
+            return torch.where(m, occ0, 1 << 20).amin(dim=-1)
         q_min, q_val = best(dst_lr), best(mid_lr)
         # int16 distances and their int16 sum; the products promote to
         # int32, as in the reference
@@ -606,30 +713,34 @@ class Simulator:
     def _crossbar_round(self, st, key):
         """One crossbar sub-round: VC pre-arbitration, routing, output
         arbitration, input-queue -> output-queue moves, ejections."""
-        N, P, V, Q, S = self.N, self.P, self.V, self.Q, self.S
+        N, P, V, Q = self.N, self.P, self.V, self.Q
         OQ, NP, pool = self.cfg.out_queue, self.N * self.P, self.pool
-        k_vc, k_tie, k_arb = prng.split(key, 3, partitionable=self._pt)
+        R = st["slot"].shape[0]
+        k_vc, k_tie, k_arb = prng.split(key, 3,
+                                        partitionable=self._pt).unbind(-2)
 
         # ---- VC pre-arbitration: one candidate VC per (switch, in-port)
-        # and that queue's head packet (-1: no candidate) ----
+        # and that queue's head packet (-1: no candidate); the replicas'
+        # switches go through as R*N switches ----
         vc_rand = prng.uniform(k_vc, (N, P, V), partitionable=self._pt)
-        vc_sel, _has, net_pkt = vc_prearb(st["qlen"].reshape(N, P, V),
-                                          vc_rand, st["qbuf"], st["qhead"])
-        vc_sel = vc_sel.reshape(-1)
-        net_pkt = net_pkt.reshape(-1)
+        vc_sel, _has, net_pkt = vc_prearb(
+            st["qlen"].reshape(R * N, P, V), vc_rand.reshape(R * N, P, V),
+            st["qbuf"].reshape(R * self.NQ, Q), st["qhead"].reshape(-1))
+        vc_sel = vc_sel.reshape(R, NP)
+        net_pkt = net_pkt.reshape(R, NP)
 
         # endpoint (NIC) heads
-        ep_head = st["eq_buf"].reshape(-1)[self._e * self.QE + st["eq_head"]]
+        ep_head = self._take(st["eq_buf"], self._e * self.QE + st["eq_head"])
         ep_pkt = torch.where(st["eq_len"] > 0, ep_head, -1)
 
-        # ---- unified requester table ----
+        # ---- unified requester table [R, NR] ----
         cur = self.cur                                             # [NR]
-        pkt = torch.cat([net_pkt, ep_pkt])
+        pkt = torch.cat([net_pkt, ep_pkt], dim=-1)
         valid = pkt >= 0
         pkt0 = pkt.clamp(min=0)
-        bh = st["p_bh"][pkt0]
+        bh = self._take(st["p_bh"], pkt0)
         hops = bh & 0xFF
-        sd = st["p_sd"][pkt0]
+        sd = self._take(st["p_sd"], pkt0)
         t_lr = sd & 0xFFFF
         eject = valid & (cur == self.leaf_ids[t_lr])
         route = valid & ~eject
@@ -645,15 +756,15 @@ class Simulator:
             up_s = self._port_bits(self.away_mask, s_lr, cur)
             d_ct = self.dist[t_lr * N + cur]
             d_cs = self.dist[s_lr * N + cur]
-            src_side = (d_cs < d_ct)[:, None]
+            src_side = (d_cs < d_ct)[..., None]
             deroute = (up_s & up_t & src_side) | (dn_s & dn_t & ~src_side)
-            d_nt = (d_ct[:, None] + up_t.to(torch.int16)
+            d_nt = (d_ct[..., None] + up_t.to(torch.int16)
                     - dn_t.to(torch.int16))
-            budget_ok = (hops[:, None] + 1 + d_nt) <= self.cfg.max_hops
+            budget_ok = (hops[..., None] + 1 + d_nt) <= self.cfg.max_hops
             allowed = (up_s & dn_t) | (deroute & budget_ok)
         elif pol in _VALIANT_POLICIES:
             # minimal toward the intermediate leaf while there is one
-            mid_lr = st["p_mid"][pkt0]
+            mid_lr = self._take(st["p_mid"], pkt0)
             tgt = torch.where(mid_lr >= 0, mid_lr, t_lr)
             allowed = self._port_bits(self.min_mask, tgt, cur)
             deroute = torch.zeros_like(allowed)
@@ -666,11 +777,11 @@ class Simulator:
         next_vc = vc_hops.clamp(max=V - 1)
         tie = prng.uniform(k_tie, (self.NR, P), partitionable=self._pt)
         rnd = prng.randint(k_arb, (self.NR,), 0, 1 << 8,
-                             partitionable=self._pt)
-        # one kernel: congestion (local output queue + downstream input
-        # queue for the flight VC), credit (room in the local output
-        # queue), scores, first argmin and the segmented output
-        # arbitration; ksp's random walk scores the tiebreak alone
+                           partitionable=self._pt)
+        # one kernel for all replicas: congestion (local output queue +
+        # downstream input queue for the flight VC), credit (room in the
+        # local output queue), scores, first argmin and the segmented
+        # output arbitration; ksp's random walk scores the tiebreak alone
         _port, win, seg = switch_arbitrate_rows(
             tie, allowed, deroute, route, rnd, next_vc, st["oq_len"],
             st["qlen"], nic_first=self._nic_first, dq_base=self._dq_base,
@@ -681,42 +792,48 @@ class Simulator:
         # ---- moves: input queue -> output queue ----
         # the winning priority word per output port is the inverted grant:
         # its low 23 bits are the unique flat requester index
-        exist = seg >= 0                                           # [N*P]
+        exist = seg >= 0                                           # [R, NP]
         wlo = torch.where(exist, seg & ((1 << 23) - 1), 0)
-        win_pkt = pkt0[wlo]                                        # [N*P]
-        win_vc = next_vc[wlo]
-        push = (exist[:, None] & (win_vc[:, None] == self._v_ids)).reshape(-1)
-        pos = (st["oq_head"] + st["oq_len"]) % OQ                  # [NQ]
-        slot_hot = push[:, None] & (self._oq_ids[None, :] == pos[:, None])
-        win_pkt_q = win_pkt[:, None].expand(NP, V).reshape(-1)     # [NQ]
-        st["oq_buf"] = torch.where(slot_hot, win_pkt_q[:, None],
+        win_pkt = self._take(pkt0, wlo)                            # [R, NP]
+        win_vc = self._take(next_vc, wlo)
+        push = (exist[..., None] & (win_vc[..., None] == self._v_ids)
+                ).reshape(R, -1)
+        pos = (st["oq_head"] + st["oq_len"]) % OQ                  # [R, NQ]
+        slot_hot = push[..., None] & (self._oq_ids == pos[..., None])
+        win_pkt_q = win_pkt[..., None].expand(R, NP, V).reshape(R, -1)
+        st["oq_buf"] = torch.where(slot_hot, win_pkt_q[..., None],
                                    st["oq_buf"])
         st["oq_len"] = st["oq_len"] + push.to(_I32)
 
         # pops: winners + ejectors leave their input queues (each
         # (switch, in-port) pops at most its one pre-arbitrated VC)
         leave = win | eject
-        pop = (leave[:NP, None] & (vc_sel[:, None] == self._v_ids)
-               ).reshape(-1).to(_I32)                              # [NQ]
+        pop = (leave[:, :NP, None] & (vc_sel[..., None] == self._v_ids)
+               ).reshape(R, -1).to(_I32)                           # [R, NQ]
         st["qhead"] = (st["qhead"] + pop) % Q
         st["qlen"] = st["qlen"] - pop
-        ep_leave = leave[NP:].to(_I32)
+        ep_leave = leave[:, NP:].to(_I32)
         st["eq_head"] = (st["eq_head"] + ep_leave) % self.QE
         st["eq_len"] = st["eq_len"] - ep_leave
 
         # ejections: free-list push (only network inputs eject) + stats
-        ej_n = eject[:NP]
-        erank = torch.cumsum(ej_n.to(_I32), 0, dtype=_I32) - 1
-        fpos = (st["fl_head"] + st["fl_len"] + erank.clamp(min=0)) % pool
-        st["fl_buf"].index_put_((torch.where(ej_n, fpos, pool),), pkt0[:NP])
-        st["fl_len"] = st["fl_len"] + ej_n.sum(dtype=_I32)
-        lat = (st["slot"] - (bh[:NP] >> 8) + 1).clamp(
+        ej_n = eject[:, :NP]
+        erank = torch.cumsum(ej_n.to(_I32), -1, dtype=_I32) - 1
+        fpos = (st["fl_head"][:, None] + st["fl_len"][:, None]
+                + erank.clamp(min=0)) % pool
+        st["fl_buf"].reshape(-1).index_put_(
+            (self._flat(torch.where(ej_n, fpos, pool), pool + 1),),
+            pkt0[:, :NP])
+        st["fl_len"] = st["fl_len"] + ej_n.sum(-1, dtype=_I32)
+        lat = (st["slot"][:, None] - (bh[:, :NP] >> 8) + 1).clamp(
             0, self.cfg.hist_bins - 1)
-        st["lat_hist"].index_add_(0, torch.where(ej_n, lat, 0),
-                                  ej_n.to(_I32))
-        st["ejected"] = st["ejected"] + eject.sum(dtype=_I32)
+        st["lat_hist"].reshape(-1).index_add_(
+            0, self._flat(torch.where(ej_n, lat, 0),
+                          self.cfg.hist_bins).reshape(-1),
+            ej_n.to(_I32).reshape(-1))
+        st["ejected"] = st["ejected"] + eject.sum(-1, dtype=_I32)
         st["hop_sum"] = st["hop_sum"] + torch.where(eject, hops, 0).sum(
-            dtype=_I32)
+            -1, dtype=_I32)
         return st
 
     def _link_phase(self, st, key):
@@ -724,52 +841,60 @@ class Simulator:
         queue (credit-checked), incrementing the packet's hop count."""
         N, P, V, Q = self.N, self.P, self.V, self.Q
         OQ, NP = self.cfg.out_queue, self.N * self.P
+        R = st["slot"].shape[0]
         # one non-empty output VC per (switch, port) with downstream room,
         # by random priority: the masked argmax of VC pre-arbitration
-        room = st["qlen"][self._link_dq] < Q                        # [N*P,V]
-        nonempty = st["oq_len"].reshape(NP, V) > 0
+        room = st["qlen"][:, self._link_dq] < Q                  # [R,NP,V]
+        nonempty = st["oq_len"].reshape(R, NP, V) > 0
         cand = nonempty & room & self._valid[:, None]
         rand = prng.uniform(key, (NP, V), partitionable=self._pt)
         # and the chosen queue's head packet; a non-sender's -1 clamps to
         # 0, which nothing reads (it adds 0 hops and is never pushed)
-        vcs, send, head = vc_prearb(cand.to(_I32).reshape(N, P, V),
-                                    rand.reshape(N, P, V), st["oq_buf"],
-                                    st["oq_head"])
-        vcs = vcs.reshape(-1)
-        send = send.reshape(-1) > 0
-        pkt0 = head.reshape(-1).clamp(min=0)
+        vcs, send, head = vc_prearb(cand.to(_I32).reshape(R * N, P, V),
+                                    rand.reshape(R * N, P, V),
+                                    st["oq_buf"].reshape(R * self.NQ, OQ),
+                                    st["oq_head"].reshape(-1))
+        vcs = vcs.reshape(R, NP)
+        send = send.reshape(R, NP) > 0
+        pkt0 = head.reshape(R, NP).clamp(min=0)
 
         # each (switch, port) pops at most one VC; each input port receives
         # from exactly one static upstream output port (link reversal)
-        pop = (send[:, None] & (vcs[:, None] == self._v_ids)
-               ).reshape(-1).to(_I32)                               # [NQ]
+        pop = (send[..., None] & (vcs[..., None] == self._v_ids)
+               ).reshape(R, -1).to(_I32)                            # [R, NQ]
         st["oq_head"] = (st["oq_head"] + pop) % OQ
         st["oq_len"] = st["oq_len"] - pop
-        recv = send[self._rev_idx] & self._valid                    # [N*P]
-        recv_vc = vcs[self._rev_idx]
-        recv_pkt = pkt0[self._rev_idx]
-        push = (recv[:, None] & (recv_vc[:, None] == self._v_ids)).reshape(-1)
-        qpos = (st["qhead"] + st["qlen"]) % Q                       # [NQ]
-        slot_hot = push[:, None] & (self._q_ids[None, :] == qpos[:, None])
-        recv_pkt_q = recv_pkt[:, None].expand(NP, V).reshape(-1)
-        st["qbuf"] = torch.where(slot_hot, recv_pkt_q[:, None], st["qbuf"])
+        recv = send[:, self._rev_idx] & self._valid                 # [R, NP]
+        recv_vc = vcs[:, self._rev_idx]
+        recv_pkt = pkt0[:, self._rev_idx]
+        push = (recv[..., None] & (recv_vc[..., None] == self._v_ids)
+                ).reshape(R, -1)
+        qpos = (st["qhead"] + st["qlen"]) % Q                       # [R, NQ]
+        slot_hot = push[..., None] & (self._q_ids == qpos[..., None])
+        recv_pkt_q = recv_pkt[..., None].expand(R, NP, V).reshape(R, -1)
+        st["qbuf"] = torch.where(slot_hot, recv_pkt_q[..., None], st["qbuf"])
         st["qlen"] = st["qlen"] + push.to(_I32)
         # hop increment on the packed born|hops word (hops: low byte);
         # non-senders add 0
-        st["p_bh"].index_add_(0, pkt0, send.to(_I32))
+        st["p_bh"].reshape(-1).index_add_(
+            0, self._flat(pkt0, self.pool + 1).reshape(-1),
+            send.to(_I32).reshape(-1))
         if self.cfg.policy in _VALIANT_POLICIES:
             # a packet sent to its intermediate leaf's switch forgets it
             # (the others write the pad slot)
-            mid_lr = st["p_mid"][pkt0]
+            mid_lr = self._take(st["p_mid"], pkt0)
             reached = send & (mid_lr >= 0) & (
                 self._link_nb == self.leaf_ids[mid_lr.clamp(min=0)])
-            st["p_mid"].index_fill_(
-                0, torch.where(reached, pkt0, self.pool).long(), -1)
+            st["p_mid"].reshape(-1).index_fill_(0, self._flat(
+                torch.where(reached, pkt0, self.pool),
+                self.pool + 1).reshape(-1).long(), -1)
         return st
 
     def _step(self, st, traffic: Traffic, chunk=None, max_slots=None):
+        """One slot of every replica of the batched state ``st``."""
         key, k_inj, k_link, *k_xb = prng.split(
-            st["key"], 3 + self.cfg.speedup, partitionable=self._pt)
+            st["key"], 3 + self.cfg.speedup,
+            partitionable=self._pt).unbind(-2)
         st["key"] = key
         self._inject(st, k_inj, traffic)
         for r in range(self.cfg.speedup):
@@ -784,7 +909,8 @@ class Simulator:
     # phase scheduler of the compiled workload programs
     # ------------------------------------------------------------------ #
     def _advance_program(self, st, traffic: Traffic, chunk, max_slots):
-        """The phase bookkeeping of ``Traffic("program")`` after a slot.
+        """The phase bookkeeping of ``Traffic("program")`` after a slot,
+        each replica on its own registers.
 
         ``barrier``: when the running phase's ejection target is met, or
         its ``max_slots`` budget is gone on a chunk boundary (the phase's
@@ -804,17 +930,16 @@ class Simulator:
         NP = traffic.n_phases
         if traffic.schedule == "window":
             newly = (st["phase_done"] < 0) & (
-                st["ejected"] >= st["prog_expected_cum"])
-            st["phase_done"] = torch.where(newly, st["slot"],
+                st["ejected"][:, None] >= st["prog_expected_cum"])
+            st["phase_done"] = torch.where(newly, st["slot"][:, None],
                                            st["phase_done"])
             st["phase_ok"] = st["phase_ok"] | newly
-            st["phase"] = (st["phase_done"] >= 0).sum(dtype=_I32)
+            st["phase"] = (st["phase_done"] >= 0).sum(-1, dtype=_I32)
             return st
 
-        ph = st["phase"]
+        ph = st["phase"]                                            # [R]
         active = ph < NP
-        exp = st["prog_expected"].index_select(
-            0, ph.clamp(max=NP - 1).reshape(1))[0]
+        exp = self._phase_rows(st, "prog_expected", ph.clamp(max=NP - 1))
         natural = active & (st["ejected"] >= exp)
         crossed = natural
         if max_slots is not None:
@@ -826,43 +951,89 @@ class Simulator:
         if pids is None:
             pids = self._phase_ids[NP] = torch.arange(
                 NP, dtype=_I32, device=self.device)
-        hot = (pids == ph) & crossed
-        st["phase_done"] = torch.where(hot, st["slot"], st["phase_done"])
-        st["phase_ok"] = st["phase_ok"] | (hot & natural)
+        hot = (pids == ph[:, None]) & crossed[:, None]
+        st["phase_done"] = torch.where(hot, st["slot"][:, None],
+                                       st["phase_done"])
+        st["phase_ok"] = st["phase_ok"] | (hot & natural[:, None])
         st["phase"] = ph + crossed.to(_I32)
         # queue buffers keep stale ids (unreachable at length 0) and the
         # pool attributes stale packets (unreachable once the free list
         # is fresh), as behaviour-neutral as in a fresh state
         for k in _PHASE_RESET:
-            st[k] = torch.where(crossed, 0, st[k])
-        fl = st["fl_buf"][:self.pool]
-        fl.copy_(torch.where(crossed, self._fl_fresh, fl))
+            x = st[k]
+            st[k] = torch.where(
+                crossed.reshape(crossed.shape + (1,) * (x.ndim - 1)), 0, x)
+        fl = st["fl_buf"][:, :self.pool]
+        fl.copy_(torch.where(crossed[:, None], self._fl_fresh, fl))
         st["fl_len"] = torch.where(crossed, self.pool, st["fl_len"])
-        st["key"] = torch.where(crossed, st["key0"], st["key"])
+        st["key"] = torch.where(crossed[:, None], st["key0"], st["key"])
         return st
 
     def run_chunk(self, st, traffic: Traffic, n_slots: int):
-        """Advance ``n_slots`` slots in place; returns ``st``."""
+        """Advance ``n_slots`` slots in place; returns ``st``.  A scalar
+        state runs as one replica, a batched state (``make_batch_state``)
+        as all of its replicas at once."""
+        b, scalar = self._batched(st)
         for _ in range(n_slots):
-            self._step(st, traffic)
+            self._step(b, traffic)
+        if scalar:
+            _unbatch(st, b)
         return st
+
+    def run_chunk_batch(self, st, traffic: Traffic, n_slots: int):
+        """``run_chunk`` of a batched state: every replica advances
+        ``n_slots`` slots in the same steps."""
+        if not st["ejected"].ndim:
+            raise ValueError("run_chunk_batch takes a batched state "
+                             "(make_batch_state); run_chunk takes both")
+        return self.run_chunk(st, traffic, n_slots)
 
     # ------------------------------------------------------------------ #
     # measurement runs
     # ------------------------------------------------------------------ #
-    def run_throughput(self, traffic: Traffic, warm: int = 200,
-                       measure: int = 400, seed: int = 0) -> dict:
-        st = self.make_state(traffic, seed)
+    def _throughput_window(self, st, traffic: Traffic, warm: int,
+                           measure: int):
+        """``warm`` then ``measure`` slots of ``st``; the window's
+        ejections, hop sum and pool stalls and the total ejections as
+        numpy arrays (0-d, or [R] for a batched state), in one
+        transfer."""
         self.run_chunk(st, traffic, warm)
         base = {k: st[k].clone() for k in ("ejected", "hop_sum",
                                            "pool_stall")}
         self.run_chunk(st, traffic, measure)
-        # the window deltas come back to the host in one transfer
-        ej, hop, stall, total = torch.stack(
-            [st[k] - base[k] for k in base] + [st["ejected"]]).cpu().tolist()
+        return torch.stack([st[k] - base[k] for k in base]
+                           + [st["ejected"]]).cpu().numpy()
+
+    def run_throughput(self, traffic: Traffic, warm: int = 200,
+                       measure: int = 400, seed: int = 0) -> dict:
+        st = self.make_state(traffic, seed)
+        ej, hop, stall, total = (int(x) for x in self._throughput_window(
+            st, traffic, warm, measure))
         return {
             "throughput": ej / (self.S * measure),
             "avg_hops": hop / max(ej, 1),
+            "ejected": total,
+            "pool_stall": stall,
+            "state": st,
+        }
+
+    def run_throughput_batch(self, traffic: Traffic, seeds, warm: int = 200,
+                             measure: int = 400, sharder=None) -> dict:
+        """Batched ``run_throughput``: one step for all ``seeds``, each
+        metric a per-replica ``[R]`` array; replica ``i`` is bitwise the
+        scalar run with seed ``seeds[i]``.  A ``sharder`` (the
+        reference's split of the replicas over devices) is not ported
+        yet."""
+        if sharder is not None:
+            raise NotImplementedError(
+                "run_throughput_batch(sharder=...) splits the replicas over "
+                "devices, which is not ported yet (ROADMAP item 12)")
+        st = self.make_batch_state(traffic, seeds)
+        ej, hop, stall, total = self._throughput_window(st, traffic, warm,
+                                                        measure)
+        return {
+            "throughput": ej / (self.S * measure),
+            "avg_hops": hop / np.maximum(ej, 1),
             "ejected": total,
             "pool_stall": stall,
             "state": st,
@@ -875,34 +1046,51 @@ class Simulator:
 
         ``state`` (a state of this simulator, consumed) takes the place of
         a fresh ``make_state(traffic, seed)``: the host-loop idiom sets a
-        ``Traffic("phase")`` state's ``partner`` row and runs it here.
+        ``Traffic("phase")`` state's ``partner`` row and runs it here; a
+        batched state (``make_batch_state``) runs all its replicas.
 
         ``slots`` is the exact slot at which the ejection counter first
-        reached ``expected``: a ``done`` tensor on the device records it
-        after every step, with no sync.  Whether to run the next chunk of
-        ``chunk`` slots is tested before each chunk, and only there (one
-        host sync per chunk), so the run ends on a chunk boundary and
-        ``pool_stall`` and ``state`` are read there.  A run that reaches
-        ``max_slots`` first reports the final slot and
-        ``completed=False``.
+        reached ``expected``: a ``done`` tensor on the device records it,
+        for each replica, after every step, with no sync.  Whether to run
+        the next chunk of ``chunk`` slots is tested before each chunk,
+        and only there (one host sync per chunk): the run goes on while
+        any replica is not done and the largest slot is below
+        ``max_slots``, so it ends on a chunk boundary, where
+        ``pool_stall`` and ``state`` are read.  A replica that is not
+        done by then reports the final slot and ``completed=False``.
+        A batched state gives per-replica arrays.
         """
         # p_bh packs the born slot above the hop byte; past 2^23 slots the
         # shifted value would wrap int32 and corrupt latency measurement
         assert max_slots < (1 << 23), \
             "max_slots overflows the p_bh born-slot packing (< 2^23)"
-        if state is not None:
-            _check_scalar_state(state)
         st = state if state is not None else self.make_state(traffic, seed)
-        done = torch.full((), -1, dtype=_I32, device=self.device)
-        while bool(((done < 0) & (st["slot"] < max_slots)).item()):
+        b, scalar = self._batched(st)
+        done = torch.full_like(b["ejected"], -1)
+        while bool(((done < 0).any() & (b["slot"].max() < max_slots)
+                    ).item()):
             for _ in range(chunk):
-                self._step(st, traffic)
-                newly = (st["ejected"] >= expected) & (done < 0)
-                done = torch.where(newly, st["slot"], done)
+                self._step(b, traffic)
+                newly = (b["ejected"] >= expected) & (done < 0)
+                done = torch.where(newly, b["slot"], done)
+        if scalar:
+            _unbatch(st, b)
         done, final, stall = torch.stack(
-            [done, st["slot"], st["pool_stall"]]).cpu().tolist()
-        return {"slots": done if done >= 0 else final,
-                "completed": done >= 0, "pool_stall": stall, "state": st}
+            [done, b["slot"], b["pool_stall"]]).cpu().numpy()
+        slots = np.where(done >= 0, done, final)
+        if scalar:
+            return {"slots": int(slots[0]), "completed": bool(done[0] >= 0),
+                    "pool_stall": int(stall[0]), "state": st}
+        return {"slots": slots, "completed": done >= 0, "pool_stall": stall,
+                "state": st}
+
+    def run_completion_batch(self, traffic: Traffic, expected: int, seeds,
+                             chunk: int = 128,
+                             max_slots: int = 100_000) -> dict:
+        """Batched ``run_completion`` over fresh states of ``seeds``."""
+        return self.run_completion(
+            traffic, expected, chunk=chunk, max_slots=max_slots,
+            state=self.make_batch_state(traffic, seeds))
 
     def run_latency(self, traffic: Traffic, warm: int = 200,
                     measure: int = 600, seed: int = 0) -> dict:
@@ -912,6 +1100,22 @@ class Simulator:
         self.run_chunk(st, traffic, measure)
         hist = (st["lat_hist"] - base).cpu().numpy()
         return {"hist": hist, **percentiles(hist, LATENCY_QS)}
+
+    def run_latency_batch(self, traffic: Traffic, seeds, warm: int = 200,
+                          measure: int = 600) -> dict:
+        """Batched ``run_latency``: per-replica histograms ``[R, bins]``
+        and percentile arrays (``{"p0.5": [R floats], ...}``; NaN where a
+        replica ejected nothing in the window)."""
+        st = self.make_batch_state(traffic, seeds)
+        self.run_chunk(st, traffic, warm)
+        base = st["lat_hist"].clone()
+        self.run_chunk(st, traffic, measure)
+        hist = (st["lat_hist"] - base).cpu().numpy()
+        per = [percentiles(row, LATENCY_QS) for row in hist]
+        out = {"hist": hist}
+        for q in LATENCY_QS:
+            out[f"p{q}"] = np.asarray([p[f"p{q}"] for p in per])
+        return out
 
     # ------------------------------------------------------------------ #
     # compiled workload programs (repro_torch.workloads)
@@ -935,13 +1139,25 @@ class Simulator:
                 f"fabric has {self.S}")
         dev, n = self.device, program.n_phases
         st = self.make_state(self.program_traffic(program), seed)
-        for k in ("partner", "packets", "expected", "expected_cum"):
-            st["prog_" + k] = getattr(program, k).to(dev, _I32, copy=True)
+        for k in PROG_SHARED:
+            st[k] = getattr(program, k[len("prog_"):]).to(dev, _I32,
+                                                          copy=True)
         st["phase"] = torch.zeros((), dtype=_I32, device=dev)
         st["phase_done"] = torch.full((n,), -1, dtype=_I32, device=dev)
         st["phase_ok"] = torch.zeros((n,), dtype=torch.bool, device=dev)
         st["key0"] = st["key"].clone()
         return st
+
+    def make_program_batch_state(self, program, seeds) -> dict:
+        """``make_program_state`` of each seed stacked on a leading
+        replica axis, but the program's arrays (``PROG_SHARED``), the
+        same for every replica, kept as one unstacked copy."""
+        states = [self.make_program_state(program, int(s)) for s in seeds]
+        if not states:
+            raise ValueError("a batched state needs at least one seed")
+        return {k: states[0][k] if k in PROG_SHARED
+                else torch.stack([s[k] for s in states])
+                for k in states[0]}
 
     def run_program(self, program, *, chunk: int = 16,
                     max_slots: int = 60_000, seed: int = 0, seeds=None,
@@ -950,69 +1166,78 @@ class Simulator:
         """Run a compiled :class:`repro_torch.workloads.CompiledProgram`
         to its end.
 
-        ``state`` (a ``make_program_state`` state, consumed) takes the
-        place of a fresh one of ``seed``.  Whether to run the next chunk
-        of ``chunk`` slots is tested before each chunk, and only there
-        (one host sync per chunk): ``barrier`` runs until every phase has
-        crossed (a phase stuck past ``max_slots`` is forced across on a
-        chunk boundary), ``window`` until the last phase completes or
-        ``max_slots`` is reached.  Returns ``slots`` (total),
-        ``completed``, ``pool_stall``, ``phase_slots`` (``[n_phases]``:
-        per-phase durations under ``barrier``, cumulative completion
-        slots under ``window``, where a phase never completed reports
-        the final slot) and ``state``.
+        One of ``seed`` (a scalar run), ``seeds`` (a fresh batched run,
+        ``make_program_batch_state``) or ``state`` (a scalar or batched
+        program state, consumed).  Whether to run the next chunk of
+        ``chunk`` slots is tested before each chunk, and only there (one
+        host sync per chunk): ``barrier`` runs until every phase of every
+        replica has crossed (a phase stuck past ``max_slots`` is forced
+        across on a chunk boundary), ``window`` until every replica's
+        last phase completes or the largest slot reaches ``max_slots``.
+        A replica that finishes first steps on with its finished state
+        until the others do.  Returns ``slots`` (total), ``completed``,
+        ``pool_stall``, ``phase_slots`` (``[..., n_phases]``: per-phase
+        durations under ``barrier``, cumulative completion slots under
+        ``window``, where a phase never completed reports the final
+        slot) and ``state``; per-replica arrays when batched.
 
-        Replicas (``seeds=``, a ``state`` with a replica axis) and the
-        resumable bounded segments (``budget_chunks=``) are not ported
-        yet.
+        The resumable bounded segments (``budget_chunks=``) are not
+        ported yet.
         """
         assert max_slots < (1 << 23), \
             "max_slots overflows the p_bh born-slot packing (< 2^23)"
-        if seeds is not None:
-            raise NotImplementedError(
-                "run_program(seeds=...) runs replicas, which are not ported "
-                "yet (ROADMAP item 6); run one seed at a time")
         if budget_chunks is not None:
             raise NotImplementedError(
                 "run_program(budget_chunks=...) is the resumable runtime's "
                 "bounded segment, which is not ported yet (ROADMAP item 9)")
         traffic = self.program_traffic(program)
         if state is not None:
-            _check_scalar_state(state)
-        st = (state if state is not None
-              else self.make_program_state(program, seed))
+            st = state
+        elif seeds is not None:
+            st = self.make_program_batch_state(program, seeds)
+        else:
+            st = self.make_program_state(program, seed)
+        b, scalar = self._batched(st)
         NP = traffic.n_phases
         window = traffic.schedule == "window"
 
         def running():
             if window:
-                live = (st["phase_done"][-1] < 0) & (st["slot"] < max_slots)
+                live = ((b["phase_done"][:, -1] < 0).any()
+                        & (b["slot"].max() < max_slots))
             else:
-                live = st["phase"] < NP
+                live = (b["phase"] < NP).any()
             return bool(live.item())
 
         while running():
             for _ in range(chunk):
-                self._step(st, traffic, chunk=chunk, max_slots=max_slots)
-        out = torch.cat([st["phase_done"], st["phase_ok"].to(_I32),
-                         torch.stack([st["slot"], st["pool_stall"]])])
-        out = out.cpu().numpy()
-        done, ok = out[:NP], out[NP:2 * NP] > 0
-        final, stall = int(out[-2]), int(out[-1])
+                self._step(b, traffic, chunk=chunk, max_slots=max_slots)
+        out = torch.cat([b["phase_done"], b["phase_ok"].to(_I32),
+                         b["slot"][:, None], b["pool_stall"][:, None]],
+                        dim=1).cpu().numpy()
+        if scalar:
+            _unbatch(st, b)
+        done, ok = out[:, :NP], out[:, NP:2 * NP] > 0
+        final, stall = out[:, -2], out[:, -1]
         if window:
-            done = np.where(done >= 0, done, final).astype(np.int32)
-            slots = int(done[-1])
+            done = np.where(done >= 0, done, final[:, None]).astype(np.int32)
+            slots = done[:, -1]
         else:
-            slots = int(done.sum())
-        return {"slots": slots, "completed": bool(ok.all()),
-                "pool_stall": stall, "phase_slots": done, "state": st}
+            slots = done.sum(axis=-1)
+        completed = ok.all(axis=-1)
+        if scalar:
+            return {"slots": int(slots[0]), "completed": bool(completed[0]),
+                    "pool_stall": int(stall[0]), "phase_slots": done[0],
+                    "state": st}
+        return {"slots": slots, "completed": completed, "pool_stall": stall,
+                "phase_slots": done, "state": st}
 
 
-def _check_scalar_state(st: dict) -> None:
-    if st["ejected"].ndim:
-        raise NotImplementedError(
-            "a state with a replica axis runs replicas, which are not "
-            "ported yet (ROADMAP item 6)")
+def _unbatch(st: dict, b: dict) -> None:
+    """Write the entries of ``b``, the one-replica view of the scalar
+    state ``st`` (``Simulator._batched``), back into ``st``."""
+    for k, v in b.items():
+        st[k] = v if k in PROG_SHARED else v.squeeze(0)
 
 
 def pack_mask_block(dist_block: torch.Tensor, valid: torch.Tensor,

@@ -161,17 +161,17 @@ def test_destinations_of_the_fixed_families(tables):
     around; shift to (e + shift) mod S, wrapping in int32 like jax."""
     sim = _port_sim(tables, "mrls")
     e = np.arange(S_MRLS)
-    st = sim.make_state(Traffic("tornado", load=1.0))
+    st = sim.make_batch_state(Traffic("tornado", load=1.0), [0])
     sim._inject(st, st["key"], Traffic("tornado", load=1.0))
-    np.testing.assert_array_equal(st["msg_dst"].numpy(),
+    np.testing.assert_array_equal(st["msg_dst"][0].numpy(),
                                   ((e // 3 + 7) % 14) * 3 + e % 3)
     for shift in (-5, S_MRLS + 1, 2 ** 31 - 1, -2 ** 31):
         tr = Traffic("shift", load=1.0, shift=shift)
-        st = sim.make_state(tr)
+        st = sim.make_batch_state(tr, [0])
         sim._inject(st, st["key"], tr)
         want = ((e.astype(np.int64) + shift + 2 ** 31) % 2 ** 32
                 - 2 ** 31) % S_MRLS
-        np.testing.assert_array_equal(st["msg_dst"].numpy(), want)
+        np.testing.assert_array_equal(st["msg_dst"][0].numpy(), want)
 
 
 def test_shift_past_int32_is_refused_like_the_reference(tables):

@@ -444,14 +444,15 @@ def test_windowed_all2all_with_full_window_is_the_free_running_all2all(
 def test_run_program_refusals(tables):
     sim = _port_sim(tables, "mrls")
     cp = _compiled(port_wl, "rd", sim.S)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sim.run_program(cp, seeds=[0, 1])
+    # replicas run now (tests/test_torch_replicas.py): only an empty
+    # seed list and the bounded segments are refused
+    with pytest.raises(ValueError, match="at least one seed"):
+        sim.run_program(cp, seeds=[])
     with pytest.raises(NotImplementedError, match="item 9"):
         sim.run_program(cp, budget_chunks=2)
-    st = sim.make_program_state(cp)
-    st["ejected"] = st["ejected"].reshape(1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sim.run_program(cp, state=st)
+    st = sim.make_program_batch_state(cp, [0, 1])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sim.run_program(cp, state=st, budget_chunks=2)
     with pytest.raises(AssertionError, match="2\\^23"):
         sim.run_program(cp, max_slots=1 << 23)
     other = port_wl.compile_program(port_wl.rd_allreduce_program(40, 16, 4))

@@ -131,10 +131,11 @@ def test_run_all_shares_a_given_cache_and_drops_its_own(monkeypatch):
 
 def test_run_all_refuses_before_building(monkeypatch):
     built = _count_builds(monkeypatch)
-    # an allreduce runs now; replicas are still to come
+    # an allreduce and replicas run now; the serving metric is still to
+    # come
     exps = [_exp(port_api), _exp(port_api, workload={"pattern": "allreduce"}),
-            _exp(port_api, replicas=2)]
-    with pytest.raises(NotImplementedError, match="replicated"):
+            _exp(port_api, replicas=2), _exp(port_api, metric="serving")]
+    with pytest.raises(NotImplementedError, match="item 7"):
         port_api.run_all(exps, device="cpu")
     assert built == []
 

@@ -320,6 +320,18 @@ def test_fig5_bound_counts_the_bytes_moved():
     assert bench.vc_bytes(geo.n * geo.p, V, geo.n * geo.p) == 52 * 33_156
 
 
+def test_replica_bound_counts_the_shared_geometry_once():
+    """At R = 4 the per-replica arrays count four times and the geometry
+    the replicas share (``nic_first`` [N], ``dq_base`` [N*P]) once."""
+    geo = bench.geometry("fig5", "cpu")
+    shared = geo.n * 4 + geo.n * geo.p * 4
+    assert shared == 136_308
+    assert bench.rows_bytes(geo, replicas=4) == 4 * 11_630_388 - 3 * shared
+    assert bench.rows_bytes(geo, replicas=4) == 46_112_628
+    assert (bench.rows_bytes(geo, zero_occ=True, replicas=4)
+            == 4 * bench.rows_bytes(geo, zero_occ=True) - 3 * geo.n * 4)
+
+
 @pytest.mark.parametrize("label,shape", [
     ("df", (2064, 23, 8, 63_984)), ("dfplus", (2080, 32, 16, 83_200))])
 def test_fig7_geometries_take_the_plain_version(label, shape):
@@ -370,3 +382,64 @@ def test_cuda_kernels_match_plain_versions(label):
                            torch.Generator(device=dev).manual_seed(7))
     assert errs == {"switch_arbitrate_rows": 0, "switch_arbitrate": 0,
                     "vc_prearb": 0}
+
+
+# ---------------------------------------------------------------------- #
+# the replica axis
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("label", ["golden", "df"])
+def test_rows_with_replicas_equal_one_call_a_replica(label, policy):
+    """``switch_arbitrate_rows_ref`` at R = 3 (a different seeded state a
+    replica) equals three unbatched calls: each replica's priority words
+    hold its rows' indices within its own fabric."""
+    geo = bench.geometry(label, "cpu")
+    args, kw, per = bench.replica_inputs(
+        geo, torch.Generator().manual_seed(11), 3, policy)
+    got = ops.switch_arbitrate_rows(*args, **kw)
+    assert [tuple(g.shape) for g in got] == [
+        (3, geo.nr), (3, geo.nr), (3, geo.n * geo.p)]
+    for i, one in enumerate(per):
+        for g, w in zip(got, ops.switch_arbitrate_rows(*one, **kw)):
+            assert torch.equal(g[i], w)
+    assert kernel.rows_geometry(*args, kw["nic_first"], kw["dq_base"],
+                                kw["d"]) == (geo.n, geo.p, V, geo.nr)
+
+
+def test_rows_with_replicas_check_every_input():
+    geo = bench.geometry("golden", "cpu")
+    args, kw, _ = bench.replica_inputs(geo, torch.Generator().manual_seed(2),
+                                       2)
+    for i, name in enumerate(_ARGS):
+        bad = list(args)
+        bad[i] = bad[i][0]              # one input without the replica axis
+        # tie sets the layout; any other input is named
+        with pytest.raises(ValueError,
+                           match="has shape" if i == 0 else name):
+            ops.switch_arbitrate_rows(*bad, **kw)
+
+
+def test_vc_prearb_replicas_go_through_as_switches():
+    """R stacked ``[N, P, V]`` states and their ``[N*P*V, depth]`` buffers
+    through ``vc_prearb`` as ``R*N`` switches: each replica's rows are its
+    own call's, the head gather included."""
+    gen = torch.Generator().manual_seed(5)
+    n, p = 21, 6
+    states = [bench.vc_inputs(gen, n, p, V, Q) for _ in range(3)]
+    qlen, rand, buf, head = (torch.stack(xs) for xs in zip(*states))
+    got = ops.vc_prearb(qlen.reshape(3 * n, p, V), rand.reshape(3 * n, p, V),
+                        buf.reshape(-1, Q), head.reshape(-1))
+    for i, st in enumerate(states):
+        for g, w in zip(got, ops.vc_prearb(*st)):
+            assert torch.equal(g[i * n:(i + 1) * n], w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["golden", "fig5"])
+def test_cuda_kernels_with_replicas_match_plain_versions(label):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    errs = bench.run_replica_cases(
+        bench.geometry(label, dev), torch.Generator(device=dev).manual_seed(7))
+    assert errs == {"switch_arbitrate_rows": 0, "vc_prearb": 0}
