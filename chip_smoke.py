@@ -33,15 +33,18 @@ Phases, in order; any failure ends the script with a non-zero exit:
    Figure-7 table builds (``core.routing.hop_distances``), each timed
    and its first, middle and last row blocks held bitwise against the
    plain version;
-4. golden   — all five policies of ``tests/golden/engine_parity.json``
-   (polarized, minimal_adaptive, ksp, ugal, valiant) reproduce exactly
-   on the card, on tables built there;
-5. full width — the paper's Figure-5 MRLS (11,052 endpoints, Polarized,
-   uniform load 1.0, 300 + 300 slots) through ``repro_torch.api.run``
-   (tables on the card included) equals
-   ``tests/golden/torch_fig5_mrls_u18.json`` field for field, and every
-   kernel of the path launched the expected number of times;
-6. breakdown — where a slot of that fabric spends its time: per-phase
+4. golden   — all five policies of
+   ``tests/golden/torch_engine_parity_short.json`` (polarized,
+   minimal_adaptive, ksp, ugal, valiant: ``engine_parity.json``'s
+   fabric, loads and ``SimConfig`` at 20 + 40 slots, jax's original
+   threefry stream) reproduce exactly on the card, on tables built
+   there (``tests/test_torch_golden.py`` replays the full-length golden
+   through the port on the CPU);
+5. (none: Figure 5's scalar uniform run moved into phase 15, whose
+   4-replica run holds replica 0 against
+   ``tests/golden/torch_fig5_mrls_u18.json``);
+6. breakdown — where a slot of the Figure-5 MRLS (11,052 endpoints,
+   Polarized, uniform load 1.0) spends its time: per-phase
    CUDA-event times, the slot's PRNG draws alone in the same event
    window, and the device-busy share from ``torch.profiler``; and two
    slots under ``torch.cuda.set_sync_debug_mode("error")`` to show that
@@ -120,6 +123,27 @@ Phases, in order; any failure ends the script with a non-zero exit:
    slot, measured as phase 6 measures the scalar one, beside phase 6's
    (host ms, replica-slots/s, device ms, device operations, idle share)
    from ``torch.profiler``;
+16. open-loop serving — run after phase 15: the arrival source's float32
+   maps on the card over their whole domains, bitwise against the CPU
+   (the pareto batch size of all 2^23 uniform draws for four (alpha,
+   cap) pairs, the diurnal rate at slots 0 .. 2^16, glibc's ``sinf`` on
+   2^20 seeded floats); then the two 1k-endpoint fabrics of
+   ``examples/specs/serve_1k.json`` through one ``SimulatorCache`` —
+   ``mrls(56, 18, 18, seed=1)`` under Polarized and ``fat_tree(16, 2)``
+   under minimal_adaptive: ``serve_sweep`` of the MRLS poisson spec
+   (loads 0.6 and 0.8, 100 + 200 slots, the ``qwen3-1.7b`` decode
+   request over 8 ranks), Fat-Tree poisson at 0.8 with 4 replicas (100
+   + 300) through ``repro_torch.api.run``, MRLS pareto (alpha 1.5, cap
+   32) and diurnal (amplitude 0.5, period 64) at 0.6 (64 + 192), each
+   record against its ``tests/golden/torch_serve_*.json`` field for
+   field, with its launches (``vc_prearb`` 3 and
+   ``switch_arbitrate_rows`` 2 a step), run seconds, slots/s, peak
+   device bytes, pool stalls and drops; the conservation ledger
+   ``arrived == backlog + sum(msg_rem) + created`` on the card's final
+   states; two pareto and two diurnal slots under the sync debug mode;
+   the host ms of a uniform, a poisson and a diurnal slot of the MRLS,
+   and the diurnal slot's device ms, operations and idle share from the
+   profiler, beside phase 6's uniform slot;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -141,7 +165,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step), and where a prefill's time goes from ``torch.profiler``.
 
 Each phase prints its wall seconds, and the script its total.  The
-kernels' launches on the main paths of phases 5, 8, 12, 13, 14, 15 and
+kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 16 and
 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
@@ -160,7 +184,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-ENGINE_GOLDEN = ROOT / "tests" / "golden" / "engine_parity.json"
+SHORT_GOLDEN = ROOT / "tests" / "golden" / "torch_engine_parity_short.json"
 FIG5_GOLDEN = ROOT / "tests" / "golden" / "torch_fig5_mrls_u18.json"
 # the All2All points of phases 7 and 8, smallest first
 A2A_GOLDENS = {
@@ -196,6 +220,17 @@ REP_UNIFORM_GOLDEN = (ROOT / "tests" / "golden"
                       / "torch_rep_fig5_mrls_uniform_r4.json")
 REP_ALLREDUCE_GOLDEN = (ROOT / "tests" / "golden"
                         / "torch_rep_fig5_mrls_allreduce_r4.json")
+
+# phase 16: open-loop serving on the 1k-endpoint SLO fabrics
+SERVE_SWEEP_GOLDEN = (ROOT / "tests" / "golden"
+                      / "torch_serve_mrls_poisson_sweep.json")
+SERVE_GOLDENS = [ROOT / "tests" / "golden" / f"torch_serve_{name}.json"
+                 for name in ("ft_poisson_r4", "mrls_pareto",
+                              "mrls_diurnal")]
+# the (alpha, cap) pairs whose batch map phase 16 checks on the card, and
+# the (load, amplitude, period) of its diurnal rates
+PARETO_MAPS = ((1.5, 16), (1.5, 32), (1.5, 64), (1.2, 64))
+DIURNAL_RATES = ((0.6, 0.5, 64), (0.3, 0.9, 1000))
 
 HYMBA_GOLDEN = ROOT / "tests" / "golden" / "torch_hymba_1p5b_s4096.json"
 
@@ -543,7 +578,7 @@ def run_golden():
     from repro_torch.core import build_tables, mrls
     from repro_torch.simulator.engine import SimConfig, Simulator, Traffic
     phase("4. golden replay on the card")
-    g = json.loads(ENGINE_GOLDEN.read_text())
+    g = json.loads(SHORT_GOLDEN.read_text())
     tables = build_tables(mrls(**g["fabric"]), device="cuda")
     for policy in ("polarized", "minimal_adaptive", "ksp", "ugal",
                    "valiant"):
@@ -569,44 +604,6 @@ def run_golden():
         if got != want:
             raise AssertionError(f"golden replay of {policy} differs: "
                                  f"{got} != {want}")
-
-
-def run_full_width(squarings: int) -> dict:
-    import torch
-    from repro_torch.api import Experiment, run
-    phase("5. full width: Figure-5 MRLS through repro_torch.api.run")
-    golden = json.loads(FIG5_GOLDEN.read_text())
-    exp = Experiment.from_dict(golden["experiment"])
-    slots = exp.warm + exp.measure
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = run(exp, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    got = res.to_dict()
-    print(f"result: throughput {res.throughput!r} avg_hops "
-          f"{res.avg_hops!r} ejected {res.ejected} pool_stall "
-          f"{res.pool_stall}")
-    print(f"run: {slots} slots in {wall:.3f} s end to end (tables, "
-          f"simulator set-up and slots) = {slots / wall:.2f} slots/s; "
-          f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    if got != golden:
-        diff = {k: (got.get(k), golden.get(k)) for k in golden
-                if got.get(k) != golden.get(k)}
-        raise AssertionError(f"Fig-5 Result differs from the JAX "
-                             f"reference: {diff}")
-    print("Result equals tests/golden/torch_fig5_mrls_u18.json field for "
-          "field")
-    # per slot: speedup crossbar rounds each launch vc_prearb and
-    # switch_arbitrate_rows once (the dense switch_arbitrate never), and
-    # the link phase launches vc_prearb once more; the table build runs
-    # one minplus_hops launch per product
-    check_counts(launches, expected_counts(exp, slots, squarings),
-                 "the Figure-5 uniform run")
-    return launches
 
 
 def expected_counts(exp, slots: int, squarings: int) -> dict:
@@ -651,14 +648,13 @@ def no_sync(step, n: int) -> None:
 def profile_slots(step, n: int) -> tuple:
     """``n`` calls of ``step()`` under ``torch.profiler``: (the profiled
     wall ms per call, the device-side rows (self device us, count, name),
-    longest first).  Device-side events only (kernels, copies, sets): the
-    CPU-side aten rows carry their kernels' time too and would count it
-    twice."""
+    longest first).  The device alone is traced (kernels, copies, sets):
+    CPU-side aten rows would carry their kernels' time too and count it
+    twice, and collecting them costs the profiler seconds a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -928,7 +924,7 @@ def timed_runs(timing: list, peaks: bool = False):
     saved = {name: getattr(Simulator, name) for name in
              ("run_completion", "run_throughput", "run_latency",
               "run_program", "run_throughput_batch", "run_latency_batch",
-              "_step")}
+              "run_serving", "run_serving_batch", "_step")}
     steps = [0]
 
     def counted(self, *args, **kw):
@@ -1498,6 +1494,243 @@ def run_phase15(scalar_slot: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# open-loop serving (phase 16)
+# ---------------------------------------------------------------------- #
+def arrival_maps() -> None:
+    """The arrival source's float32 maps on the card over their whole
+    domains, bitwise against the CPU: each pareto batch size of the 2^23
+    uniform draws, the diurnal rate at slots 0 .. 2^16, and glibc's
+    ``sinf`` on 2^20 seeded floats of every exponent.  Also how far a
+    direct ``pow`` on the card would part from the CPU's (the port's map
+    does not use it)."""
+    import numpy as np
+    import torch
+    from repro_torch.simulator import arrivals
+    t0 = time.perf_counter()
+    u_cpu = (torch.arange(arrivals.UNIFORM_STEPS, dtype=torch.int32)
+             .to(torch.float32) * 2.0 ** -23)
+    u = u_cpu.cuda()
+    for alpha, cap in PARETO_MAPS:
+        want = arrivals.pareto_batch(u_cpu, arrivals.pareto_thresholds(
+            alpha, cap))
+        got = arrivals.pareto_batch(u, arrivals.pareto_thresholds(
+            alpha, cap, "cuda")).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"pareto batch map ({alpha}, {cap}) on the "
+                                 "card differs from the CPU's")
+        c, e = float(np.float32(1.0 - float(cap) ** -alpha)), float(
+            np.float32(-1.0 / alpha))
+        pows = [arrivals.fma_f32(-x, c, 1.0).pow(e) for x in (u, u_cpu)]
+        n_pow = int((pows[0].cpu() != pows[1]).sum())
+        n_batch = int((pows[0].floor().clamp(1, cap).cpu()
+                       != pows[1].floor().clamp(1, cap)).sum())
+        print(f"pareto (alpha {alpha}, cap {cap}): the batch sizes of all "
+              f"2^23 draws equal the CPU's; a direct pow on the card would "
+              f"differ from the CPU's at {n_pow} bases, {n_batch} batch "
+              "sizes")
+    del u, u_cpu, pows
+    slots = torch.arange((1 << 16) + 1, dtype=torch.int32)
+    for load, amp, period in DIURNAL_RATES:
+        want = arrivals.diurnal_rate(slots, load, amp, period)
+        got = arrivals.diurnal_rate(slots.cuda(), load, amp, period).cpu()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"diurnal rate ({load}, {amp}, {period}) "
+                                 "on the card differs from the CPU's")
+        plain = (load * (1.0 + amp * torch.sin(
+            slots.cuda().float() * float(np.float32(2 * np.pi / period))))
+                 ).cpu()
+        print(f"diurnal (load {load}, amplitude {amp}, period {period}): "
+              "the rate at slots 0 .. 2^16 equals the CPU's bit for bit; "
+              f"torch.sin with separate roundings would differ at "
+              f"{int((plain != want).sum())} slots")
+    rng = np.random.default_rng(16)
+    y = rng.integers(0x00800000, 0x7f800000, 1 << 20,
+                     dtype=np.uint32).view(np.float32)
+    y = torch.from_numpy(y.copy())
+    if not torch.equal(arrivals.sinf(y.cuda()).cpu().view(torch.int32),
+                       arrivals.sinf(y).view(torch.int32)):
+        raise AssertionError("sinf on the card differs from the CPU's")
+    print("sinf of 2^20 seeded floats (2^-126 .. 2^127) equals the CPU's; "
+          f"the maps took {time.perf_counter() - t0:.3f} s")
+
+
+@contextlib.contextmanager
+def last_serving_state(last: dict):
+    """Keep in ``last`` the simulator and final state of each scalar
+    ``Simulator.run_serving``, for the conservation ledger."""
+    from repro_torch.simulator.engine import Simulator
+    saved = Simulator.run_serving
+
+    def keep(self, *args, **kw):
+        r = saved(self, *args, **kw)
+        last.update(sim=self, state=r["state"])
+        return r
+
+    Simulator.run_serving = keep
+    try:
+        yield
+    finally:
+        Simulator.run_serving = saved
+
+
+def ledger(sim, st, label: str) -> None:
+    """``arrived == backlog + sum(msg_rem) + created`` on a final state
+    on the card."""
+    backlog = sim.arrival_backlog(st)
+    arrived, pending, created = (int(st[k].sum()) for k in
+                                 ("arrived", "msg_rem", "created"))
+    print(f"{label}: ledger arrived {arrived} = backlog {backlog} + "
+          f"pending {pending} + created {created}")
+    if arrived != backlog + pending + created:
+        raise AssertionError(f"{label}: the open-loop ledger does not close")
+
+
+def arrival_slot_costs(sim, exps: dict, scalar: dict) -> None:
+    """Two slots each of the pareto and the diurnal source under the sync
+    debug mode; the host ms of a uniform, a poisson and a diurnal slot
+    of the 1k MRLS at the diurnal point's load (5 slots in, over 15
+    slots); and the diurnal slot's device ms, device operations and idle
+    share from a profile of 5 slots, beside phase 6's
+    uniform slot of the Figure-5 MRLS (``scalar``)."""
+    from repro_torch.api.runner import _to_traffic
+    from repro_torch.simulator.engine import Traffic
+    for name in ("pareto", "diurnal"):
+        exp = exps[name]
+        tr = _to_traffic(exp)
+        st = sim.make_batch_state(tr, [exp.seed])
+        sim.run_chunk(st, tr, 4)
+        no_sync(lambda: sim._step(st, tr), 2)
+    print("2 pareto and 2 diurnal slots under torch.cuda.set_sync_debug_mode"
+          "('error'): the arrival step makes no host synchronisation")
+    load = exps["diurnal"].workload.load
+    host = {}
+    for label, tr in (("uniform", Traffic("uniform", load=load)),
+                      ("poisson", Traffic("arrival", process="poisson",
+                                          load=load)),
+                      ("diurnal", _to_traffic(exps["diurnal"]))):
+        st = sim.make_batch_state(tr, [0])
+        sim.run_chunk(st, tr, 5)
+        host[label] = host_ms(lambda: sim._step(st, tr), 15)
+    print(f"host ms a slot at load {load}, {sim.S} endpoints (15 slots): "
+          + ", ".join(f"{k} {v:.4f} ({1e3 / v:.2f} slots/s)"
+                      for k, v in host.items()))
+    _, rows = profile_slots(lambda: sim._step(st, tr), 5)
+    busy_ms, ops = device_load(rows, 5)
+    if busy_ms <= 0:
+        print("diurnal slot: device time not measured (no device events)")
+        return
+    print(f"diurnal slot, profile of 5 slots: device busy "
+          f"{busy_ms:.4f} ms in {ops:.0f} device operations, idle share "
+          f"{100 * (1 - busy_ms / host['diurnal']):.1f}% of its "
+          f"{host['diurnal']:.4f} ms; phase 6's Figure-5 uniform slot: "
+          f"{scalar['ms']:.4f} ms, {scalar['busy_ms']:.4f} ms busy, "
+          f"{scalar['ops']:.0f} operations ({ops - scalar['ops']:+.0f})")
+
+
+def run_phase16(scalar_slot: dict) -> dict:
+    """Open-loop serving on the two 1k-endpoint fabrics of
+    ``examples/specs/serve_1k.json``: the float32 maps on the card, the
+    four points against their goldens with their launches, the ledger,
+    the sync check and the cost of an arrival slot.  Returns the
+    launches summed over the main-path runs and the two set-ups."""
+    import torch
+    from repro_torch.api import Experiment, SimulatorCache, run
+    from repro_torch.serving import ServingSpec, serve_sweep
+    phase("16. open-loop serving on the 1k-endpoint MRLS and Fat-Tree")
+    arrival_maps()
+    total = dict.fromkeys(KERNELS, 0)
+    sweep_golden = json.loads(SERVE_SWEEP_GOLDEN.read_text())
+    spec = ServingSpec.from_dict(sweep_golden["spec"])
+    goldens = [(json.loads(p.read_text()), p.name) for p in SERVE_GOLDENS]
+    exps = [Experiment.from_dict(g["experiment"]) for g, _ in goldens]
+    timing, last = [], {}
+    with SimulatorCache() as cache, timed_runs(timing, peaks=True), \
+            last_serving_state(last):
+        for network, route in ((spec.network, spec.route),
+                               (exps[0].network, exps[0].route)):
+            reset_counts()
+            t0 = time.perf_counter()
+            sim = cache.get(network, route)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            print(f"{network.family} {network.param_dict()} under "
+                  f"{route.policy}: N={sim.N} S={sim.S} P={sim.P}; set-up "
+                  f"{time.perf_counter() - t0:.3f} s "
+                  f"({sim.tables.squarings} minplus_hops products)")
+            check_counts(counts, {**NO_LAUNCHES,
+                                  "minplus_hops": sim.tables.squarings},
+                         f"the {network.family} set-up")
+            for k in total:
+                total[k] += counts[k]
+
+        # a. the MRLS poisson sweep with its request leg
+        reset_counts()
+        t0 = time.perf_counter()
+        record = serve_sweep(spec, cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ran = sum(r["slots_run"] for r in timing)
+        for load, r in zip(spec.loads + ("request",), timing):
+            print(f"  {spec.label()} @ {load}: {r['slots_run']} slots in "
+                  f"{r['run_s']:.3f} s ({r['slots_run'] / r['run_s']:.2f} "
+                  f"slots/s); peak device memory of the run {r['peak']} "
+                  "bytes")
+        timing.clear()
+        for p in record["points"]:
+            print(f"  load {p['load']}: offered {p['offered']!r} delivered "
+                  f"{p['delivered']!r} dropped {p['dropped']} pool_stall "
+                  f"{p['pool_stall']} p50/p99/p999/p9999 {p['p50']}/"
+                  f"{p['p99']}/{p['p999']}/{p['p9999']}")
+        print(f"  saturation {record['saturation']}; request "
+              f"{record['request']}")
+        _differs(spec.label(), json.loads(json.dumps(record)), sweep_golden)
+        print(f"serve_sweep of {spec.label()}: {wall:.3f} s; the SLO record "
+              f"equals {SERVE_SWEEP_GOLDEN.name} field for field")
+        check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * ran,
+                              "switch_arbitrate_rows": 2 * ran},
+                     f"the sweep ({ran} steps)")
+        for k in total:
+            total[k] += counts[k]
+
+        # b-d. Fat-Tree poisson at 4 replicas, MRLS pareto and diurnal
+        for exp, (golden, fname) in zip(exps, goldens):
+            last.clear()
+            reset_counts()
+            res = run(exp, cache=cache)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            rec = timing.pop()
+            ran = rec["slots_run"]
+            got = res.to_dict()
+            per = (f"; per replica {got['per_replica']}"
+                   if exp.replicas > 1 else "")
+            print(f"{exp.name} x {exp.replicas}: offered {res.offered!r} "
+                  f"delivered {res.throughput!r} dropped {res.dropped} "
+                  f"pool_stall {res.pool_stall} latency {res.latency}{per}; "
+                  f"{ran} slots in {rec['run_s']:.3f} s "
+                  f"({ran / rec['run_s']:.2f} slots/s = "
+                  f"{exp.replicas * ran / rec['run_s']:.2f} replica-slots/s)"
+                  f"; peak device memory of the run {rec['peak']} bytes")
+            _differs(exp.name, got, golden)
+            print(f"{exp.name}: Result equals {fname} field for field")
+            check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * ran,
+                                  "switch_arbitrate_rows": 2 * ran},
+                         f"the {exp.name} run")
+            for k in total:
+                total[k] += counts[k]
+            if exp.replicas == 1:
+                ledger(last["sim"], last["state"], exp.name)
+        last.clear()
+        print("the cost of an arrival slot on the 1k MRLS, Polarized:")
+        arrival_slot_costs(cache.get(spec.network, spec.route),
+                           {e.workload.pattern: e for e in exps[1:]},
+                           scalar_slot)
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------- #
 # LM serving slice: Hymba-1.5B
 # ---------------------------------------------------------------------- #
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
@@ -1839,7 +2072,7 @@ def main() -> int:
     records["minplus_hops"] = run_minplus_hops(topos)
     del topos
     run_golden()
-    launches = run_full_width(tables.squarings)
+    launches = dict.fromkeys(KERNELS, 0)
     per_launch, fig5_slot = run_breakdown(tables, exp)
     del tables
     squarings = run_tables(points)
@@ -1852,6 +2085,8 @@ def main() -> int:
     for k, n in run_phase14().items():
         launches[k] += n
     for k, n in run_phase15(fig5_slot).items():
+        launches[k] += n
+    for k, n in run_phase16(fig5_slot).items():
         launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
@@ -1877,7 +2112,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 5, 8, 12, 13, 14, 15 and 11.
+    # phases 8, 12, 13, 14, 15, 16 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

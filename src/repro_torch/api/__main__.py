@@ -17,10 +17,15 @@ Commands (each takes ``--device cpu|cuda``; the default is the card):
   ...}}``; prints one summary line per grid point, ``--out`` writes the
   Results as a JSON list.  ``--replicas`` and ``--seed`` override the
   base's.
+* ``serve-sweep <spec.json> [--seed S] [--out f]`` — run open-loop
+  serving SLO sweeps: the file holds one ServingSpec, ``{"serving":
+  {...}}`` or ``{"servings": [...]}`` (the reference's format); prints
+  each sweep's points, saturation knee and request leg, ``--out`` writes
+  the SLO records as a JSON list, as the reference's CLI does.
+  ``--seed`` overrides every spec's seed.
 * ``families`` — list the topology families the port builds.
 * ``patterns`` — list the workload-pattern registry, each with its kind
-  and whether the port runs it (every collective does, the arrival
-  families not yet).
+  and whether the port runs it.
 
 ``families`` and ``patterns`` run nothing; they take ``--device`` so
 that every command has the same surface.
@@ -37,6 +42,7 @@ from .registry import topology_families, workload_patterns
 from .runner import Result, run, run_all
 from .specs import Experiment
 from .sweep import sweep
+from .. import serving
 
 
 def load_spec(path: str):
@@ -68,7 +74,12 @@ def _summary(res: Result) -> str:
     bits = [res.name, f"metric={res.metric}"]
     if res.replica_seeds is not None:
         bits.append(f"replicas={len(res.replica_seeds)}")
-    if res.throughput is not None:
+    if res.offered is not None:
+        bits.append(f"offered={res.offered:.3f}")
+        bits.append(f"delivered={res.throughput:.3f}")
+        if res.dropped:
+            bits.append(f"dropped={res.dropped:g}")
+    elif res.throughput is not None:
         bits.append(f"throughput={res.throughput:.3f}")
         bits.append(f"avg_hops={res.avg_hops:.2f}")
     if res.latency is not None:
@@ -111,6 +122,52 @@ def _cmd_sweep(args) -> int:
     return 0
 
 
+def _fmt_q(v) -> str:
+    return "-" if v is None else f"{v:g}"
+
+
+def serving_specs(path: str) -> list:
+    """The ServingSpecs of a file: a bare spec, ``{"serving": {...}}`` or
+    ``{"servings": [...]}``."""
+    doc = json.loads(Path(path).read_text())
+    if isinstance(doc, dict) and "servings" in doc:
+        docs = list(doc["servings"])
+    elif isinstance(doc, dict) and "serving" in doc:
+        docs = [doc["serving"]]
+    else:
+        docs = [doc]
+    return [serving.ServingSpec.from_dict(d) for d in docs]
+
+
+def _cmd_serve_sweep(args) -> int:
+    specs = serving_specs(args.spec)
+    if args.seed is not None:
+        specs = [s.replace(seed=args.seed) for s in specs]
+    records = serving.serve_sweep_many(specs, device=args.device)
+    for rec in records:
+        print(f"{rec['name']}  process={rec['spec']['process']}  "
+              f"loads={len(rec['points'])}")
+        for p in rec["points"]:
+            print(f"  load={p['load']:g}  offered={p['offered']:.3f}  "
+                  f"delivered={p['delivered']:.3f}  "
+                  f"p50={_fmt_q(p.get('p50'))}  p99={_fmt_q(p.get('p99'))}  "
+                  f"p999={_fmt_q(p.get('p999'))}  dropped={p['dropped']:g}")
+        sat = rec["saturation"]
+        print("  saturation: " + (
+            f"load={sat['load']:g} (delivered/offered={sat['ratio']:.3f})"
+            if sat else "none within swept loads"))
+        req = rec.get("request")
+        if req:
+            print(f"  request: {req['model']}/{req['phase']} -> "
+                  f"{req['pattern']} ranks={req['shape']['ranks']} "
+                  f"packets={req['shape']['packets']} "
+                  f"slots={req['slots']} completed={req['completed']}")
+    if args.out:
+        Path(args.out).write_text(json.dumps(records, indent=2))
+        print(f"wrote {len(records)} SLO record(s) to {args.out}")
+    return 0
+
+
 def _cmd_families(_args) -> int:
     for name in topology_families():
         print(name)
@@ -137,13 +194,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                        help="override the seed")
         p.add_argument("--out", default=None,
                        help="also write the Result(s) here")
+    serve_p = sub.add_parser("serve-sweep",
+                             help="run open-loop serving SLO sweep spec(s)")
+    serve_p.add_argument("spec", help="path to the ServingSpec JSON file")
+    serve_p.add_argument("--seed", type=int, default=None,
+                         help="override the seed")
+    serve_p.add_argument("--out", default=None,
+                         help="also write the SLO records here")
     sub.add_parser("families", help="list topology families")
     sub.add_parser("patterns", help="list workload patterns")
     for p in sub.choices.values():
         p.add_argument("--device", choices=("cpu", "cuda"), default=None,
                        help="default: cuda (fails without a card)")
     args = ap.parse_args(argv)
-    return {"run": _cmd_run, "sweep": _cmd_sweep, "families": _cmd_families,
+    return {"run": _cmd_run, "sweep": _cmd_sweep,
+            "serve-sweep": _cmd_serve_sweep, "families": _cmd_families,
             "patterns": _cmd_patterns}[args.cmd](args)
 
 

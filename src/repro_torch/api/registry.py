@@ -13,10 +13,11 @@ __all__ = ["topology_families", "build_network", "workload_patterns"]
 def workload_patterns() -> tuple:
     """``(name, kind, ported)`` for every spec-level workload pattern,
     sorted by name; ``ported`` says whether the port runs it (the
-    Bernoulli families directly, every collective as a workload program
-    or, for the free-running ``all2all``, directly)."""
+    Bernoulli families directly, the arrival families as
+    ``Traffic("arrival")``, every collective as a workload program or,
+    for the free-running ``all2all``, directly)."""
     return tuple((name, kind, name in ENGINE_PATTERNS
-                  or kind == "collective")
+                  or kind in ("collective", "arrival"))
                  for name, kind in sorted(pattern_kinds().items())
                  if kind != "engine")
 

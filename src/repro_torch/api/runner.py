@@ -15,8 +15,10 @@ workload program on the engine's phase scheduler.  An experiment with
 replicas), and its Result carries ``per_replica``, ``aggregates`` and
 ``replica_seeds`` beside the means; ``run_all`` folds consecutive
 experiments that differ only in their seed into one such run.  The
-``serving`` and ``resilience`` metrics and the arrival families come
-later.
+arrival families (``poisson``, ``pareto``, ``diurnal``) run as the
+engine's ``Traffic("arrival")`` under the ``serving`` metric: offered
+and delivered load, source drops and the latency percentiles.  The
+``resilience`` metric comes later.
 """
 from __future__ import annotations
 
@@ -34,14 +36,14 @@ from ..core.routing import build_tables
 from ..simulator.engine import Simulator, Traffic
 from ..workloads import (PROGRAM_BUILDERS, build_collective_program,
                          compile_program)
+from ..workloads.patterns import check_pattern
 from .registry import build_network
 from .specs import Experiment, NetworkSpec, RouteSpec
 
 __all__ = ["Result", "SimulatorCache", "open_simulator", "run", "run_all"]
 
 # the metrics the port refuses, with the ROADMAP item that ports each
-_LATER_METRICS = {"serving": "ROADMAP item 7, open-loop arrivals",
-                  "resilience": "ROADMAP item 8, failures"}
+_LATER_METRICS = {"resilience": "ROADMAP item 8, failures"}
 # Result latency labels -> engine percentile keys
 _LATENCY_KEYS = (("p50", "p0.5"), ("p99", "p0.99"), ("p999", "p0.999"),
                  ("p9999", "p0.9999"))
@@ -210,6 +212,15 @@ def open_simulator(network: NetworkSpec, route: RouteSpec = RouteSpec(), *,
 # ---------------------------------------------------------------------- #
 def _to_traffic(exp: Experiment) -> Traffic:
     w = exp.workload
+    if check_pattern(w.pattern) == "arrival":
+        # an arrival family reaches the engine as Traffic("arrival") with
+        # the family in ``process``
+        return Traffic("arrival", process=w.pattern, load=w.load,
+                       pareto_alpha=w.pareto_alpha,
+                       pareto_cap=w.pareto_cap,
+                       diurnal_amp=w.diurnal_amp,
+                       diurnal_period=w.diurnal_period,
+                       arr_depth=w.arr_depth)
     return Traffic(pattern=w.pattern, load=w.load, rounds=w.rounds,
                    elephant_frac=w.elephant_frac,
                    elephant_size=w.elephant_size,
@@ -243,7 +254,8 @@ def _check_runnable(experiment: Experiment) -> str:
     if metric in _LATER_METRICS:
         raise NotImplementedError(
             f"metric {metric!r} is not ported yet ({_LATER_METRICS[metric]}"
-            "): the port runs 'throughput', 'latency' and 'completion'")
+            "): the port runs 'throughput', 'latency', 'completion' and "
+            "'serving'")
     if metric == "completion" and not program and w.pattern != "all2all":
         raise ValueError(f"completion metric needs a collective workload, "
                          f"got {w.pattern!r}")
@@ -378,6 +390,18 @@ def _batched_metrics(sim: Simulator, exp: Experiment, seeds) -> Tuple[str,
                                   measure=exp.measure)
         return metric, {lbl: tuple(_nan_none(v) for v in r[k])
                         for lbl, k in _LATENCY_KEYS}
+    if metric == "serving":
+        r = sim.run_serving_batch(traffic, seeds, warm=exp.warm,
+                                  measure=exp.measure)
+        per = {
+            "throughput": tuple(float(x) for x in r["delivered"]),
+            "offered": tuple(float(x) for x in r["offered"]),
+            "dropped": tuple(int(x) for x in r["dropped"]),
+            "pool_stall": tuple(int(x) for x in r["pool_stall"]),
+        }
+        per.update({lbl: tuple(_nan_none(v) for v in r[k])
+                    for lbl, k in _LATENCY_KEYS})
+        return metric, per
     # completion of the free-running all2all (_check_runnable let no
     # other metric through)
     r = sim.run_completion_batch(traffic, expected=sim.S * w.rounds,
@@ -409,6 +433,10 @@ def _batched_result(exp: Experiment, seeds, metric: str, per: dict) -> Result:
                   ejected=mean("ejected"), pool_stall=mean("pool_stall"))
     elif metric == "latency":
         kw = dict(latency={lbl: mean(lbl) for lbl, _ in _LATENCY_KEYS})
+    elif metric == "serving":
+        kw = dict(throughput=mean("throughput"), offered=mean("offered"),
+                  dropped=mean("dropped"), pool_stall=mean("pool_stall"),
+                  latency={lbl: mean(lbl) for lbl, _ in _LATENCY_KEYS})
     else:
         kw = dict(slots=mean("slots"),
                   completed=bool(all(per["completed"])),
@@ -436,6 +464,13 @@ def _unfold_batch(group, metric: str, per: dict) -> list:
                       pool_stall=per["pool_stall"][i])
         elif metric == "latency":
             kw = dict(latency={lbl: per[lbl][i]
+                               for lbl, _ in _LATENCY_KEYS})
+        elif metric == "serving":
+            kw = dict(throughput=per["throughput"][i],
+                      offered=per["offered"][i],
+                      dropped=per["dropped"][i],
+                      pool_stall=per["pool_stall"][i],
+                      latency={lbl: per[lbl][i]
                                for lbl, _ in _LATENCY_KEYS})
         else:
             kw = dict(slots=per["slots"][i], completed=per["completed"][i],
@@ -489,6 +524,15 @@ def _run_on(sim: Simulator, experiment: Experiment, metric: str) -> Result:
                       avg_hops=float(r["avg_hops"]),
                       ejected=int(r["ejected"]),
                       pool_stall=int(r["pool_stall"]))
+    if metric == "serving":
+        r = sim.run_serving(traffic, warm=experiment.warm,
+                            measure=experiment.measure, seed=experiment.seed)
+        lat = {lbl: _nan_none(r[k]) for lbl, k in _LATENCY_KEYS}
+        return Result(experiment=experiment, metric=metric,
+                      throughput=float(r["delivered"]),
+                      offered=float(r["offered"]),
+                      dropped=int(r["dropped"]),
+                      pool_stall=int(r["pool_stall"]), latency=lat)
     r = sim.run_latency(traffic, warm=experiment.warm,
                         measure=experiment.measure, seed=experiment.seed)
     lat = {lbl: _nan_none(r[k]) for lbl, k in _LATENCY_KEYS}

@@ -108,9 +108,11 @@ class RouteSpec:
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
     """Traffic program: the reference's fields and validation.  The port
-    runs the Bernoulli families and every collective (the scheduled ones
+    runs the Bernoulli families, every collective (the scheduled ones
     and those added through ``register_program_builder`` as workload
-    programs); it refuses the arrival families."""
+    programs) and the open-loop arrival families ``poisson``, ``pareto``
+    and ``diurnal`` (with their knobs ``pareto_alpha``, ``pareto_cap``,
+    ``diurnal_amp``, ``diurnal_period`` and ``arr_depth``)."""
 
     pattern: str = "uniform"
     load: float = 1.0
@@ -201,8 +203,8 @@ class Experiment:
 
     ``metric`` is ``auto`` (Bernoulli patterns -> ``throughput``,
     collectives -> ``completion``, arrival processes -> ``serving``),
-    ``throughput`` or ``latency``; the port's runner executes the
-    throughput, latency and completion metrics.  ``seed`` drives the
+    ``throughput``, ``latency``, ``completion`` or ``serving``; the
+    port's runner refuses ``resilience``.  ``seed`` drives the
     simulator's PRNG stream; ``replicas`` > 1 runs the seeds ``seed ..
     seed + replicas - 1`` as one batched run.
     """

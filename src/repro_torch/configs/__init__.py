@@ -1,7 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures the port runs are registered; every other arch of
-the reference's registry raises and names the ROADMAP item that ports it.
+Registered: the architecture the port runs (``hymba-1.5b``) and the
+config records that the serving bridge reads (``qwen3-1.7b``,
+``qwen3-moe-235b-a22b``), whose models raise when built and name the
+ROADMAP item that ports them.  Every other arch of the reference's
+registry raises here and names that item.
 ``reduced(cfg)`` gives the reference's tiny config of the same family for
 CPU tests (few layers, narrow width, tiny vocab).
 """
@@ -10,16 +13,16 @@ from __future__ import annotations
 import dataclasses
 
 from ..models.model import ModelConfig
-from . import hymba_1_5b
+from . import hymba_1_5b, qwen3_1_7b, qwen3_moe_235b_a22b
 
 REGISTRY: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (hymba_1_5b,)}
+    m.CONFIG.name: m.CONFIG
+    for m in (hymba_1_5b, qwen3_1_7b, qwen3_moe_235b_a22b)}
 
 ARCHS = tuple(REGISTRY)
 
 # archs of the reference's registry that the port does not run yet
-_NOT_PORTED = ("nemotron-4-15b", "qwen3-1.7b", "starcoder2-15b",
-               "command-r-plus-104b", "qwen3-moe-235b-a22b",
+_NOT_PORTED = ("nemotron-4-15b", "starcoder2-15b", "command-r-plus-104b",
                "deepseek-v3-671b", "llama-3.2-vision-90b",
                "seamless-m4t-medium", "falcon-mamba-7b")
 
@@ -28,7 +31,7 @@ def get_config(name: str) -> ModelConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ROADMAP queue 1 item 13); "
-            f"the port runs {sorted(REGISTRY)}")
+            f"registered: {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
     return REGISTRY[name]

@@ -4,7 +4,7 @@ attention everywhere except 3 full-attention layers (first/middle/last)."""
 from ..models.model import ModelConfig
 
 CONFIG = ModelConfig(
-    name="hymba-1.5b",
+    name="hymba-1.5b", family="hybrid",
     n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5, head_dim=64,
     d_ff=5504, vocab=32001, act="swiglu", rope_theta=10_000.0,
     ssm_state=16, ssm_conv=4, ssm_expand=2, hybrid=True,

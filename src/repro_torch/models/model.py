@@ -10,7 +10,10 @@ a Python loop where the reference scans.
 Two entry points: :func:`prefill` builds the decode cache from a prompt
 and :func:`decode_step` runs one token against it, updating the cache in
 place (the reference returns a new cache).  Only the ``hybrid`` and
-``hybrid_full`` kinds (Hymba) are ported; every other kind raises.
+``hybrid_full`` kinds (Hymba) are ported; every other kind raises.  The
+configuration also carries the reference's ``family`` and ``moe``, which
+the serving bridge reads for the architectures whose models are not
+ported.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from ..kernels.flash_attention import flash_attention_op
 from . import attention as attn
 from .common import (ParamSpec, count_params, init_scale_out, mlp_apply,
                      mlp_specs, pad_vocab, proj, rmsnorm)
+from .moe import MoECfg
 from .ssm import ssm_decode, ssm_prefill, ssm_specs
 
 __all__ = ["ModelConfig", "Group", "plan", "block_specs",
@@ -45,6 +49,7 @@ def _not_ported(kind: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
+    family: str                     # dense|moe|hybrid|ssm|vlm|audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,6 +61,8 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
+    # MoE (read by the serving bridge; the block is not ported)
+    moe: Optional[MoECfg] = None
     # SSM
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -87,7 +94,7 @@ def plan(cfg: ModelConfig) -> list:
     hybrid: runs of sliding-window layers between the full-attention
     layers, each full-attention layer a group of its own)."""
     if not cfg.hybrid:
-        raise _not_ported("non-hybrid")
+        raise _not_ported(cfg.family)
     groups, prev, gi = [], 0, 0
     for li in sorted(cfg.full_attn_layers):
         if li > prev:

@@ -22,7 +22,8 @@ queue-times-distance estimate says so) and ``valiant`` (always an
 intermediate leaf).  Traffic: the Bernoulli families ``uniform``,
 ``rep``, ``rsp``, ``bu``, ``mice_elephant`` and the adversarial
 ``tornado``, ``shift``, ``hotspot`` and ``bursty`` (measured by
-``run_throughput``/``run_latency``), ``all2all`` (a finite program,
+``run_throughput``/``run_latency``), ``arrival`` (the open-loop serving
+source, measured by ``run_serving``), ``all2all`` (a finite program,
 measured by ``run_completion``), ``phase`` (one exchange with a partner
 row the caller sets, measured by ``run_completion(state=...)``) and
 ``program``: a compiled workload program
@@ -85,7 +86,9 @@ from .._device import resolve_device
 from ..core.routing import RoutingTables
 from ..kernels.switch_arb.ops import (flat_rows_geometry,
                                       switch_arbitrate_rows, vc_prearb)
-from ..workloads.patterns import check_engine_pattern
+from ..workloads.patterns import (ARRIVAL_PATTERNS, bounded_pareto_mean,
+                                  check_arrival, check_engine_pattern)
+from . import arrivals
 
 __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
            "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "LATENCY_QS",
@@ -164,6 +167,18 @@ class Traffic:
       a uniform source with a two-state (on-off) Markov chain per
       endpoint: ``burst_load`` while on, bursts of ``burst_len`` slots
       on average, and a long-run offered load of ``load``.
+    * ``arrival``: the open-loop serving source.  ``process`` picks the
+      generator: ``poisson`` (a single-packet arrival with probability
+      ``load`` a slot), ``pareto`` (bounded-Pareto batches of shape
+      ``pareto_alpha`` and cap ``pareto_cap``, the arrival probability
+      divided by the exact mean batch so that ``load`` is the offered
+      packets a slot) or ``diurnal`` (poisson with the rate ``load * (1
+      + diurnal_amp * sin(2 pi slot / diurnal_period))``).  Arrivals
+      queue in a per-endpoint FIFO of ``arr_depth`` batches and are
+      dropped (``arr_drop``) when it is full; an idle endpoint starts
+      its head batch as a message to a uniform destination, its packets
+      born at the batch's arrival slot (``msg_birth``), so latency
+      counts the source queueing.
     * ``all2all``: each endpoint sends ``rounds`` single-packet messages
       to ``(e + r + 1) mod S``, free-running (no round synchronization).
     * ``phase``: each endpoint sends ``phase_packets`` packets to
@@ -187,6 +202,13 @@ class Traffic:
     hot_count: int = 1           # hotspot: number of hot endpoints
     burst_len: float = 8.0       # bursty: mean ON duration (slots)
     burst_load: float = 1.0      # bursty: injection probability while ON
+    # open-loop arrival source ("arrival" pattern) knobs
+    process: str = "poisson"     # poisson | pareto | diurnal
+    pareto_alpha: float = 1.5    # bounded-Pareto shape (> 1)
+    pareto_cap: int = 64         # bounded-Pareto batch-size cap (packets)
+    diurnal_amp: float = 0.5     # relative rate-modulation amplitude [0,1]
+    diurnal_period: int = 512    # modulation period (slots, >= 2)
+    arr_depth: int = 8           # per-endpoint pending-batch FIFO depth
     # compiled workload program (schedule shape; arrays live in the state)
     n_phases: int = 0
     schedule: str = "barrier"    # "barrier" | "window"
@@ -194,6 +216,9 @@ class Traffic:
 
     def __post_init__(self):
         check_engine_pattern(self.pattern)
+        if self.pattern == "arrival" and self.process not in ARRIVAL_PATTERNS:
+            raise ValueError(f"unknown arrival process {self.process!r}; "
+                             f"expected one of {ARRIVAL_PATTERNS}")
 
 
 class Simulator:
@@ -265,6 +290,8 @@ class Simulator:
         # a fresh free list, written back at a barrier crossing
         self._fl_fresh = torch.arange(self.pool, dtype=_I32, device=dev)
         self._phase_ids = {}        # n_phases -> arange, for the scheduler
+        self._arr_ids = {}          # arr_depth -> arange, for the FIFOs
+        self._pareto_thr = {}       # (alpha, cap) -> batch-size thresholds
         self._rep_offsets = {}      # (R, size, ndim) -> replica offsets
         # link phase: downstream input queue of every (switch, port, VC)
         # and the port validity mask (ports with no link stay masked)
@@ -426,6 +453,13 @@ class Simulator:
                     f"{duty_max:.3f} (even at p_on = 1), so the long-run "
                     "offered load would silently undershoot `load` — "
                     "raise burst_len or burst_load")
+        if traffic.pattern == "arrival":
+            check_arrival(traffic.process, traffic.load,
+                          pareto_alpha=traffic.pareto_alpha,
+                          pareto_cap=traffic.pareto_cap,
+                          diurnal_amp=traffic.diurnal_amp,
+                          diurnal_period=traffic.diurnal_period,
+                          arr_depth=traffic.arr_depth)
 
     def make_state(self, traffic: Traffic, seed: int = 0) -> dict:
         """A fresh state; a non-zero ``seed`` is folded into the key of
@@ -434,7 +468,10 @@ class Simulator:
         permutation ``sigma``, drawn by numpy from ``seed`` as the
         reference draws them; ``bursty`` adds each endpoint's on-off
         state ``burst`` (all off); ``phase`` a zero ``partner`` row for
-        the caller to set."""
+        the caller to set; ``arrival`` the empty FIFOs (``arr_times`` and
+        ``arr_sizes`` [S, arr_depth], ``arr_head``, ``arr_len``), each
+        endpoint's ``msg_birth`` and the ``arrived`` and ``arr_drop``
+        counters."""
         self._check_traffic(traffic)
         st = self.init_state()
         rng = np.random.default_rng(seed)
@@ -449,6 +486,14 @@ class Simulator:
         if traffic.pattern == "phase":
             st["partner"] = torch.zeros(self.S, dtype=_I32,
                                         device=self.device)
+        if traffic.pattern == "arrival":
+            D, dev = traffic.arr_depth, self.device
+            for k, shape in (("arr_times", (self.S, D)),
+                             ("arr_sizes", (self.S, D)),
+                             ("arr_head", (self.S,)), ("arr_len", (self.S,)),
+                             ("msg_birth", (self.S,)), ("arrived", ()),
+                             ("arr_drop", ())):
+                st[k] = torch.zeros(shape, dtype=_I32, device=dev)
         if seed:
             st["key"] = prng.fold_in(st["key"], seed)
         return st
@@ -550,6 +595,7 @@ class Simulator:
         pat = traffic.pattern
         size = 1
         burst_new = None
+        arrival = None
         if pat == "all2all":
             start = idle & (st["prog"] < traffic.rounds)
             dst = (e + st["prog"] + 1) % S
@@ -578,6 +624,9 @@ class Simulator:
                          & (st["phase"] < NP)[:, None])
                 dst = self._phase_rows(st, "prog_partner", ph)
                 size = self._phase_rows(st, "prog_packets", ph)
+        elif pat == "arrival":
+            start, dst, size, arrival = self._arrive(st, traffic, idle, k1,
+                                                     k2, k3)
         else:   # the Bernoulli families
             # the reference compares each uniform draw against the float32
             # rounding of its threshold (jax's weakly typed Python floats)
@@ -656,14 +705,19 @@ class Simulator:
         widx = self._flat(torch.where(ok, pid.clamp(min=0), pool), pool + 1)
         if burst_new is not None:
             st["burst"] = burst_new
+        if arrival is not None:
+            st.update(arrival)
         st["fl_head"] = (st["fl_head"] + n_pop) % pool
         st["fl_len"] = st["fl_len"] - n_pop
         st["p_sd"].reshape(-1).index_put_((widx,), (src_lr << 16) | dst_lr)
         if self.cfg.policy in _VALIANT_POLICIES:
             st["p_mid"].reshape(-1).index_put_((widx,), self._intermediate(
                 st, k4, src_lr, dst_lr))
-        st["p_bh"].reshape(-1).index_put_(
-            (widx,), (st["slot"] << 8)[:, None].expand(-1, S))
+        # arrival packets are born at their batch's arrival slot, so the
+        # source queueing shows in the latency histogram
+        born = (st["msg_birth"] if arrival is not None
+                else st["slot"][:, None].expand(-1, S))
+        st["p_bh"].reshape(-1).index_put_((widx,), born << 8)
         # push into the NIC queue (dense one-hot write, one row each)
         pos = (st["eq_head"] + st["eq_len"]) % self.QE
         slot_hot = ok[..., None] & (self._qe_ids == pos[..., None])
@@ -680,8 +734,82 @@ class Simulator:
         st["ejected"] = st["ejected"] + n_local
         st["pool_stall"] = st["pool_stall"] + (want_net & ~ok).sum(
             -1, dtype=_I32)
-        st["lat_hist"][:, 1] += n_local
+        if arrival is not None:
+            # local deliveries too count from the batch's arrival slot
+            bins = self.cfg.hist_bins
+            lat = (st["slot"][:, None] - st["msg_birth"] + 1).clamp(
+                0, bins - 1)
+            # index_add_ (atomic adds); index_put_(accumulate=True) sorts
+            # its indices on the card and waits for the device
+            st["lat_hist"].reshape(-1).index_add_(
+                0, self._flat(torch.where(deliver_local, lat, 0),
+                              bins).reshape(-1),
+                deliver_local.to(_I32).reshape(-1))
+        else:
+            st["lat_hist"][:, 1] += n_local
         return st
+
+    def _arrive(self, st, traffic: Traffic, idle, k1, k2, k3):
+        """The open-loop source of ``Traffic("arrival")`` in every
+        replica: draw this slot's arrivals (at most one batch an
+        endpoint), push them into the FIFOs (a full FIFO drops the
+        batch), and let the idle endpoints pop their head batch (one that
+        arrived this slot too).  Returns ``(start, dst, size, updates)``,
+        the updates being the FIFO state, ``msg_birth`` and the
+        ``arrived`` / ``arr_drop`` counters, as the reference's."""
+        S, D, pt = self.S, traffic.arr_depth, self._pt
+        proc = traffic.process
+        u = prng.uniform(k1, (S,), partitionable=pt)               # [R, S]
+        batch = 1
+        if proc == "poisson":
+            arrive = u < _f32(traffic.load)
+        elif proc == "pareto":
+            # bounded-Pareto batches; the arrival probability is divided
+            # by the exact mean batch, so the offered load is load
+            alpha, cap = traffic.pareto_alpha, traffic.pareto_cap
+            arrive = u < _f32(traffic.load / bounded_pareto_mean(alpha, cap))
+            if cap > 1:
+                thr = self._pareto_thr.get((alpha, cap))
+                if thr is None:
+                    thr = self._pareto_thr[(alpha, cap)] = \
+                        arrivals.pareto_thresholds(alpha, cap, self.device)
+                batch = arrivals.pareto_batch(
+                    prng.uniform(k3, (S,), partitionable=pt), thr)
+        else:   # diurnal: the rate of each replica's slot
+            arrive = u < arrivals.diurnal_rate(
+                st["slot"], traffic.load, traffic.diurnal_amp,
+                traffic.diurnal_period)[:, None]
+        if not torch.is_tensor(batch):
+            batch = torch.ones_like(st["arr_len"])
+        room = st["arr_len"] < D
+        push = arrive & room
+        tail = (st["arr_head"] + st["arr_len"]) % D
+        ids = self._arr_ids.get(D)
+        if ids is None:
+            ids = self._arr_ids[D] = torch.arange(D, dtype=_I32,
+                                                  device=self.device)
+        hot = push[..., None] & (ids == tail[..., None])        # [R, S, D]
+        arr_times = torch.where(hot, st["slot"][:, None, None],
+                                st["arr_times"])
+        arr_sizes = torch.where(hot, batch[..., None], st["arr_sizes"])
+        arr_len = st["arr_len"] + push.to(_I32)
+        start = idle & (arr_len > 0)
+        head = self._e * D + st["arr_head"]
+        size = self._take(arr_sizes, head).clamp(min=1)
+        birth = self._take(arr_times, head)
+        dst = prng.randint(k2, (S,), 0, S, partitionable=pt)
+        return start, dst, size, {
+            "arr_times": arr_times,
+            "arr_sizes": arr_sizes,
+            "arr_head": torch.where(start, (st["arr_head"] + 1) % D,
+                                    st["arr_head"]),
+            "arr_len": arr_len - start.to(_I32),
+            "arrived": st["arrived"] + torch.where(push, batch, 0).sum(
+                -1, dtype=_I32),
+            "arr_drop": st["arr_drop"] + torch.where(
+                arrive & ~room, batch, 0).sum(-1, dtype=_I32),
+            "msg_birth": torch.where(start, birth, st["msg_birth"]),
+        }
 
     def _intermediate(self, st, key, src_lr, dst_lr):
         """Each endpoint's intermediate leaf rank, -1 for none: a uniform
@@ -1116,6 +1244,88 @@ class Simulator:
         for q in LATENCY_QS:
             out[f"p{q}"] = np.asarray([p[f"p{q}"] for p in per])
         return out
+
+    # ------------------------------------------------------------------ #
+    # open-loop serving (Traffic("arrival"))
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def arrival_backlog(st) -> int:
+        """The packets still queued in the arrival FIFOs of a scalar
+        ``Traffic("arrival")`` state (the live ring windows), on the host.
+        With ``sum(msg_rem)`` (popped, not yet injected) it closes the
+        open-loop ledger ``arrived == backlog + sum(msg_rem) +
+        created``."""
+        sizes = st["arr_sizes"].cpu().numpy()
+        head = st["arr_head"].cpu().numpy()
+        ln = st["arr_len"].cpu().numpy()
+        D = sizes.shape[1]
+        idx = (head[:, None] + np.arange(D)[None, :]) % D
+        live = np.arange(D)[None, :] < ln[:, None]
+        return int(np.take_along_axis(sizes, idx, 1)[live].sum())
+
+    _SERVING_KEYS = ("lat_hist", "ejected", "arrived", "arr_drop",
+                     "pool_stall")
+
+    @staticmethod
+    def _serving_metrics(m: dict, S: int, measure: int) -> dict:
+        """Window deltas (numpy) -> the serving record: offered and
+        delivered packets a slot an endpoint, source drops, pool stalls
+        and the latency percentiles; per-replica arrays for a batched
+        run (NaN percentiles where a replica delivered nothing)."""
+        hist = m["lat_hist"]
+        denom = float(S * measure)
+        accepted = m["arrived"].astype(np.int64)
+        dropped = m["arr_drop"].astype(np.int64)
+        out = {
+            "hist": hist,
+            "offered": (accepted + dropped) / denom,
+            "delivered": m["ejected"].astype(np.int64) / denom,
+            "dropped": dropped,
+            "pool_stall": m["pool_stall"].astype(np.int64),
+        }
+        if hist.ndim == 1:
+            out.update(percentiles(hist, LATENCY_QS))
+            out["offered"] = float(out["offered"])
+            out["delivered"] = float(out["delivered"])
+            out["dropped"] = int(out["dropped"])
+            out["pool_stall"] = int(out["pool_stall"])
+        else:
+            per = [percentiles(row, LATENCY_QS) for row in hist]
+            for q in LATENCY_QS:
+                out[f"p{q}"] = np.asarray([p[f"p{q}"] for p in per])
+        return out
+
+    def _serving_window(self, st, traffic: Traffic, warm: int,
+                        measure: int) -> dict:
+        """``warm`` then ``measure`` slots of ``st``, and the serving
+        record of the window's deltas."""
+        self.run_chunk(st, traffic, warm)
+        base = {k: st[k].clone() for k in self._SERVING_KEYS}
+        self.run_chunk(st, traffic, measure)
+        m = {k: (st[k] - base[k]).cpu().numpy() for k in base}
+        return {**self._serving_metrics(m, self.S, measure), "state": st}
+
+    def run_serving(self, traffic: Traffic, warm: int = 200,
+                    measure: int = 600, seed: int = 0) -> dict:
+        """Open-loop load-latency measurement: warm the arrival source,
+        then measure offered against delivered rate, source drops and
+        the latency histogram (from each batch's arrival slot, so source
+        queueing counts) over ``measure`` slots."""
+        if traffic.pattern != "arrival":
+            raise ValueError(f"run_serving needs Traffic('arrival'), got "
+                             f"{traffic.pattern!r}")
+        return self._serving_window(self.make_state(traffic, seed), traffic,
+                                    warm, measure)
+
+    def run_serving_batch(self, traffic: Traffic, seeds, warm: int = 200,
+                          measure: int = 600) -> dict:
+        """Batched ``run_serving``: per-replica ``[R]`` arrays (percentile
+        entries NaN where a replica delivered nothing in the window)."""
+        if traffic.pattern != "arrival":
+            raise ValueError(f"run_serving needs Traffic('arrival'), got "
+                             f"{traffic.pattern!r}")
+        return self._serving_window(self.make_batch_state(traffic, seeds),
+                                    traffic, warm, measure)
 
     # ------------------------------------------------------------------ #
     # compiled workload programs (repro_torch.workloads)

@@ -4,8 +4,8 @@ The port's own copy of the reference registry, so a spec file names the
 same patterns and fails with the same errors in both packages.  The
 registry is mutable: :func:`register_pattern` (called by
 :func:`repro_torch.workloads.programs.register_program_builder`) adds a
-name.  The engine runs ``ENGINE_PATTERNS``; :func:`check_engine_pattern`
-says what is still to come.
+name.  The engine runs ``ENGINE_PATTERNS``, which
+:func:`check_engine_pattern` enforces.
 """
 from __future__ import annotations
 
@@ -40,8 +40,9 @@ ENGINE_ONLY_PATTERNS = ("phase", "program", "arrival")
 # collective execution schedules ("" = per-pattern default)
 SCHEDULES = ("", "barrier", "window")
 
-# what the port's engine runs: "arrival" comes with the open loop
-ENGINE_PATTERNS = BERNOULLI_PATTERNS + ("all2all", "phase", "program")
+# what the port's engine runs
+ENGINE_PATTERNS = BERNOULLI_PATTERNS + ("all2all", "phase", "program",
+                                        "arrival")
 
 # mutable: registered collectives (register_pattern) join the built-ins
 _KINDS = (
@@ -107,10 +108,9 @@ def check_engine_pattern(name: str) -> None:
     """Raise unless the port's engine runs ``name``."""
     check_pattern(name, engine=True)
     if name not in ENGINE_PATTERNS:
-        raise NotImplementedError(
-            f"pattern {name!r} is not ported yet: the PyTorch engine runs "
-            f"{ENGINE_PATTERNS} only; the arrival processes come with the "
-            "open loop (ROADMAP item 7)")
+        # a name registered as "bernoulli" has no branch in the engine
+        raise ValueError(f"pattern {name!r} has no engine branch; the "
+                         f"engine runs {ENGINE_PATTERNS}")
 
 
 def bounded_pareto_mean(alpha: float, cap: int) -> float:

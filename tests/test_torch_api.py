@@ -75,20 +75,19 @@ def test_cli_run_writes_the_result(tmp_path, capsys):
 def test_unported_specs_raise():
     d = _spec("tiny_mrls.json")
     # workload programs run, but only to completion (the reference's
-    # ValueError), and the serving metric is still to come
+    # ValueError); the serving metric runs the arrival families only
     for workload, metric in (({"pattern": "all2all", "rounds": 2,
                                "schedule": "barrier"}, "throughput"),
                              ({"pattern": "allreduce"}, "serving")):
         with pytest.raises(ValueError, match="only supports the completion"):
             port_api.run(port_api.Experiment.from_dict(
                 dict(d, workload=workload, metric=metric)), device="cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(ValueError, match="needs Traffic\\('arrival'\\)"):
         port_api.run(port_api.Experiment.from_dict(
             dict(d, metric="serving")), device="cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
-        port_api.run(port_api.Experiment.from_dict(
-            dict(d, workload={"pattern": "poisson", "load": 0.5})),
-            device="cpu")
+    with pytest.raises(ValueError, match="poisson load 1.5 > 1"):
+        port_api.Experiment.from_dict(
+            dict(d, workload={"pattern": "poisson", "load": 1.5}))
     with pytest.raises(ValueError, match="collective"):
         port_api.run(port_api.Experiment.from_dict(
             dict(d, metric="completion")), device="cpu")

@@ -98,8 +98,11 @@ def test_unported_policies_and_patterns_raise(port_sim):
             Simulator(tables, SimConfig(policy=policy), device="cpu")
     with pytest.raises(ValueError, match="unknown policy"):
         Simulator(tables, SimConfig(policy="shortest"), device="cpu")
-    # the workload programs run; the open-loop arrival source does not yet
-    with pytest.raises(NotImplementedError, match="arrival processes"):
-        Traffic("arrival")
+    # the open-loop arrival source runs; its process is checked
+    assert Traffic("arrival", process="diurnal").process == "diurnal"
+    with pytest.raises(ValueError, match="unknown arrival process"):
+        Traffic("arrival", process="bursty")
+    with pytest.raises(ValueError, match="arrival family"):
+        Traffic("poisson")
     with pytest.raises(ValueError, match="unknown pattern"):
         Traffic("nonsense")

@@ -22,7 +22,10 @@ bad = sorted(m for m in sys.modules
 # the workload-program layer is among the modules walked
 missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.workloads.compile",
-                  "repro_torch.workloads.programs"} - set(names))
+                  "repro_torch.workloads.programs",
+                  "repro_torch.serving", "repro_torch.serving.spec",
+                  "repro_torch.serving.bridge", "repro_torch.serving.sweep",
+                  "repro_torch.simulator.arrivals"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -65,3 +68,23 @@ def test_entry_points_refuse_to_run_on_the_cpu_by_default():
     assert sim.run_program(cp, max_slots=2000)["completed"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Simulator(tables, SimConfig()).run_program(cp)
+
+
+def test_serving_entry_points_refuse_to_run_on_the_cpu_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import json
+
+    from repro_torch.api.__main__ import main as cli_main
+    from repro_torch.serving import ServingSpec, serve_sweep
+    spec = ServingSpec.from_dict({
+        "network": {"family": "mrls",
+                    "params": {"n_leaves": 14, "u": 3, "d": 3}},
+        "loads": [0.5], "warm": 2, "measure": 2})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_sweep(spec)
+    path = tmp_path / "serve.json"
+    path.write_text(json.dumps({"servings": [spec.to_dict()]}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["serve-sweep", str(path)])
+    assert serve_sweep(spec, device="cpu")["points"][0]["offered"] > 0

@@ -420,7 +420,7 @@ def test_cli_run_and_sweep_with_replicas_equal_reference(tmp_path, capsys):
 
 
 def test_refusals_that_stay_name_their_items(tables):
-    for metric, item in (("serving", "item 7"), ("resilience", "item 8")):
+    for metric, item in (("resilience", "item 8"),):
         with pytest.raises(NotImplementedError, match=item):
             port_api.run(_exp(port_api, metric=metric, replicas=2),
                          device="cpu")

@@ -131,11 +131,13 @@ def test_run_all_shares_a_given_cache_and_drops_its_own(monkeypatch):
 
 def test_run_all_refuses_before_building(monkeypatch):
     built = _count_builds(monkeypatch)
-    # an allreduce and replicas run now; the serving metric is still to
-    # come
+    # an allreduce, replicas and the serving metric run now; the
+    # resilience metric is still to come
     exps = [_exp(port_api), _exp(port_api, workload={"pattern": "allreduce"}),
-            _exp(port_api, replicas=2), _exp(port_api, metric="serving")]
-    with pytest.raises(NotImplementedError, match="item 7"):
+            _exp(port_api, replicas=2),
+            _exp(port_api, workload={"pattern": "poisson", "load": 0.5}),
+            _exp(port_api, metric="resilience")]
+    with pytest.raises(NotImplementedError, match="item 8"):
         port_api.run_all(exps, device="cpu")
     assert built == []
 
@@ -188,5 +190,6 @@ def test_cli_sweep_families_and_patterns(tmp_path, capsys):
     assert "all2all  [collective]" in listed
     for name in ("allreduce", "ring_allreduce", "rd_allreduce"):
         assert f"{name}  [collective]" in listed
-    assert "poisson  [arrival]  (not ported yet)" in listed
+    for name in ("poisson", "pareto", "diurnal"):
+        assert f"{name}  [arrival]" in listed
     assert not any(line.startswith(("phase", "program")) for line in listed)
