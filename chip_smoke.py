@@ -144,6 +144,29 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the host ms of a uniform, a poisson and a diurnal slot of the MRLS,
    and the diurnal slot's device ms, operations and idle share from the
    profiler, beside phase 6's uniform slot;
+17. failures — run after phase 16, at ``benchmarks/bench_faults.py``'s
+   settings (uniform 0.5, ``fail_seed`` 0) cut for time: ``degrade_sweep``
+   of the 1k MRLS ``mrls(56, 18, 18, seed=1)`` under
+   ``RouteSpec(policy="degraded", max_hops=12)`` at rates 0, 0.05 and
+   0.10 (down at slot 10, requeue, 50 + 150 a rate); the Figure-5 MRLS
+   (Polarized, ``max_hops`` 6) with 1 % of its links down at slot 20 and
+   back at 60 under ``drop`` (40 + 60); ``fat_tree(16, 2)`` (degraded)
+   with its first non-leaf switch down at 10 and up at 40 (20 + 40); and
+   ``dragonfly(8, 4, 4)`` under ugal with an 8-link ladder from slot 10,
+   a link every 8 slots (30 + 60); each record against its
+   ``tests/golden/torch_fault_*.json`` field for field, with its
+   launches (``vc_prearb`` 3 and ``switch_arbitrate_rows`` 2 a step,
+   ``minplus_hops`` the build's products plus each delta rebuild's), run
+   seconds, slots/s, peak device bytes and ``fail_drop``; every delta's
+   rows bitwise the host BFS over the same effective adjacency
+   (``UNREACHABLE`` where cut off) and its first mask words the host
+   packing; the tables bitwise pristine after each run; the pool ledger
+   (free + queued = pool) on each final state; two armed slots of each
+   of polarized, degraded and ugal under the sync debug mode; the delta
+   rebuild's seconds beside a full ``build_tables`` at the Figure-5 1 %
+   set and the Fat-Tree switch event; and an armed degraded slot of the
+   1k MRLS (5 % of its links down) beside the pristine one (host ms,
+   device ms, operations, idle share);
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -165,8 +188,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step), and where a prefill's time goes from ``torch.profiler``.
 
 Each phase prints its wall seconds, and the script its total.  The
-kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 16 and
-11 are summed.  The last lines are a
+kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 16, 17
+and 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -227,6 +250,10 @@ SERVE_SWEEP_GOLDEN = (ROOT / "tests" / "golden"
 SERVE_GOLDENS = [ROOT / "tests" / "golden" / f"torch_serve_{name}.json"
                  for name in ("ft_poisson_r4", "mrls_pareto",
                               "mrls_diurnal")]
+# phase 17: failures on the 1k fabrics and the Figure-5 MRLS
+FAULT_SWEEP_GOLDEN = ROOT / "tests" / "golden" / "torch_fault_mrls1k_sweep.json"
+FAULT_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fault_{name}.json"
+                 for name in ("fig5_mrls_drop", "ft1k_switch", "df1k_ugal")]
 # the (alpha, cap) pairs whose batch map phase 16 checks on the card, and
 # the (load, amplitude, period) of its diurnal rates
 PARETO_MAPS = ((1.5, 16), (1.5, 32), (1.5, 64), (1.2, 64))
@@ -924,7 +951,8 @@ def timed_runs(timing: list, peaks: bool = False):
     saved = {name: getattr(Simulator, name) for name in
              ("run_completion", "run_throughput", "run_latency",
               "run_program", "run_throughput_batch", "run_latency_batch",
-              "run_serving", "run_serving_batch", "_step")}
+              "run_serving", "run_serving_batch", "run_resilience",
+              "_step")}
     steps = [0]
 
     def counted(self, *args, **kw):
@@ -1731,6 +1759,345 @@ def run_phase16(scalar_slot: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# failures (phase 17)
+# ---------------------------------------------------------------------- #
+@contextlib.contextmanager
+def delta_log(log: list):
+    """Append to ``log`` every ``RoutingTables.apply_failures`` call as
+    ``(tables, delta, effective adjacency after it, seconds)``, the card
+    synchronised around it; on a tables object's first call, keep a copy
+    of its pristine rows in ``tables._pristine`` first."""
+    import torch
+    from repro_torch.core.routing import RoutingTables
+    saved = RoutingTables.apply_failures
+
+    def logged(self, *args, **kw):
+        if not hasattr(self, "_pristine"):
+            self._pristine = self.dist_leaf.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        delta = saved(self, *args, **kw)
+        torch.cuda.synchronize()
+        log.append((self, delta, self.effective_nbrs(),
+                    time.perf_counter() - t0))
+        return delta
+
+    RoutingTables.apply_failures = logged
+    try:
+        yield
+    finally:
+        RoutingTables.apply_failures = saved
+
+
+def check_deltas(log: list, label: str) -> int:
+    """Each logged delta's distance rows bitwise the host BFS from its
+    leaves over the same effective adjacency (``UNREACHABLE`` where cut
+    off), the mask words of its first 64 rows the host's numpy packing of
+    those rows, and each tables object back to its pristine rows with no
+    dead element.  Returns the deltas' ``minplus_hops`` products."""
+    import numpy as np
+    import torch
+    from repro_torch.core.routing import (UNREACHABLE, _pack_mask_block,
+                                          bfs_distances)
+    products, seen = 0, []
+    for tables, delta, eff, sec in log:
+        topo = tables.topo
+        k = delta.n_affected
+        products += delta.products
+        cut = 0
+        if k:
+            bfs = bfs_distances(topo, topo.leaf_ids[delta.leaf_rows],
+                                nbrs=eff)
+            want = np.where(bfs < 0, UNREACHABLE, bfs).astype(np.int16)
+            got = delta.dist_rows.cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{label}: a delta's rows differ from "
+                                     "the host BFS")
+            cut = int((want == UNREACHABLE).sum())
+            valid = topo.nbrs >= 0
+            m, a = _pack_mask_block(want[:64], topo.nbrs, valid,
+                                    np.where(valid, topo.nbrs, 0))
+            if not (np.array_equal(delta.min_rows[:64].cpu().numpy().view(
+                    np.uint32), m) and np.array_equal(
+                    delta.away_rows[:64].cpu().numpy().view(np.uint32), a)):
+                raise AssertionError(f"{label}: a delta's mask words differ "
+                                     "from the host packing")
+        print(f"  delta: {k} of {tables.dist_leaf.shape[0]} leaf rows "
+              f"rebuilt, {delta.products} minplus_hops products, {cut} "
+              f"entries UNREACHABLE, "
+              f"{int((~delta.link_up & (topo.nbrs >= 0)).sum())} dead "
+              f"ports, {sec:.4f} s; rows equal the host BFS")
+        if tables not in seen:
+            seen.append(tables)
+    for tables in seen:
+        if not (torch.equal(tables.dist_leaf, tables._pristine)
+                and not tables.dead_ports.any()
+                and not tables.dead_switches.any()):
+            raise AssertionError(f"{label}: the tables were not restored")
+    print(f"{label}: {len(log)} deltas checked; the tables are bitwise "
+          "their pristine rows again")
+    return products
+
+
+@contextlib.contextmanager
+def last_resilience_state(last: dict):
+    """Keep in ``last`` the simulator and final state of each
+    ``Simulator.run_resilience``."""
+    from repro_torch.simulator.engine import Simulator
+    saved = Simulator.run_resilience
+
+    def keep(self, *args, **kw):
+        r = saved(self, *args, **kw)
+        last.setdefault("runs", []).append((self, r["state"]))
+        return r
+
+    Simulator.run_resilience = keep
+    try:
+        yield
+    finally:
+        Simulator.run_resilience = saved
+
+
+def pool_ledger(sim, st, label: str) -> None:
+    """``fl_len`` plus the packets in the input, output and NIC queues is
+    the pool, on a final state on the card."""
+    free = int(st["fl_len"])
+    queued = [int(st[k].sum()) for k in ("qlen", "oq_len", "eq_len")]
+    print(f"{label}: pool ledger {free} free + {queued[0]} input + "
+          f"{queued[1]} output + {queued[2]} NIC = {free + sum(queued)} "
+          f"(pool {sim.pool}); fail_drop of the run {int(st['fail_drop'])}")
+    if free + sum(queued) != sim.pool:
+        raise AssertionError(f"{label}: the pool ledger does not close")
+
+
+def delta_seconds(topo, events, label: str, reps: int = 3) -> None:
+    """A full ``build_tables`` on the card beside the delta rebuild of
+    ``events`` going down and back up on its tables, best of ``reps``,
+    the card synchronised around each."""
+    import torch
+    from repro_torch.core import build_tables
+
+    def best(fn):
+        out, t = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        return out, min(t)
+
+    tables, full_s = best(lambda: build_tables(topo, device="cuda"))
+    pristine = tables.dist_leaf.clone()
+    down_s, up_s = [], []
+    for _ in range(reps):
+        for t, kw in ((down_s, {"down": events}), (up_s, {"up": events})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = tables.apply_failures(**kw)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+            k, prods = d.n_affected, d.products
+            if "down" in kw:
+                kd, pd = k, prods
+    if not torch.equal(tables.dist_leaf, pristine):
+        raise AssertionError(f"{label}: delta restore is not exact")
+    print(f"{label}: full build_tables {full_s:.4f} s ({tables.squarings} "
+          f"products); delta down {min(down_s):.4f} s ({kd} rows, {pd} "
+          f"products), back up {min(up_s):.4f} s ({k} rows, {prods} "
+          f"products); delta / full {min(down_s) / full_s:.2f} (best of "
+          f"{reps})")
+
+
+def armed_slot_costs(sim, exps: dict, scalar: dict) -> None:
+    """Two armed slots of each of polarized, degraded and ugal (with the
+    schedule's events down in the state's tables) under the sync debug
+    mode; then the host ms of an armed degraded slot of the 1k MRLS with
+    5 % of its links down beside the same fabric's pristine slot (5 slots
+    in; 10 timed slots each in the order pristine, armed, armed,
+    pristine), and both slots' device ms and operations from a profile
+    of 5 slots."""
+    import torch
+    from repro_torch.api.runner import _to_traffic
+    from repro_torch.core import FailureSchedule, canonical_link_ids
+    from repro_torch.simulator.engine import Simulator
+    for policy, (s, exp) in exps.items():
+        tr = _to_traffic(exp)
+        events = [e for e in s.failures.events if e.kind == "link"] or \
+            list(s.failures.events)
+        st = s.make_batch_state(tr, [exp.seed])
+        s.run_chunk(st, tr, 4)
+        s.update_tables(st, s.tables.apply_failures(down=events))
+        no_sync(lambda: s._step(st, tr), 2)
+        s.tables.apply_failures(up=events)
+        print(f"2 armed {policy} slots ({len(events)} events down) under "
+              "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    tables = sim.tables
+    topo = tables.topo
+    k = round(0.05 * len(canonical_link_ids(topo)))
+    sched = FailureSchedule.random_links(topo, k, down_slot=0, seed=0)
+    armed = Simulator(tables, sim.cfg, sched, device="cuda")
+    tr = _to_traffic(exps["degraded"][1])
+    runs = {}
+    for label, s in (("pristine", sim), ("armed", armed)):
+        st = s.make_batch_state(tr, [0])
+        if s is armed:
+            s.update_tables(st, tables.apply_failures(down=sched.events))
+            tables.apply_failures(up=sched.events)
+        s.run_chunk(st, tr, 5)
+        runs[label] = (s, st)
+    host = {"pristine": [], "armed": []}
+    for label in ("pristine", "armed", "armed", "pristine"):
+        s, st = runs[label]
+        host[label].append(host_ms(lambda: s._step(st, tr), 10))
+    cost = {}
+    for label, (s, st) in runs.items():
+        _, rows = profile_slots(lambda: s._step(st, tr), 5)
+        cost[label] = (sum(host[label]) / 2,) + device_load(rows, 5)
+    print(f"host ms of the 10-slot runs, pristine / armed: "
+          f"{[round(x, 4) for x in host['pristine']]} / "
+          f"{[round(x, 4) for x in host['armed']]}")
+    for label, (ms, busy, ops) in cost.items():
+        print(f"{label} degraded slot of {topo.n_endpoints} endpoints "
+              f"({k} links down in the armed one): host {ms:.4f} ms "
+              f"({1e3 / ms:.2f} slots/s); device busy {busy:.4f} ms in "
+              f"{ops:.0f} operations, idle share "
+              f"{100 * (1 - busy / ms):.1f}%" if busy > 0 else
+              f"{label}: host {ms:.4f} ms; device time not measured")
+    print(f"armed - pristine: {cost['armed'][2] - cost['pristine'][2]:+.0f} "
+          f"operations; phase 6's Figure-5 uniform slot {scalar['ms']:.4f} "
+          f"ms, {scalar['ops']:.0f} operations")
+
+
+def run_phase17(scalar_slot: dict) -> dict:
+    """Failures: the 1k MRLS degradation sweep, the Figure-5 MRLS drop
+    and restore, the Fat-Tree switch event and the Dragonfly's UGAL
+    ladder against their goldens, with their launches (the build's and
+    each delta's ``minplus_hops`` products), each delta's rows against
+    the host BFS, the tables' restore, the pool ledger, the sync check,
+    the delta rebuild's seconds and an armed slot's cost.  Returns the
+    launches summed over the main-path runs and the set-ups."""
+    import torch
+    from repro_torch.api import (DegradeSpec, Experiment, SimulatorCache,
+                                 degrade_sweep, run)
+    phase("17. failures: degradation curve, drop and restore, switch event, "
+          "UGAL ladder")
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    timing, last, log = [], {}, []
+    armed = {}
+    with SimulatorCache() as cache, timed_runs(timing, peaks=True), \
+            last_resilience_state(last), delta_log(log):
+        # a. the degradation sweep: one simulator armed with the largest
+        # schedule, built inside degrade_sweep
+        golden = json.loads(FAULT_SWEEP_GOLDEN.read_text())
+        spec = DegradeSpec.from_dict(golden["spec"])
+        reset_counts()
+        t0 = time.perf_counter()
+        t_phase = t0
+        record = degrade_sweep(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        tables = last["runs"][0][0].tables
+        for p, r in zip(record["points"], timing):
+            print(f"  rate {p['rate']}: {p['n_links_down']} links down, "
+                  f"delivered {p['delivered']!r} retention "
+                  f"{p['retention']!r} p50/p99 {p['p50']}/{p['p99']} "
+                  f"fail_drop {p['fail_drop']}; {r['slots_run']} slots in "
+                  f"{r['run_s']:.3f} s ({r['slots_run'] / r['run_s']:.2f} "
+                  f"slots/s); peak device memory {r['peak']} bytes")
+        ran = sum(r["slots_run"] for r in timing)
+        timing.clear()
+        _differs(spec.base.label(), json.loads(json.dumps(record)),
+                 golden["record"])
+        print(f"degrade_sweep of {spec.base.label()}: {wall:.3f} s; the "
+              f"record equals {FAULT_SWEEP_GOLDEN.name} field for field")
+        products = check_deltas(log, spec.base.label())
+        check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * ran,
+                              "switch_arbitrate_rows": 2 * ran,
+                              "minplus_hops": tables.squarings + products},
+                     f"the sweep ({ran} steps, the build's "
+                     f"{tables.squarings} + the deltas' {products} "
+                     "products)")
+        add(counts)
+        for sim, st in last.pop("runs"):
+            pool_ledger(sim, st, spec.base.label())
+        log.clear()
+
+        # b-d. the Figure-5 drop and restore, the Fat-Tree switch event
+        # and the Dragonfly's UGAL ladder, each through run
+        goldens = [(json.loads(p.read_text()), p.name) for p in FAULT_GOLDENS]
+        for golden, fname in goldens:
+            exp = Experiment.from_dict(golden["experiment"])
+            reset_counts()
+            t0 = time.perf_counter()
+            sim = cache.get(exp.network, exp.route)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            print(f"{exp.name}: {exp.network.family} "
+                  f"{exp.network.param_dict()} under {exp.route.policy}: "
+                  f"N={sim.N} S={sim.S} P={sim.P}, "
+                  f"{len(exp.network.failures)} events "
+                  f"({exp.network.failures.policy}); set-up "
+                  f"{time.perf_counter() - t0:.3f} s "
+                  f"({sim.tables.squarings} minplus_hops products)")
+            check_counts(counts, {**NO_LAUNCHES,
+                                  "minplus_hops": sim.tables.squarings},
+                         f"the {exp.name} set-up")
+            add(counts)
+            reset_counts()
+            res = run(exp, cache=cache)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            rec = timing.pop()
+            ran = rec["slots_run"]
+            print(f"{exp.name}: throughput {res.throughput!r} avg_hops "
+                  f"{res.avg_hops!r} ejected {res.ejected} fail_drop "
+                  f"{res.fail_drop} latency {res.latency}; {ran} slots "
+                  f"in {rec['run_s']:.3f} s ({ran / rec['run_s']:.2f} "
+                  f"slots/s); peak device memory of the run "
+                  f"{rec['peak']} bytes")
+            _differs(exp.name, res.to_dict(), golden)
+            print(f"{exp.name}: Result equals {fname} field for field")
+            products = check_deltas(log, exp.name)
+            log.clear()
+            check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * ran,
+                                  "switch_arbitrate_rows": 2 * ran,
+                                  "minplus_hops": products},
+                         f"the {exp.name} run ({ran} steps, the "
+                         f"deltas' {products} products)")
+            add(counts)
+            (run_sim, st), = last.pop("runs")
+            pool_ledger(run_sim, st, exp.name)
+            armed[exp.route.policy] = (sim, exp)
+    t_runs = time.perf_counter()
+
+    # the delta rebuild beside a full build, at the Figure-5 1 % set and
+    # the Fat-Tree switch event; an armed slot's cost (outside the counted
+    # runs and the logging wrapper)
+    for policy in ("polarized", "degraded"):
+        sim, exp = armed[policy]
+        delta_seconds(sim.tables.topo, exp.network.failures.events,
+                      exp.name)
+    t_delta = time.perf_counter()
+    with SimulatorCache() as cache:
+        armed_slot_costs(cache.get(spec.base.network, spec.base.route),
+                         armed, scalar_slot)
+    del armed
+    print(f"phase 17 parts: the four points with their checks "
+          f"{t_runs - t_phase:.3f} s, delta timings "
+          f"{t_delta - t_runs:.3f} s, sync checks and slot costs "
+          f"{time.perf_counter() - t_delta:.3f} s")
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------- #
 # LM serving slice: Hymba-1.5B
 # ---------------------------------------------------------------------- #
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
@@ -2088,6 +2455,8 @@ def main() -> int:
         launches[k] += n
     for k, n in run_phase16(fig5_slot).items():
         launches[k] += n
+    for k, n in run_phase17(fig5_slot).items():
+        launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
     from repro_torch.configs import get_config
@@ -2112,7 +2481,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 8, 12, 13, 14, 15, 16 and 11.
+    # phases 8, 12, 13, 14, 15, 16, 17 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

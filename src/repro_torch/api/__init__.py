@@ -8,16 +8,22 @@
         workload=WorkloadSpec("uniform", load=1.0)))
 
 ``run_all`` and ``sweep`` share one simulator among the experiments of a
-fabric (:class:`SimulatorCache`).  ``python -m repro_torch.api run
-spec.json`` runs a spec file; ``sweep``, ``families`` and ``patterns``
-are the other subcommands.
+fabric (:class:`SimulatorCache`).  A ``NetworkSpec`` may carry a
+:class:`FailureSchedule` (the ``resilience`` metric), and
+:func:`degrade_sweep` runs a link-failure degradation curve.  ``python -m
+repro_torch.api run spec.json`` runs a spec file; ``sweep``,
+``serve-sweep``, ``degrade``, ``families`` and ``patterns`` are the
+other subcommands.
 """
 from .specs import Experiment, NetworkSpec, RouteSpec, WorkloadSpec
 from .registry import build_network, topology_families, workload_patterns
 from .runner import Result, SimulatorCache, open_simulator, run, run_all
 from .sweep import expand_axes, sweep
+from .degrade import DegradeSpec, degrade_sweep, degrade_sweep_many
+from ..core.failures import FailureEvent, FailureSchedule
 
 __all__ = ["Experiment", "NetworkSpec", "RouteSpec", "WorkloadSpec",
            "build_network", "topology_families", "workload_patterns",
            "Result", "SimulatorCache", "open_simulator", "run", "run_all",
-           "expand_axes", "sweep"]
+           "expand_axes", "sweep", "DegradeSpec", "degrade_sweep",
+           "degrade_sweep_many", "FailureEvent", "FailureSchedule"]

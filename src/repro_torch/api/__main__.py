@@ -23,6 +23,12 @@ Commands (each takes ``--device cpu|cuda``; the default is the card):
   each sweep's points, saturation knee and request leg, ``--out`` writes
   the SLO records as a JSON list, as the reference's CLI does.
   ``--seed`` overrides every spec's seed.
+* ``degrade <spec.json> [--seed S] [--out f]`` — run link-failure
+  degradation sweeps: the file holds one DegradeSpec (``{"base":
+  <experiment>, "rates": [...], ...}``), ``{"sweep": {...}}`` or
+  ``{"sweeps": [...]}``; prints delivered throughput and retention per
+  rate, ``--out`` writes the degradation records as a JSON list, as the
+  reference's CLI does.  ``--seed`` overrides every base's seed.
 * ``families`` — list the topology families the port builds.
 * ``patterns`` — list the workload-pattern registry, each with its kind
   and whether the port runs it.
@@ -33,6 +39,7 @@ that every command has the same surface.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -40,6 +47,7 @@ from typing import List, Optional
 
 from .registry import topology_families, workload_patterns
 from .runner import Result, run, run_all
+from .degrade import DegradeSpec, degrade_sweep_many
 from .specs import Experiment
 from .sweep import sweep
 from .. import serving
@@ -126,21 +134,20 @@ def _fmt_q(v) -> str:
     return "-" if v is None else f"{v:g}"
 
 
-def serving_specs(path: str) -> list:
-    """The ServingSpecs of a file: a bare spec, ``{"serving": {...}}`` or
-    ``{"servings": [...]}``."""
+def spec_docs(path: str, key: str) -> list:
+    """The spec dicts of a file: a bare spec, ``{key: {...}}`` or
+    ``{key + "s": [...]}``, as the reference's CLI reads them."""
     doc = json.loads(Path(path).read_text())
-    if isinstance(doc, dict) and "servings" in doc:
-        docs = list(doc["servings"])
-    elif isinstance(doc, dict) and "serving" in doc:
-        docs = [doc["serving"]]
-    else:
-        docs = [doc]
-    return [serving.ServingSpec.from_dict(d) for d in docs]
+    if isinstance(doc, dict) and key + "s" in doc:
+        return list(doc[key + "s"])
+    if isinstance(doc, dict) and key in doc:
+        return [doc[key]]
+    return [doc]
 
 
 def _cmd_serve_sweep(args) -> int:
-    specs = serving_specs(args.spec)
+    specs = [serving.ServingSpec.from_dict(d)
+             for d in spec_docs(args.spec, "serving")]
     if args.seed is not None:
         specs = [s.replace(seed=args.seed) for s in specs]
     records = serving.serve_sweep_many(specs, device=args.device)
@@ -165,6 +172,28 @@ def _cmd_serve_sweep(args) -> int:
     if args.out:
         Path(args.out).write_text(json.dumps(records, indent=2))
         print(f"wrote {len(records)} SLO record(s) to {args.out}")
+    return 0
+
+
+def _cmd_degrade(args) -> int:
+    specs = [DegradeSpec.from_dict(d) for d in spec_docs(args.spec, "sweep")]
+    if args.seed is not None:
+        specs = [dataclasses.replace(
+            s, base=s.base.override("seed", args.seed)) for s in specs]
+    records = degrade_sweep_many(specs, device=args.device)
+    for rec in records:
+        print(f"{rec['name']}  policy={rec['policy']}  "
+              f"fail_policy={rec['fail_policy']}  links={rec['n_links']}")
+        for p in rec["points"]:
+            ret = ("-" if p["retention"] is None
+                   else f"{p['retention']:.3f}")
+            print(f"  rate={p['rate']:g}  down={p['n_links_down']}  "
+                  f"delivered={p['delivered']:.3f}  retention={ret}  "
+                  f"p50={_fmt_q(p.get('p50'))}  p99={_fmt_q(p.get('p99'))}  "
+                  f"fail_drop={p['fail_drop']:g}")
+    if args.out:
+        Path(args.out).write_text(json.dumps(records, indent=2))
+        print(f"wrote {len(records)} degradation record(s) to {args.out}")
     return 0
 
 
@@ -201,6 +230,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                          help="override the seed")
     serve_p.add_argument("--out", default=None,
                          help="also write the SLO records here")
+    degrade_p = sub.add_parser(
+        "degrade", help="run a link-failure degradation sweep spec")
+    degrade_p.add_argument("spec", help="path to the DegradeSpec JSON file")
+    degrade_p.add_argument("--seed", type=int, default=None,
+                           help="override the spec's base seed")
+    degrade_p.add_argument("--out", default=None,
+                           help="also write the degradation records here")
     sub.add_parser("families", help="list topology families")
     sub.add_parser("patterns", help="list workload patterns")
     for p in sub.choices.values():
@@ -208,7 +244,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                        help="default: cuda (fails without a card)")
     args = ap.parse_args(argv)
     return {"run": _cmd_run, "sweep": _cmd_sweep,
-            "serve-sweep": _cmd_serve_sweep, "families": _cmd_families,
+            "serve-sweep": _cmd_serve_sweep, "degrade": _cmd_degrade,
+            "families": _cmd_families,
             "patterns": _cmd_patterns}[args.cmd](args)
 
 

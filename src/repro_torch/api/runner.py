@@ -17,8 +17,11 @@ replicas), and its Result carries ``per_replica``, ``aggregates`` and
 experiments that differ only in their seed into one such run.  The
 arrival families (``poisson``, ``pareto``, ``diurnal``) run as the
 engine's ``Traffic("arrival")`` under the ``serving`` metric: offered
-and delivered load, source drops and the latency percentiles.  The
-``resilience`` metric comes later.
+and delivered load, source drops and the latency percentiles.  A
+network with a failure schedule runs under the ``resilience`` metric
+(``Simulator.run_resilience``): throughput, hops, drops and latency
+while its links and switches go down and come back; its replicas run
+one after the other, since each transition rewrites the shared tables.
 """
 from __future__ import annotations
 
@@ -42,8 +45,6 @@ from .specs import Experiment, NetworkSpec, RouteSpec
 
 __all__ = ["Result", "SimulatorCache", "open_simulator", "run", "run_all"]
 
-# the metrics the port refuses, with the ROADMAP item that ports each
-_LATER_METRICS = {"resilience": "ROADMAP item 8, failures"}
 # Result latency labels -> engine percentile keys
 _LATENCY_KEYS = (("p50", "p0.5"), ("p99", "p0.99"), ("p999", "p0.999"),
                  ("p9999", "p0.9999"))
@@ -149,8 +150,12 @@ def _nan_none(v) -> Optional[float]:
 # ---------------------------------------------------------------------- #
 def _make_simulator(network: NetworkSpec, route: RouteSpec,
                     device: torch.device) -> Simulator:
-    tables = build_tables(build_network(network), device=device)
-    return Simulator(tables, route.to_sim_config(), device=device)
+    topo = build_network(network)
+    if network.failures is not None:
+        network.failures.validate(topo)   # fail before the table build
+    tables = build_tables(topo, device=device)
+    return Simulator(tables, route.to_sim_config(), network.failures,
+                     device=device)
 
 
 class SimulatorCache:
@@ -158,7 +163,9 @@ class SimulatorCache:
 
     Keyed on ``(NetworkSpec, RouteSpec, device)``, so the experiments of
     one fabric (loads, patterns, seeds) build its topology, tables and
-    device masks once.  Also a context manager: closing drops every
+    device masks once (a failure schedule is part of the
+    ``NetworkSpec``, so a degraded fabric never shares its pristine
+    twin's simulator).  Also a context manager: closing drops every
     cached simulator and, where one was on the card, returns the freed
     blocks of PyTorch's caching allocator to the card.
     """
@@ -242,8 +249,8 @@ def _is_program(exp: Experiment) -> bool:
 
 
 def _check_runnable(experiment: Experiment) -> str:
-    """Refuse what the port does not run yet, before anything is built;
-    returns the metric."""
+    """Refuse, before anything is built, what cannot run (the
+    reference's errors, with its messages); returns the metric."""
     metric = experiment.resolved_metric()
     w = experiment.workload
     program = _is_program(experiment)
@@ -251,11 +258,12 @@ def _check_runnable(experiment: Experiment) -> str:
     if program and metric != "completion":
         raise ValueError(f"{w.pattern} only supports the completion "
                          "metric")
-    if metric in _LATER_METRICS:
-        raise NotImplementedError(
-            f"metric {metric!r} is not ported yet ({_LATER_METRICS[metric]}"
-            "): the port runs 'throughput', 'latency', 'completion' and "
-            "'serving'")
+    failures = experiment.network.failures
+    if metric == "resilience" and (failures is None or not len(failures)):
+        raise ValueError(
+            "run_resilience needs a Simulator built with a non-empty "
+            "FailureSchedule (failures=...); use run_throughput for "
+            "pristine fabrics")
     if metric == "completion" and not program and w.pattern != "all2all":
         raise ValueError(f"completion metric needs a collective workload, "
                          f"got {w.pattern!r}")
@@ -402,6 +410,21 @@ def _batched_metrics(sim: Simulator, exp: Experiment, seeds) -> Tuple[str,
         per.update({lbl: tuple(_nan_none(v) for v in r[k])
                     for lbl, k in _LATENCY_KEYS})
         return metric, per
+    if metric == "resilience":
+        # each transition rewrites the simulator's tables, so the
+        # replicas run one after the other (replica i is the scalar run
+        # of seeds[i], as in the reference)
+        runs = [sim.run_resilience(traffic, warm=exp.warm,
+                                   measure=exp.measure, seed=s)
+                for s in seeds]
+        per = {"throughput": tuple(float(r["throughput"]) for r in runs),
+               "avg_hops": tuple(float(r["avg_hops"]) for r in runs),
+               "ejected": tuple(int(r["ejected"]) for r in runs),
+               "pool_stall": tuple(int(r["pool_stall"]) for r in runs),
+               "fail_drop": tuple(int(r["fail_drop"]) for r in runs)}
+        per.update({lbl: tuple(_nan_none(r[k]) for r in runs)
+                    for lbl, k in _LATENCY_KEYS})
+        return metric, per
     # completion of the free-running all2all (_check_runnable let no
     # other metric through)
     r = sim.run_completion_batch(traffic, expected=sim.S * w.rounds,
@@ -437,6 +460,11 @@ def _batched_result(exp: Experiment, seeds, metric: str, per: dict) -> Result:
         kw = dict(throughput=mean("throughput"), offered=mean("offered"),
                   dropped=mean("dropped"), pool_stall=mean("pool_stall"),
                   latency={lbl: mean(lbl) for lbl, _ in _LATENCY_KEYS})
+    elif metric == "resilience":
+        kw = dict(throughput=mean("throughput"), avg_hops=mean("avg_hops"),
+                  ejected=mean("ejected"), pool_stall=mean("pool_stall"),
+                  fail_drop=mean("fail_drop"),
+                  latency={lbl: mean(lbl) for lbl, _ in _LATENCY_KEYS})
     else:
         kw = dict(slots=mean("slots"),
                   completed=bool(all(per["completed"])),
@@ -470,6 +498,14 @@ def _unfold_batch(group, metric: str, per: dict) -> list:
                       offered=per["offered"][i],
                       dropped=per["dropped"][i],
                       pool_stall=per["pool_stall"][i],
+                      latency={lbl: per[lbl][i]
+                               for lbl, _ in _LATENCY_KEYS})
+        elif metric == "resilience":
+            kw = dict(throughput=per["throughput"][i],
+                      avg_hops=per["avg_hops"][i],
+                      ejected=per["ejected"][i],
+                      pool_stall=per["pool_stall"][i],
+                      fail_drop=per["fail_drop"][i],
                       latency={lbl: per[lbl][i]
                                for lbl, _ in _LATENCY_KEYS})
         else:
@@ -533,6 +569,17 @@ def _run_on(sim: Simulator, experiment: Experiment, metric: str) -> Result:
                       offered=float(r["offered"]),
                       dropped=int(r["dropped"]),
                       pool_stall=int(r["pool_stall"]), latency=lat)
+    if metric == "resilience":
+        r = sim.run_resilience(traffic, warm=experiment.warm,
+                               measure=experiment.measure,
+                               seed=experiment.seed)
+        lat = {lbl: _nan_none(r[k]) for lbl, k in _LATENCY_KEYS}
+        return Result(experiment=experiment, metric=metric,
+                      throughput=float(r["throughput"]),
+                      avg_hops=float(r["avg_hops"]),
+                      ejected=int(r["ejected"]),
+                      pool_stall=int(r["pool_stall"]),
+                      fail_drop=int(r["fail_drop"]), latency=lat)
     r = sim.run_latency(traffic, warm=experiment.warm,
                         measure=experiment.measure, seed=experiment.seed)
     lat = {lbl: _nan_none(r[k]) for lbl, k in _LATENCY_KEYS}

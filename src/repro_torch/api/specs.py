@@ -13,6 +13,7 @@ import dataclasses
 import json
 from typing import Any, Mapping, Optional, Tuple
 
+from ..core.failures import FailureSchedule
 from ..workloads.patterns import (check_arrival, check_pattern,
                                   check_schedule)
 
@@ -41,28 +42,41 @@ def _freeze_params(params) -> Tuple[Tuple[str, Any], ...]:
 @dataclasses.dataclass(frozen=True)
 class NetworkSpec:
     """A topology family name plus constructor kwargs (a sorted tuple of
-    pairs, so the spec is hashable).  Failure schedules are not ported
-    yet: a spec that carries one is refused."""
+    pairs, so the spec is hashable), and optionally a frozen
+    :class:`~repro_torch.core.FailureSchedule` of link and switch events
+    applied mid-run.  The schedule is part of the spec and its hash, so a
+    simulator cache never mixes a degraded fabric with its pristine
+    twin; it is validated against the topology before the tables are
+    built."""
 
     family: str
     params: Tuple[Tuple[str, Any], ...] = ()
+    failures: Optional[FailureSchedule] = None
 
     def __post_init__(self):
         object.__setattr__(self, "params", _freeze_params(self.params))
+        if self.failures is not None and not isinstance(self.failures,
+                                                        FailureSchedule):
+            object.__setattr__(self, "failures",
+                               FailureSchedule.from_dict(self.failures))
 
     def param_dict(self) -> dict:
         return {k: v for k, v in self.params}
 
     def to_dict(self) -> dict:
-        return {"family": self.family, "params": self.param_dict()}
+        d = {"family": self.family, "params": self.param_dict()}
+        if self.failures is not None:
+            d["failures"] = self.failures.to_dict()
+        return d
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "NetworkSpec":
-        if d.get("failures") is not None:
-            raise NotImplementedError(
-                "failure schedules are not ported yet (they come with "
-                "policy='degraded' in a later slice)")
-        return cls(family=d["family"], params=d.get("params", {}))
+        failures = d.get("failures")
+        if failures is not None and not isinstance(failures,
+                                                   FailureSchedule):
+            failures = FailureSchedule.from_dict(failures)
+        return cls(family=d["family"], params=d.get("params", {}),
+                   failures=failures)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,9 +216,10 @@ class Experiment:
     """One runnable scenario: fabric x routing x workload + measurement.
 
     ``metric`` is ``auto`` (Bernoulli patterns -> ``throughput``,
-    collectives -> ``completion``, arrival processes -> ``serving``),
-    ``throughput``, ``latency``, ``completion`` or ``serving``; the
-    port's runner refuses ``resilience``.  ``seed`` drives the
+    collectives -> ``completion``, arrival processes -> ``serving``, and
+    any pattern on a network with a non-empty failure schedule ->
+    ``resilience``), ``throughput``, ``latency``, ``completion``,
+    ``serving`` or ``resilience``.  ``seed`` drives the
     simulator's PRNG stream; ``replicas`` > 1 runs the seeds ``seed ..
     seed + replicas - 1`` as one batched run.
     """
@@ -236,6 +251,8 @@ class Experiment:
             return "completion"
         if kind == "arrival":
             return "serving"
+        if self.network.failures is not None and len(self.network.failures):
+            return "resilience"
         return "throughput"
 
     def replica_seeds(self) -> Tuple[int, ...]:

@@ -5,7 +5,8 @@ dict of numpy arrays; :func:`state_from_jax` turns it into the port's
 state on a device, so a run can continue in the port from a state the
 reference reached.  :func:`state_to_numpy` goes the other way and gives
 exactly the reference's arrays: the PRNG keys (``key``, and a program
-state's ``key0``) as uint32 and the pool tensors without their pad slot.
+state's ``key0``) and an armed state's mask words (``tbl_min``,
+``tbl_away``) as uint32 and the pool tensors without their pad slot.
 Both take batched states too (a leading replica axis, as the
 reference's ``make_batch_state`` stacks them): the pad slot is on the
 last axis, and a program's shared arrays (``PROG_SHARED``) stay
@@ -23,7 +24,7 @@ import torch
 
 from .models.common import flatten_specs
 from .models.model import build_specs
-from .simulator.engine import KEY_KEYS, POOL_KEYS
+from .simulator.engine import KEY_KEYS, MASK_KEYS, POOL_KEYS
 
 __all__ = ["state_from_jax", "state_to_numpy", "params_from_jax",
            "cache_to_numpy"]
@@ -34,7 +35,7 @@ def state_from_jax(np_state: dict, device) -> dict:
     st = {}
     for k, v in np_state.items():
         a = np.asarray(v)
-        if k in KEY_KEYS:
+        if k in KEY_KEYS or k in MASK_KEYS:
             a = a.astype(np.uint32).view(np.int32)
         elif k in POOL_KEYS:
             pad = np.full(a.shape[:-1] + (1,), POOL_KEYS[k], a.dtype)
@@ -48,7 +49,7 @@ def state_to_numpy(st: dict) -> dict:
     out = {}
     for k, v in st.items():
         a = v.detach().cpu().numpy()
-        if k in KEY_KEYS:
+        if k in KEY_KEYS or k in MASK_KEYS:
             a = a.view(np.uint32)
         elif k in POOL_KEYS:
             a = a[..., :-1]

@@ -10,12 +10,20 @@ min-plus squaring of the int16 hop adjacency through the CUDA
 it on the card.  :func:`minplus_distances` is the float32 form of the
 same powering, the counterpart of the reference's
 ``all_pairs_distances``.  The simulator packs its port-mask words from
-these rows on its own device (``simulator.engine.pack_mask_block``);
+these rows on its own device (:func:`pack_mask_block`);
 :func:`_pack_mask_block` is the reference's numpy packing, kept as the
 host version that the device words are checked against.
 :func:`route_packet_host`, :func:`polarized_port_mask` and
 :func:`find_corners` are the reference's host router in numpy (one
 packet switch by switch, and the Polarized corner count).
+
+Failures: :meth:`RoutingTables.apply_failures` takes links and switches
+down (and back up) and rebuilds only the leaf rows whose distances can
+change, in place, on the device that holds them: on the card through
+:func:`hop_distances` (``minplus_hops``) over the *effective* adjacency,
+on the CPU through the BFS.  It returns a :class:`TableDelta` with the
+new rows, their mask words and the liveness masks, which the simulator
+scatters into its state (``Simulator.update_tables``).
 """
 from __future__ import annotations
 
@@ -37,21 +45,35 @@ __all__ = [
     "minplus_distances",
     "hop_distances",
     "RoutingTables",
+    "TableDelta",
     "build_tables",
+    "pack_mask_block",
+    "UNREACHABLE",
     "polarized_port_mask",
     "route_packet_host",
     "find_corners",
 ]
 
+# the distance of a switch that failures cut off from a leaf: >= 0, far
+# above any diameter and far below int16 overflow, so d - 1 / d + 1
+# comparisons with real distances are false and hop budgets fail (the
+# reference's value)
+UNREACHABLE = 16384
 
-def bfs_distances(topo: Topology, sources: np.ndarray) -> np.ndarray:
+_I32 = torch.int32
+
+
+def bfs_distances(topo: Topology, sources: np.ndarray, *,
+                  nbrs: Optional[np.ndarray] = None) -> np.ndarray:
     """[len(sources), N] int16 hop distances (-1 = unreachable).
 
     Level-synchronous BFS over blocks of sources: each hop level expands
     every block member's frontier in one scatter, so the work follows the
-    frontier population rather than ``B * N * P``.
+    frontier population rather than ``B * N * P``.  ``nbrs`` overrides
+    the adjacency (same ``[N, P]`` -1-padded layout): the delta rebuild
+    passes the effective adjacency of a fabric with failures.
     """
-    nbrs = topo.nbrs
+    nbrs = topo.nbrs if nbrs is None else nbrs
     n, p = topo.n_switches, nbrs.shape[1]
     sources = np.asarray(sources, dtype=np.int64)
     k = len(sources)
@@ -179,6 +201,33 @@ def _hops_int16(d: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class TableDelta:
+    """Changed rows and live masks from one
+    :meth:`RoutingTables.apply_failures`: the reference's ``TableDelta``,
+    its rows as tensors on the device of the tables.
+
+    ``leaf_rows`` indexes the leaf-rank axis; ``dist_rows`` holds the
+    rebuilt int16 distance rows of exactly those leaves (``UNREACHABLE``
+    where cut off), ``min_rows`` / ``away_rows`` their toward / away mask
+    words as int32 views of the uint32 words.  ``link_up`` and
+    ``switch_up`` are the *full* current liveness masks.  ``products``
+    counts the ``minplus_hops`` products of the rebuild (0 for the BFS).
+    """
+
+    leaf_rows: np.ndarray          # [K] int32 affected leaf ranks
+    dist_rows: torch.Tensor        # [K, N] int16
+    min_rows: torch.Tensor         # [K, N, W] int32 toward-bit words
+    away_rows: torch.Tensor        # [K, N, W] int32 away-bit words
+    link_up: np.ndarray            # [N, P] bool, directed-port liveness
+    switch_up: np.ndarray          # [N] bool
+    products: int = 0
+
+    @property
+    def n_affected(self) -> int:
+        return int(self.leaf_rows.shape[0])
+
+
+@dataclasses.dataclass
 class RoutingTables:
     """Precomputed routing state for the simulator.
 
@@ -186,7 +235,9 @@ class RoutingTables:
     each leaf (-1 = unreachable), on the device the distances were
     computed on: the card for the min-plus build, the CPU for the BFS.
     ``leaf_block`` is the height of the leaf blocks in which the
-    simulator packs its port-mask words.
+    simulator packs its port-mask words.  ``dead_ports`` /
+    ``dead_switches`` are the failed elements (host bool arrays, made by
+    the first :meth:`apply_failures`).
     """
 
     topo: Topology
@@ -195,6 +246,8 @@ class RoutingTables:
     dist_full: Optional[torch.Tensor] = None   # [N, N] (small nets)
     leaf_block: int = 256          # block height of the mask packing
     squarings: int = 0             # minplus_hops products (0: BFS)
+    dead_ports: Optional[np.ndarray] = None     # [N, P] bool
+    dead_switches: Optional[np.ndarray] = None  # [N] bool
 
     # the reference's table metrics, each reduced on the device that
     # holds the rows, in blocks of leaf rows (bounded temporaries) and
@@ -229,6 +282,156 @@ class RoutingTables:
         return float(int(total)) / (n1 * (n1 - 1))
 
 
+    # ------------------------------------------------------------------ #
+    # delta rebuilds under failures
+    # ------------------------------------------------------------------ #
+    def effective_nbrs(self) -> np.ndarray:
+        """The adjacency with the failed elements cut out: dead ports, and
+        every port of or toward a dead switch, set to -1 (both directions
+        of a link die together, so it stays symmetric).  The topology
+        itself never changes."""
+        nbrs = self.topo.nbrs
+        eff = nbrs.copy()
+        if self.dead_ports is None:
+            return eff
+        valid = nbrs >= 0
+        switch_up = ~self.dead_switches
+        eff[self.dead_ports] = -1
+        eff[~switch_up] = -1
+        eff[valid & ~switch_up[np.where(valid, nbrs, 0)]] = -1
+        return eff
+
+    def apply_failures(self, down=(), up=()) -> TableDelta:
+        """Apply link/switch state changes and rebuild only the affected
+        leaf rows, as the reference's ``apply_failures`` does.
+
+        ``down`` / ``up`` are iterables of ``FailureEvent`` taking effect
+        now.  ``dist_leaf`` is rewritten **in place** on its device.  The
+        frontier test is the reference's: a downed link ``{a, b}`` can
+        change leaf ``t``'s row only if its farther endpoint keeps no
+        other live toward port; a restored link only if
+        ``|d(t,a) - d(t,b)| >= 2``; a switch event rebuilds every row.
+        It runs in int32 on the rows where they live and syncs with the
+        host once, for the affected set.  The rows are rebuilt from the
+        affected leaves over :meth:`effective_nbrs`: on the card by
+        :func:`hop_distances` (``minplus_hops``), on the CPU by the BFS;
+        unreachable switches get ``UNREACHABLE``.  The mask words are
+        packed against the **static** adjacency ``topo.nbrs`` by
+        :func:`pack_mask_block` on the same device (a toward bit through
+        a dead port stays set; the engine's live masks exclude it).
+        """
+        topo = self.topo
+        n, p = topo.n_switches, topo.max_ports
+        nbrs = topo.nbrs
+        if self.dead_ports is None:
+            self.dead_ports = np.zeros((n, p), bool)
+            self.dead_switches = np.zeros(n, bool)
+        dist = self.dist_leaf
+        dev = dist.device
+        n1 = dist.shape[0]
+
+        def cols(idx) -> torch.Tensor:
+            """int32 distances of every leaf to the switches ``idx``
+            (any shape), on the rows' device."""
+            idx = np.asarray(idx, np.int64)
+            return dist[:, torch.as_tensor(idx.reshape(-1), device=dev)].to(
+                _I32).reshape((n1,) + idx.shape)
+
+        every = False
+        hit = []                        # [N1] bool terms of the frontier
+        down_pairs = []
+        for ev in down:
+            if ev.kind == "switch":
+                self.dead_switches[ev.id] = True
+                every = True
+                continue
+            c, pt = divmod(ev.id, p)
+            nb, nbp = int(nbrs[c, pt]), int(topo.nbr_port[c, pt])
+            if not self.dead_ports[c, pt]:
+                down_pairs.append((c, nb))
+            self.dead_ports[c, pt] = True
+            self.dead_ports[nb, nbp] = True
+        if down_pairs and not every:
+            # x = both orientations of every killed link; leaf t is hit
+            # iff d(t,x) == d(t,y) + 1 and x keeps no other live toward
+            # port (tested against the final dead state, as the reference)
+            xs = sorted({x for pair in down_pairs for x in pair})
+            xi = {x: i for i, x in enumerate(xs)}
+            xa = np.asarray(xs)
+            live = (nbrs[xa] >= 0) & ~self.dead_ports[xa]        # [X, P]
+            nb_x = np.where(live, nbrs[xa], 0)
+            alt = (torch.as_tensor(live, device=dev)[None]
+                   & (cols(nb_x) == (cols(xa) - 1)[..., None])).any(2)
+            x2 = [x for c, nb in down_pairs for x in (c, nb)]
+            y2 = [y for c, nb in down_pairs for y in (nb, c)]
+            far = cols(x2) == cols(y2) + 1                       # [N1, 2K]
+            at = torch.as_tensor([xi[x] for x in x2], device=dev)
+            hit.append((far & ~alt[:, at]).any(1))
+
+        up_pairs = []
+        for ev in up:
+            if ev.kind == "switch":
+                self.dead_switches[ev.id] = False
+                every = True
+                continue
+            c, pt = divmod(ev.id, p)
+            nb, nbp = int(nbrs[c, pt]), int(topo.nbr_port[c, pt])
+            if self.dead_ports[c, pt]:
+                up_pairs.append((c, nb))
+            self.dead_ports[c, pt] = False
+            self.dead_ports[nb, nbp] = False
+        if up_pairs and not every:
+            cs = [c for c, _ in up_pairs]
+            nbs = [nb for _, nb in up_pairs]
+            hit.append(((cols(cs) - cols(nbs)).abs() >= 2).any(1))
+
+        valid = nbrs >= 0
+        nbr_safe = np.where(valid, nbrs, 0)
+        switch_up = ~self.dead_switches
+        link_up = (valid & ~self.dead_ports
+                   & switch_up[:, None] & switch_up[nbr_safe])
+        if every:
+            leaf_rows = np.arange(n1, dtype=np.int32)
+        elif hit:
+            affected = torch.stack(hit).any(0)
+            leaf_rows = affected.nonzero()[:, 0].cpu().numpy().astype(
+                np.int32)
+        else:
+            leaf_rows = np.zeros(0, np.int32)
+        k = len(leaf_rows)
+        w = (p + 31) // 32
+        if k == 0:
+            return TableDelta(
+                leaf_rows, torch.zeros((0, n), dtype=torch.int16, device=dev),
+                torch.zeros((0, n, w), dtype=_I32, device=dev),
+                torch.zeros((0, n, w), dtype=_I32, device=dev),
+                link_up, switch_up)
+
+        eff = self.effective_nbrs()
+        sources = topo.leaf_ids[leaf_rows]
+        products = 0
+        if dev.type == "cuda":
+            rows, _, products = hop_distances(eff, sources, dev)
+            rows.masked_fill_(rows < 0, UNREACHABLE)
+        else:
+            newd = bfs_distances(topo, sources, nbrs=eff)
+            rows = torch.from_numpy(
+                np.where(newd < 0, UNREACHABLE, newd).astype(np.int16))
+        dist.index_copy_(0, torch.as_tensor(leaf_rows.astype(np.int64),
+                                            device=dev), rows)
+
+        valid_t = torch.as_tensor(valid, device=dev)
+        nbr_safe_t = torch.as_tensor(nbr_safe.astype(np.int64), device=dev)
+        min_rows = torch.empty((k, n, w), dtype=_I32, device=dev)
+        away_rows = torch.empty_like(min_rows)
+        for lo in range(0, k, self.leaf_block):        # bounded scratch
+            hi = min(lo + self.leaf_block, k)
+            min_rows[lo:hi], away_rows[lo:hi] = pack_mask_block(
+                rows[lo:hi], valid_t, nbr_safe_t)
+        return TableDelta(leaf_rows, rows, min_rows, away_rows, link_up,
+                          switch_up, products)
+
+
 def _pack_mask_block(dist_block: np.ndarray, nbrs: np.ndarray,
                      valid: np.ndarray, nbr_safe: np.ndarray):
     """One ``(min, away)`` uint32 block [B, N, W] for a leaf slice: the
@@ -246,6 +449,36 @@ def _pack_mask_block(dist_block: np.ndarray, nbrs: np.ndarray,
     away_b = np.add.reduceat(away * shifts, starts, axis=2)
     return min_b.astype(np.uint32, copy=False), \
         away_b.astype(np.uint32, copy=False)
+
+
+def pack_mask_block(dist_block: torch.Tensor, valid: torch.Tensor,
+                    nbr_safe: torch.Tensor, *, away: bool = True):
+    """``(min, away)`` int32 words [B, N, W] for a block of int16 leaf
+    distance rows ``dist_block`` [B, N]: the reference's
+    ``core.routing._pack_mask_block`` on the device, as int32 views of
+    its uint32 words (``away`` is None unless asked for).
+
+    ``valid`` [N, P] bool marks the ports with a link, ``nbr_safe``
+    [N, P] int64 is the neighbour with -1 mapped to 0.  Port ``j`` sets
+    bit ``j % 32`` of word ``j // 32``; the words are built with
+    ``bitwise_or`` on int32, where bit 31 is -2**31, so no sum ever
+    wraps.  One port at a time keeps the temporaries at [B, N].
+    """
+    d = dist_block
+    p = valid.shape[1]
+    min_w = torch.zeros(d.shape + ((p + 31) // 32,), dtype=_I32,
+                        device=d.device)
+    away_w = torch.zeros_like(min_w) if away else None
+    for j in range(p):
+        dn = d[:, nbr_safe[:, j]]                               # [B, N]
+        bit = np.uint32(1 << (j % 32)).view(np.int32).item()
+        min_w[:, :, j // 32].bitwise_or_(
+            (valid[:, j] & (dn == d - 1)).to(_I32) * bit)
+        if away:
+            away_w[:, :, j // 32].bitwise_or_(
+                (valid[:, j] & (dn == d + 1)).to(_I32) * bit)
+    return min_w, away_w
+
 
 
 def build_tables(topo: Topology, full: bool = False, *,

@@ -16,8 +16,8 @@ the occupancies from the queue state itself and works on the flat
 requester rows.  The link phase's choice of output VC is the same masked
 argmax as VC pre-arbitration and runs through the same kernel.
 
-Policies: ``polarized``, ``minimal_adaptive``, ``ksp``, and the
-Dragonfly's ``ugal`` (UGAL-L: a Valiant intermediate leaf when the
+Policies: ``polarized``, ``minimal_adaptive``, ``ksp``, ``degraded``,
+and the Dragonfly's ``ugal`` (UGAL-L: a Valiant intermediate leaf when the
 queue-times-distance estimate says so) and ``valiant`` (always an
 intermediate leaf).  Traffic: the Bernoulli families ``uniform``,
 ``rep``, ``rsp``, ``bu``, ``mice_elephant`` and the adversarial
@@ -32,7 +32,24 @@ scheduler ``_advance_program`` at the end of every slot and driven by
 ``run_program``.  ``schedule="barrier"`` replays the per-phase host loop
 bitwise (a crossing resets the transient state and the key to what a
 fresh state holds); ``schedule="window"`` lets endpoints run ``window``
-phases ahead of the completed ones.  No failure schedule.
+phases ahead of the completed ones.
+
+Failures (``failures=``, a ``FailureSchedule``): a *static* branch, as
+in the reference.  With no schedule, or an empty one, the step issues
+exactly the operations it issues without the branch.  With one, the
+routing tables move into the state (``tbl_min``, ``tbl_away``,
+``tbl_dist``: copies, never views, of the simulator's tables) beside the
+liveness masks ``link_up`` / ``switch_up`` and the ``fail_drop``
+counter; every policy reads the state's tables and gates its candidate
+ports to live ones (``live_row``), the link phase gates its sends, and
+``update_tables`` writes a ``TableDelta``'s rows into them between
+slots.  ``degraded`` routes minimally over live ports and, where none is
+left, falls back to a live away port within the hop budget; on a
+pristine fabric it is ``minimal_adaptive``.  ``run_resilience`` drives a
+schedule: it applies each transition at its slot boundary
+(``RoutingTables.apply_failures`` -> ``update_tables``, and
+``drop_dead_packets`` under the ``drop`` policy) and restores the
+pristine tables when it returns.
 
 Replicas, the counterpart of the reference's ``jax.vmap``: a batched
 state (``make_batch_state``, ``make_program_batch_state``) stacks R
@@ -83,7 +100,7 @@ import torch
 
 from .. import prng
 from .._device import resolve_device
-from ..core.routing import RoutingTables
+from ..core.routing import RoutingTables, pack_mask_block
 from ..kernels.switch_arb.ops import (flat_rows_geometry,
                                       switch_arbitrate_rows, vc_prearb)
 from ..workloads.patterns import (ARRIVAL_PATTERNS, bounded_pareto_mean,
@@ -91,11 +108,11 @@ from ..workloads.patterns import (ARRIVAL_PATTERNS, bounded_pareto_mean,
 from . import arrivals
 
 __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
-           "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "LATENCY_QS",
-           "PROG_SHARED"]
+           "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "MASK_KEYS",
+           "LATENCY_QS", "PROG_SHARED"]
 
-POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant")
-_LATER_POLICIES = ("degraded",)
+POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant",
+            "degraded")
 # the policies that route through an intermediate leaf (p_mid)
 _VALIANT_POLICIES = ("ugal", "valiant")
 
@@ -106,6 +123,8 @@ LATENCY_QS = (0.5, 0.99, 0.999, 0.9999)
 POOL_KEYS = {"fl_buf": 0, "p_sd": 0, "p_mid": -1, "p_bh": 0}
 # state tensors holding a PRNG key (two uint32 words as int32)
 KEY_KEYS = ("key", "key0")
+# state tensors holding port-mask words (uint32 words as int32 views)
+MASK_KEYS = ("tbl_min", "tbl_away")
 # the state tensors the step writes into in place (index_put_ and
 # index_add_ on their flat views)
 _IN_PLACE = tuple(POOL_KEYS) + ("lat_hist",)
@@ -226,21 +245,25 @@ class Simulator:
 
     ``device=None`` means the card; with no card it raises (pass
     ``device="cpu"`` to run the plain versions of the kernels).
+    ``failures`` (a ``FailureSchedule``, validated against the topology)
+    arms the failure branch when it holds events; the ``failures``
+    attribute may be reassigned later (``degrade_sweep`` swaps in each
+    rate's schedule), but whether the branch is armed is fixed here.
     """
 
-    def __init__(self, tables: RoutingTables, cfg: SimConfig, *,
-                 device=None):
-        if cfg.policy in _LATER_POLICIES:
-            raise NotImplementedError(
-                f"policy {cfg.policy!r} is not ported yet: it comes with the "
-                "failure schedules")
+    def __init__(self, tables: RoutingTables, cfg: SimConfig,
+                 failures=None, *, device=None):
         if cfg.policy not in POLICIES:
             raise ValueError(f"unknown policy {cfg.policy!r}; expected one "
-                             f"of {POLICIES + _LATER_POLICIES}")
+                             f"of {POLICIES}")
         self.device = resolve_device(device)
         self._pt = cfg.threefry_partitionable
         topo = tables.topo
         self.tables, self.cfg = tables, cfg
+        self.failures = failures
+        self.has_failures = failures is not None and len(failures.events) > 0
+        if failures is not None:
+            failures.validate(topo)
         self.N = topo.n_switches
         self.P = topo.max_ports
         self.V = cfg.vcs
@@ -273,9 +296,10 @@ class Simulator:
         valid = nbrs >= 0
         self.leaf_ids = torch.as_tensor(topo.leaf_ids, dtype=_I32,
                                         device=dev)
-        # int16 distances, flat [N1 * N]; polarized's hop budget reads them
+        # int16 distances, flat [N1 * N]; polarized's hop budget reads them.
+        # A copy: apply_failures rewrites the tables' rows in place
         self.dist = torch.as_tensor(tables.dist_leaf, dtype=torch.int16,
-                                    device=dev).reshape(-1)
+                                    device=dev).reshape(-1).clone()
         self.W = (self.P + 31) // 32
         self.min_mask, self.away_mask = self._build_device_masks(tables)
         self._w_idx = torch.as_tensor(np.arange(self.P) // 32,
@@ -308,10 +332,10 @@ class Simulator:
     def _build_device_masks(self, tables: RoutingTables):
         """Device mask tables ``[N1*N, W]`` as int32 views of the uint32
         words, packed on the device from the int16 distances in leaf
-        blocks of ``tables.leaf_block`` rows.  Only Polarized keeps the
-        away bits."""
+        blocks of ``tables.leaf_block`` rows.  Only Polarized and
+        degraded keep the away bits."""
         n, n1, w = self.N, self.n1, self.W
-        need_away = self.cfg.policy == "polarized"
+        need_away = self.cfg.policy in ("polarized", "degraded")
         nbrs = np.asarray(tables.topo.nbrs)
         valid = torch.as_tensor(nbrs >= 0, device=self.device)
         nbr_safe = torch.as_tensor(np.maximum(nbrs, 0).astype(np.int64),
@@ -417,7 +441,21 @@ class Simulator:
             "lat_hist": Z(self.cfg.hist_bins),
             "slot": Z(),
             "key": prng.prng_key(self.cfg.seed, device=dev),
-        }
+        } | (self._failure_state() if self.has_failures else {})
+
+    def _failure_state(self) -> dict:
+        """The armed state's routing tables (copies of the simulator's, so
+        that ``update_tables`` never reaches them), the liveness masks
+        (all up) and the ``fail_drop`` counter."""
+        st = {"tbl_min": self.min_mask.clone()}
+        if self.away_mask is not None:
+            st["tbl_away"] = self.away_mask.clone()
+        st["tbl_dist"] = self.dist.clone()
+        st["link_up"] = self._valid.clone()
+        st["switch_up"] = torch.ones(self.N, dtype=torch.bool,
+                                     device=self.device)
+        st["fail_drop"] = torch.zeros((), dtype=_I32, device=self.device)
+        return st
 
     def _check_traffic(self, traffic: Traffic) -> None:
         """The reference's checks of the adversarial knobs against this
@@ -573,8 +611,15 @@ class Simulator:
     # ------------------------------------------------------------------ #
     def _port_bits(self, table, t_lr, cur):
         """[..., P] bool port mask: one word gather per requester and a
-        bit test (exact on the int32 views of the uint32 words)."""
-        words = table[t_lr * self.N + cur]                       # [., W]
+        bit test (exact on the int32 views of the uint32 words).  A
+        state's tables ``[R, N1*N, W]`` are read through each replica's
+        offset (``_flat``)."""
+        idx = t_lr * self.N + cur
+        if table.ndim == 3:
+            words = table.reshape(-1, self.W)[self._flat(idx,
+                                                         table.shape[1])]
+        else:
+            words = table[idx]                                   # [., W]
         return ((words[..., self._w_idx] >> self._b_idx) & 1).bool()
 
     @staticmethod
@@ -816,7 +861,10 @@ class Simulator:
         leaf for ``valiant``; for ``ugal`` that leaf only where the
         shortest-queue estimate times the hop count via it is smaller
         (strictly) than the minimal route's, from the occupancies of VC 0
-        at the source switch."""
+        at the source switch.  Armed with failures, the state's tables
+        and the source switch's live ports: the products in float32, as
+        the reference's (an ``UNREACHABLE`` distance would wrap the int32
+        score), and the int16 ``d_val`` sum wraps as jnp's does."""
         N = self.N
         mid_lr = prng.randint(key, (self.S,), 0, self.n1,
                               partitionable=self._pt)          # [R, S]
@@ -824,17 +872,34 @@ class Simulator:
             return mid_lr
         sw = self.leaf_ids[src_lr]
         occ0 = st["qlen"][:, self._ugal_occ_idx]                # [R, S, P]
+        if self.has_failures:
+            R = st["slot"].shape[0]
+            live_sw = st["link_up"].reshape(R, N, self.P)[:, sw]  # [R,S,P]
+            tmin = st["tbl_min"]
+
+            def dist(idx):
+                return self._take(st["tbl_dist"], idx)
+        else:
+            live_sw, tmin = None, self.min_mask
+
+            def dist(idx):
+                return self.dist[idx]
 
         def best(t_lr):
-            m = self._port_bits(self.min_mask, t_lr, sw)
+            m = self._port_bits(tmin, t_lr, sw)
+            if live_sw is not None:
+                m = m & live_sw
             return torch.where(m, occ0, 1 << 20).amin(dim=-1)
         q_min, q_val = best(dst_lr), best(mid_lr)
         # int16 distances and their int16 sum; the products promote to
         # int32, as in the reference
-        d_min = self.dist[dst_lr * N + sw]
-        d_val = (self.dist[mid_lr * N + sw]
-                 + self.dist[dst_lr * N + self.leaf_ids[mid_lr]])
-        take_val = q_min * d_min > q_val * d_val
+        d_min = dist(dst_lr * N + sw)
+        d_val = (dist(mid_lr * N + sw)
+                 + dist(dst_lr * N + self.leaf_ids[mid_lr]))
+        if self.has_failures:
+            take_val = q_min.float() * d_min > q_val.float() * d_val
+        else:
+            take_val = q_min * d_min > q_val * d_val
         return torch.where(take_val, mid_lr, -1)
 
     # ------------------------------------------------------------------ #
@@ -873,32 +938,65 @@ class Simulator:
         eject = valid & (cur == self.leaf_ids[t_lr])
         route = valid & ~eject
         pol = self.cfg.policy
+        hf = self.has_failures
+        if hf:
+            # the state's tables; live_row gates every policy's candidate
+            # ports to live ones (a dead switch's rows are all dead, so
+            # its packets wait for a drop or a restore)
+            tmin, taway = st["tbl_min"], st.get("tbl_away")
+            live_row = st["link_up"].reshape(R, N, P)[:, cur]   # [R,NR,P]
+
+            def dist(idx):
+                return self._take(st["tbl_dist"], idx)
+        else:
+            tmin, taway = self.min_mask, self.away_mask
+
+            def dist(idx):
+                return self.dist[idx]
         if pol == "polarized":
             # Forward = away-from-s & toward-t, Expansion = away & away
             # (while d_cs < d_ct), Contraction = toward & toward (once
             # d_cs >= d_ct); d(n,t) = d(c,t) + away - toward
             s_lr = sd >> 16
-            dn_t = self._port_bits(self.min_mask, t_lr, cur)
-            up_t = self._port_bits(self.away_mask, t_lr, cur)
-            dn_s = self._port_bits(self.min_mask, s_lr, cur)
-            up_s = self._port_bits(self.away_mask, s_lr, cur)
-            d_ct = self.dist[t_lr * N + cur]
-            d_cs = self.dist[s_lr * N + cur]
+            dn_t = self._port_bits(tmin, t_lr, cur)
+            up_t = self._port_bits(taway, t_lr, cur)
+            dn_s = self._port_bits(tmin, s_lr, cur)
+            up_s = self._port_bits(taway, s_lr, cur)
+            d_ct = dist(t_lr * N + cur)
+            d_cs = dist(s_lr * N + cur)
             src_side = (d_cs < d_ct)[..., None]
             deroute = (up_s & up_t & src_side) | (dn_s & dn_t & ~src_side)
             d_nt = (d_ct[..., None] + up_t.to(torch.int16)
                     - dn_t.to(torch.int16))
             budget_ok = (hops[..., None] + 1 + d_nt) <= self.cfg.max_hops
             allowed = (up_s & dn_t) | (deroute & budget_ok)
+        elif pol == "degraded":
+            # layered recovery: the live toward ports while there are
+            # any; with none left, a live away port (one layer up, two
+            # hops more) within the hop budget.  On a pristine fabric the
+            # fallback never fires: minimal_adaptive bit for bit
+            toward = self._port_bits(tmin, t_lr, cur)
+            away = self._port_bits(taway, t_lr, cur)
+            if hf:
+                toward = toward & live_row
+                away = away & live_row
+            d_ct = dist(t_lr * N + cur)
+            no_min = ~toward.any(-1)
+            budget_ok = (hops[..., None] + 2 + d_ct[..., None]
+                         ) <= self.cfg.max_hops
+            deroute = no_min[..., None] & away & budget_ok
+            allowed = toward | deroute
         elif pol in _VALIANT_POLICIES:
             # minimal toward the intermediate leaf while there is one
             mid_lr = self._take(st["p_mid"], pkt0)
             tgt = torch.where(mid_lr >= 0, mid_lr, t_lr)
-            allowed = self._port_bits(self.min_mask, tgt, cur)
+            allowed = self._port_bits(tmin, tgt, cur)
             deroute = torch.zeros_like(allowed)
         else:   # minimal_adaptive, ksp
-            allowed = self._port_bits(self.min_mask, t_lr, cur)
+            allowed = self._port_bits(tmin, t_lr, cur)
             deroute = torch.zeros_like(allowed)
+        if hf and pol != "degraded":    # degraded gated its layers above
+            allowed = allowed & live_row
         # the flight VC climbs with every hop under ugal / valiant, with
         # every up-down pass (two hops) under the others
         vc_hops = hops if pol in _VALIANT_POLICIES else hops // 2
@@ -974,7 +1072,10 @@ class Simulator:
         # by random priority: the masked argmax of VC pre-arbitration
         room = st["qlen"][:, self._link_dq] < Q                  # [R,NP,V]
         nonempty = st["oq_len"].reshape(R, NP, V) > 0
-        cand = nonempty & room & self._valid[:, None]
+        link_ok = self._valid
+        if self.has_failures:                  # no sends over dead links
+            link_ok = link_ok & st["link_up"]                   # [R, NP]
+        cand = nonempty & room & link_ok[..., None]
         rand = prng.uniform(key, (NP, V), partitionable=self._pt)
         # and the chosen queue's head packet; a non-sender's -1 clamps to
         # 0, which nothing reads (it adds 0 hops and is never pushed)
@@ -1328,6 +1429,166 @@ class Simulator:
                                     traffic, warm, measure)
 
     # ------------------------------------------------------------------ #
+    # failures: live table updates and the resilience run
+    # ------------------------------------------------------------------ #
+    def update_tables(self, st, delta):
+        """Write a :class:`repro_torch.core.routing.TableDelta` into the
+        state's tables, in place, and set its liveness masks; scalar and
+        batched states (every replica gets the same rows).  Returns
+        ``st``."""
+        if not self.has_failures:
+            raise RuntimeError(
+                "update_tables needs a Simulator built with a failure "
+                "schedule (failures=...)")
+        dev, n, w = self.device, self.N, self.W
+        batched = st["ejected"].ndim == 1
+        link_up = torch.as_tensor(delta.link_up.reshape(-1), device=dev)
+        switch_up = torch.as_tensor(delta.switch_up, device=dev)
+        if batched:
+            r = st["ejected"].shape[0]
+            link_up = link_up.expand(r, -1).clone()
+            switch_up = switch_up.expand(r, -1).clone()
+        st["link_up"], st["switch_up"] = link_up, switch_up
+        k = delta.n_affected
+        if k:
+            rows = torch.as_tensor(
+                (delta.leaf_rows.astype(np.int64)[:, None] * n
+                 + np.arange(n)[None, :]).reshape(-1), device=dev)
+            dim = 1 if batched else 0
+            for key, vals in (("tbl_min", delta.min_rows),
+                              ("tbl_away", delta.away_rows),
+                              ("tbl_dist", delta.dist_rows)):
+                if key not in st:
+                    continue
+                vals = vals.to(dev).reshape((k * n, w) if key != "tbl_dist"
+                                            else (k * n,))
+                if batched:
+                    vals = vals.expand((st[key].shape[0],) + vals.shape)
+                st[key].index_copy_(dim, rows, vals)
+        return st
+
+    def drop_dead_packets(self, st):
+        """Free every packet stranded on a dead element (the ``drop``
+        schedule policy): the whole input queues of dead switches, then
+        the whole output queues feeding dead links, each from its head
+        in queue order (the reference's order, which decides every later
+        packet id).  The freed ids go to the tail of the free-list ring
+        and ``fail_drop`` counts them; ``qlen`` / ``oq_len`` of those
+        queues become 0, their heads and buffers stay.  Surgery on the
+        host, of a scalar state, at failure slots only."""
+        if st["ejected"].ndim != 0:
+            raise ValueError("drop_dead_packets works on scalar states")
+        N, P, V, dev = self.N, self.P, self.V, self.device
+        link_up = st["link_up"].cpu().numpy().reshape(N, P)
+        switch_up = st["switch_up"].cpu().numpy()
+        # output queues die with their link (a dead switch's links are
+        # all down); input queues only with their switch
+        dead_out_q = np.repeat(~link_up.reshape(-1), V)            # [NQ]
+        dead_in_q = np.repeat(~switch_up, P * V)                   # [NQ]
+        freed = []
+
+        def clear(buf, head, ln, depth, dead):
+            for qi in np.nonzero(dead & (ln > 0))[0]:
+                idx = (head[qi] + np.arange(ln[qi])) % depth
+                freed.extend(int(x) for x in buf[qi, idx])
+                ln[qi] = 0
+            return ln
+
+        qlen = clear(st["qbuf"].cpu().numpy(), st["qhead"].cpu().numpy(),
+                     st["qlen"].cpu().numpy().copy(), self.Q, dead_in_q)
+        oq_len = clear(st["oq_buf"].cpu().numpy(),
+                       st["oq_head"].cpu().numpy(),
+                       st["oq_len"].cpu().numpy().copy(),
+                       self.cfg.out_queue, dead_out_q)
+        if freed:
+            head, ln = int(st["fl_head"]), int(st["fl_len"])
+            pos = (head + ln + np.arange(len(freed))) % self.pool
+            st["fl_buf"][torch.as_tensor(pos, device=dev)] = torch.as_tensor(
+                freed, dtype=_I32, device=dev)
+            st["fl_len"] = st["fl_len"] + len(freed)
+            st["fail_drop"] = st["fail_drop"] + len(freed)
+        st["qlen"] = torch.as_tensor(qlen, device=dev)
+        st["oq_len"] = torch.as_tensor(oq_len, device=dev)
+        return st
+
+    def run_resilience(self, traffic: Traffic, warm: int = 200,
+                       measure: int = 400, seed: int = 0) -> dict:
+        """Throughput and latency under the attached failure schedule.
+
+        Steps to each transition's slot boundary and applies it there
+        (``tables.apply_failures`` -> :meth:`update_tables`, then
+        :meth:`drop_dead_packets` under the ``drop`` policy); the
+        transitions at the warm boundary apply before the window's
+        snapshot.  The host syncs only at transitions and at the end.
+        Whatever happens, the pristine tables are restored on return (the
+        rebuild is deterministic, so the restore is exact), so a cached
+        simulator stays reusable.  (The reference steps in chunks of a
+        fixed length to bound its compile set; the port's slots are the
+        same steps however they are grouped, so it steps straight to
+        each boundary.)
+        """
+        if not self.has_failures:
+            raise ValueError(
+                "run_resilience needs a Simulator built with a non-empty "
+                "FailureSchedule (failures=...); use run_throughput for "
+                "pristine fabrics")
+        sched = self.failures
+        drop = sched.policy == "drop"
+        trans = sched.transitions()
+        st = self.make_state(traffic, seed)
+        now, ti = 0, 0
+        active: list = []
+
+        def advance_to(target):
+            nonlocal now
+            if target > now:
+                self.run_chunk(st, traffic, target - now)
+                now = target
+
+        def apply_due(boundary):
+            nonlocal ti
+            while ti < len(trans) and trans[ti][0] <= boundary:
+                slot, downs, ups = trans[ti]
+                advance_to(slot)
+                self.update_tables(st, self.tables.apply_failures(
+                    down=downs, up=ups))
+                active.extend(downs)
+                for ev in ups:
+                    if ev in active:
+                        active.remove(ev)
+                if drop and downs:
+                    self.drop_dead_packets(st)
+                ti += 1
+
+        keys = ("ejected", "hop_sum", "pool_stall", "fail_drop")
+        try:
+            apply_due(warm)
+            advance_to(warm)
+            base = torch.stack([st[k] for k in keys])
+            hist0 = st["lat_hist"].clone()
+            apply_due(warm + measure)
+            advance_to(warm + measure)
+            ej, hop, stall, fdrop = (int(x) for x in (
+                torch.stack([st[k] for k in keys]) - base).cpu().numpy())
+            total = int(st["ejected"])
+            hist = (st["lat_hist"] - hist0).cpu().numpy()
+        finally:
+            if active or ti:
+                # exact pristine restore, so the shared tables are clean
+                # for the next caller
+                self.tables.apply_failures(up=tuple(active))
+        return {
+            "throughput": ej / (self.S * measure),
+            "avg_hops": hop / max(ej, 1),
+            "ejected": total,
+            "pool_stall": stall,
+            "fail_drop": fdrop,
+            "hist": hist,
+            **percentiles(hist, LATENCY_QS),
+            "state": st,
+        }
+
+    # ------------------------------------------------------------------ #
     # compiled workload programs (repro_torch.workloads)
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -1448,35 +1709,6 @@ def _unbatch(st: dict, b: dict) -> None:
     state ``st`` (``Simulator._batched``), back into ``st``."""
     for k, v in b.items():
         st[k] = v if k in PROG_SHARED else v.squeeze(0)
-
-
-def pack_mask_block(dist_block: torch.Tensor, valid: torch.Tensor,
-                    nbr_safe: torch.Tensor, *, away: bool = True):
-    """``(min, away)`` int32 words [B, N, W] for a block of int16 leaf
-    distance rows ``dist_block`` [B, N]: the reference's
-    ``core.routing._pack_mask_block`` on the device, as int32 views of
-    its uint32 words (``away`` is None unless asked for).
-
-    ``valid`` [N, P] bool marks the ports with a link, ``nbr_safe``
-    [N, P] int64 is the neighbour with -1 mapped to 0.  Port ``j`` sets
-    bit ``j % 32`` of word ``j // 32``; the words are built with
-    ``bitwise_or`` on int32, where bit 31 is -2**31, so no sum ever
-    wraps.  One port at a time keeps the temporaries at [B, N].
-    """
-    d = dist_block
-    p = valid.shape[1]
-    min_w = torch.zeros(d.shape + ((p + 31) // 32,), dtype=_I32,
-                        device=d.device)
-    away_w = torch.zeros_like(min_w) if away else None
-    for j in range(p):
-        dn = d[:, nbr_safe[:, j]]                               # [B, N]
-        bit = np.uint32(1 << (j % 32)).view(np.int32).item()
-        min_w[:, :, j // 32].bitwise_or_(
-            (valid[:, j] & (dn == d - 1)).to(_I32) * bit)
-        if away:
-            away_w[:, :, j // 32].bitwise_or_(
-                (valid[:, j] & (dn == d + 1)).to(_I32) * bit)
-    return min_w, away_w
 
 
 def percentiles(hist: np.ndarray, qs) -> dict:

@@ -91,15 +91,24 @@ def test_unported_specs_raise():
     with pytest.raises(ValueError, match="collective"):
         port_api.run(port_api.Experiment.from_dict(
             dict(d, metric="completion")), device="cpu")
-    # replicas run now (tests/test_torch_replicas.py); the resilience
-    # metric is still to come, and its refusal names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # replicas run now (tests/test_torch_replicas.py), and so does the
+    # resilience metric (tests/test_torch_failures.py); without a
+    # schedule it is refused with the reference's message, before the
+    # table build
+    with pytest.raises(ValueError, match="non-empty FailureSchedule"):
         port_api.run(port_api.Experiment.from_dict(
             dict(d, metric="resilience", replicas=2)), device="cpu")
     with pytest.raises(KeyError, match="unknown topology family"):
         port_api.build_network(port_api.NetworkSpec("torus", {"k": 4}))
     with pytest.raises(NotImplementedError, match="prime q"):
         port_api.build_network(port_api.NetworkSpec("oft", {"q": 4}))
-    failing = dict(d["network"], failures={"events": []})
-    with pytest.raises(NotImplementedError, match="failure"):
-        port_api.Experiment.from_dict(dict(d, network=failing))
+    # a failure schedule loads as the reference's does: an empty one
+    # keeps the throughput metric, a link event resolves to resilience
+    for events, metric in (([], "throughput"),
+                           ([{"kind": "link", "id": 0, "down_slot": 3}],
+                            "resilience")):
+        failing = dict(d["network"], failures={"events": events})
+        port = port_api.Experiment.from_dict(dict(d, network=failing))
+        ref = jax_api.Experiment.from_dict(dict(d, network=failing))
+        assert port.to_dict() == ref.to_dict()
+        assert port.resolved_metric() == ref.resolved_metric() == metric

@@ -93,9 +93,11 @@ def test_fresh_state_matches_reference_layout(jax_states, port_sim):
 
 def test_unported_policies_and_patterns_raise(port_sim):
     tables = port_sim.tables
-    for policy in ("degraded",):
-        with pytest.raises(NotImplementedError, match=policy):
-            Simulator(tables, SimConfig(policy=policy), device="cpu")
+    # degraded runs now (tests/test_torch_failures.py): it keeps the away
+    # bits, and with no schedule the simulator is not armed
+    sim = Simulator(tables, SimConfig(policy="degraded"), device="cpu")
+    assert sim.away_mask is not None and not sim.has_failures
+    assert torch.equal(sim.min_mask, port_sim.min_mask)
     with pytest.raises(ValueError, match="unknown policy"):
         Simulator(tables, SimConfig(policy="shortest"), device="cpu")
     # the open-loop arrival source runs; its process is checked

@@ -88,3 +88,31 @@ def test_serving_entry_points_refuse_to_run_on_the_cpu_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_main(["serve-sweep", str(path)])
     assert serve_sweep(spec, device="cpu")["points"][0]["offered"] > 0
+
+
+def test_failure_entry_points_refuse_to_run_on_the_cpu_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import json
+
+    from repro_torch.api import DegradeSpec, Experiment, degrade_sweep, run
+    from repro_torch.api.__main__ import main as cli_main
+    base = {"network": {"family": "mrls",
+                        "params": {"n_leaves": 14, "u": 3, "d": 3}},
+            "route": {"policy": "degraded", "max_hops": 10, "pool": 4096},
+            "warm": 2, "measure": 2}
+    spec = DegradeSpec.from_dict({"base": base, "rates": [0.0, 0.1],
+                                  "down_slot": 1})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        degrade_sweep(spec)
+    path = tmp_path / "degrade.json"
+    path.write_text(json.dumps({"sweeps": [spec.to_dict()]}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["degrade", str(path)])
+    failing = dict(base["network"], failures={"events": [
+        {"kind": "link", "id": 0, "down_slot": 1}]})
+    exp = Experiment.from_dict(dict(base, network=failing))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(exp)
+    assert run(exp, device="cpu").metric == "resilience"
+    assert degrade_sweep(spec, device="cpu")["points"][1]["n_links_down"] > 0

@@ -21,8 +21,9 @@ and ``fat_tree(4, 1)`` under KSP; pool 4096, seeds 0, 3 and 5):
   folded seed axis and the CLI's ``run --replicas`` / ``sweep
   --replicas`` equal ``repro.api``'s records;
 * a batched slot calls each crossbar kernel as often as a scalar one;
-* the refusals that stay (``serving``, ``resilience``,
-  ``budget_chunks``, a ``sharder``) name their ROADMAP items.
+* ``resilience`` at 2 replicas is the scalar run of each seed; the
+  refusals that stay (``budget_chunks``, a ``sharder``) name their
+  ROADMAP items.
 
 Tolerance: zero.
 """
@@ -420,10 +421,21 @@ def test_cli_run_and_sweep_with_replicas_equal_reference(tmp_path, capsys):
 
 
 def test_refusals_that_stay_name_their_items(tables):
-    for metric, item in (("resilience", "item 8"),):
-        with pytest.raises(NotImplementedError, match=item):
-            port_api.run(_exp(port_api, metric=metric, replicas=2),
-                         device="cpu")
+    # the resilience metric runs now (tests/test_torch_failures.py): its
+    # replicas are scalar runs, each the run of its seed
+    failures = port_core.FailureSchedule.random_links(
+        port_core.mrls(**MRLS["params"]), 3, down_slot=4, up_slot=9,
+        seed=1).to_dict()
+    network = dict(MRLS, failures=failures)
+    batched = port_api.run(_exp(port_api, network=network, replicas=2),
+                           device="cpu")
+    assert batched.metric == "resilience"
+    assert batched.replica_seeds == (0, 1)
+    for i, seed in enumerate(batched.replica_seeds):
+        one = port_api.run(_exp(port_api, network=network, seed=seed),
+                           device="cpu")
+        assert one.throughput == batched.per_replica["throughput"][i]
+        assert one.fail_drop == batched.per_replica["fail_drop"][i]
     sim = _port_sim(tables, "mrls")
     cp = _program(port_wl, sim.S, "barrier")
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -131,13 +131,18 @@ def test_run_all_shares_a_given_cache_and_drops_its_own(monkeypatch):
 
 def test_run_all_refuses_before_building(monkeypatch):
     built = _count_builds(monkeypatch)
-    # an allreduce, replicas and the serving metric run now; the
-    # resilience metric is still to come
+    # an allreduce, replicas, the serving metric and a fabric with a
+    # failure schedule (the resilience metric) run now; the resilience
+    # metric of a fabric without one is refused, with the reference's
+    # message, before anything is built
+    failures = {"events": [{"kind": "link", "id": 0, "down_slot": 4}]}
     exps = [_exp(port_api), _exp(port_api, workload={"pattern": "allreduce"}),
             _exp(port_api, replicas=2),
             _exp(port_api, workload={"pattern": "poisson", "load": 0.5}),
+            _exp(port_api, network=dict(MRLS, failures=failures)),
             _exp(port_api, metric="resilience")]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    assert exps[4].resolved_metric() == "resilience"
+    with pytest.raises(ValueError, match="non-empty FailureSchedule"):
         port_api.run_all(exps, device="cpu")
     assert built == []
 
