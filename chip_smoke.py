@@ -167,6 +167,24 @@ Phases, in order; any failure ends the script with a non-zero exit:
    set and the Fat-Tree switch event; and an armed degraded slot of the
    1k MRLS (5 % of its links down) beside the pristine one (host ms,
    device ms, operations, idle share);
+18. resumable runtime — run after phase 17: the Figure-5 MRLS
+   Rabenseifner allreduce of ``tests/golden/torch_prog_fig5_mrls_allreduce.json``
+   as ``python -m repro_torch.api run <spec> --ckpt-dir D --ckpt-every 2``
+   under ``runtime.supervisor.Supervisor`` (2 retries), whose ``popen``
+   wrapper SIGKILLs the first child once ``D`` holds its second snapshot
+   (on progress, not on a timer) and records at each attempt's start the
+   latest snapshot and whether ``result.json`` exists; the retry resumes
+   from a snapshot at step 2 or later; ``D/result.json`` and ``python -m
+   repro_torch.api resume D`` (started beside the next point: it reads
+   ``result.json`` and touches no card) equal the golden; each child's start-up
+   (Popen to its first snapshot, less a segment) and its seconds a
+   segment, and a snapshot's bytes and seconds (device to host, then the
+   ``npz`` write) on the card.  Then the 1k pareto serving point of
+   ``tests/golden/torch_serve_mrls_pareto.json`` through ``run_resumable``
+   (every 64 slots, keep 8) in this process, equal to the golden; cut
+   back to its snapshot at cursor 192 (``result.json`` and the later
+   snapshot deleted), ``resume`` equals the golden again; both runs'
+   launches 3 × / 2 × the steps they ran;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -188,8 +206,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step), and where a prefill's time goes from ``torch.profiler``.
 
 Each phase prints its wall seconds, and the script its total.  The
-kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 16, 17
-and 11 are summed.  The last lines are a
+kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 16, 17,
+18 (its in-process runs) and 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -200,8 +218,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -254,6 +276,11 @@ SERVE_GOLDENS = [ROOT / "tests" / "golden" / f"torch_serve_{name}.json"
 FAULT_SWEEP_GOLDEN = ROOT / "tests" / "golden" / "torch_fault_mrls1k_sweep.json"
 FAULT_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fault_{name}.json"
                  for name in ("fig5_mrls_drop", "ft1k_switch", "df1k_ugal")]
+# phase 18: the resumable runtime
+KILL_GOLDEN = ROOT / "tests" / "golden" / "torch_prog_fig5_mrls_allreduce.json"
+RESUME_GOLDEN = ROOT / "tests" / "golden" / "torch_serve_mrls_pareto.json"
+# phase 18's checkpoint directories (build/ is git-ignored)
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 # the (alpha, cap) pairs whose batch map phase 16 checks on the card, and
 # the (load, amplitude, period) of its diurnal rates
 PARETO_MAPS = ((1.5, 16), (1.5, 32), (1.5, 64), (1.2, 64))
@@ -2098,6 +2125,331 @@ def run_phase17(scalar_slot: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# the resumable runtime (phase 18)
+# ---------------------------------------------------------------------- #
+class KillAtSnapshot:
+    """``Supervisor(popen=...)``: starts each attempt, records at its
+    start the latest snapshot in ``ckpt`` and whether ``result.json``
+    exists, and watches ``ckpt`` from a thread, noting when each new
+    snapshot appears; the first attempt is SIGKILLed once ``n`` new
+    snapshots have appeared."""
+
+    def __init__(self, ckpt: Path, n: int, log: Path):
+        self.ckpt, self.n, self.log = ckpt, n, log
+        self.starts, self.seen, self.threads = [], [], []
+
+    def _steps(self) -> set:
+        return ({p.name for p in self.ckpt.glob("step_*")}
+                if self.ckpt.exists() else set())
+
+    def __call__(self, argv, **kw):
+        before = self._steps()
+        self.starts.append((max((int(s[5:]) for s in before), default=None),
+                            (self.ckpt / "result.json").exists()))
+        seen = []
+        self.seen.append(seen)
+        kill = len(self.starts) == 1
+        with open(self.log, "a") as out:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(argv, stdout=out,
+                                    stderr=subprocess.STDOUT, **kw)
+
+        def watch():
+            known = set(before)
+            while proc.poll() is None:
+                new = self._steps() - known
+                for name in sorted(new):
+                    seen.append((int(name[5:]), time.perf_counter() - t0))
+                known |= new
+                if kill and len(seen) >= self.n:
+                    proc.send_signal(signal.SIGKILL)
+                    return
+                time.sleep(0.02)
+
+        t = threading.Thread(target=watch, daemon=True)
+        t.start()
+        self.threads.append(t)
+        return proc
+
+
+def snapshot_cost(ckpt: Path, label: str) -> None:
+    """The bytes of the latest snapshot in ``ckpt`` and the seconds to
+    take it again from the card: its arrays as card tensors, copied to
+    the host, then written as ``npz`` (best of 3)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpointing import Checkpointer
+    step = Checkpointer(str(ckpt)).latest_step()
+    npz = ckpt / f"step_{step:010d}" / "arrays.npz"
+    with np.load(npz) as data:
+        tree = {k: torch.as_tensor(data[k]).cuda() for k in data.files}
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.values())
+    scratch = Checkpointer(str(CKPT_ROOT / "cost"), keep=1)
+    d2h, total = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        host = {k: t.to("cpu", copy=True) for k, t in tree.items()}
+        d2h.append(time.perf_counter() - t0)
+        del host
+        t0 = time.perf_counter()
+        scratch.save(i + 1, tree)
+        total.append(time.perf_counter() - t0)
+    print(f"{label} snapshot: {len(tree)} arrays, {n_bytes} bytes "
+          f"({npz.stat().st_size} bytes of npz); device to host "
+          f"{min(d2h):.4f} s, save (device to host + npz write) "
+          f"{min(total):.4f} s, best of 3")
+
+
+def kill_and_resume() -> tuple:
+    """Point A: the Figure-5 allreduce through the CLI under the
+    supervisor, killed at its second snapshot and resumed by the retry;
+    ``result.json`` against the golden.  Returns (the checkpoint
+    directory, the golden)."""
+    from repro_torch.runtime.fault_tolerance import BackoffPolicy
+    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
+    golden = json.loads(KILL_GOLDEN.read_text())
+    ckpt, spec, log = CKPT_ROOT / "a", CKPT_ROOT / "a.json", \
+        CKPT_ROOT / "a.log"
+    spec.write_text(json.dumps(golden["experiment"]))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    argv = [sys.executable, "-m", "repro_torch.api", "run", str(spec),
+            "--ckpt-dir", str(ckpt), "--ckpt-every", "2"]
+    popen = KillAtSnapshot(ckpt, 2, log)
+    sup = Supervisor(SupervisorConfig(timeout_s=300, max_retries=2,
+                                      poll_interval_s=0.05,
+                                      backoff=BackoffPolicy(base_s=0.0)),
+                     popen=popen)
+    res = sup.run(argv, cwd=str(ROOT), env=env)
+    for t in popen.threads:
+        t.join(timeout=60)
+        if t.is_alive():
+            raise AssertionError("a snapshot watcher outlived its child")
+    for i, (att, start, seen) in enumerate(zip(res.attempts, popen.starts,
+                                               popen.seen)):
+        seg = ([b - a for (_, a), (_, b) in zip(seen, seen[1:])]
+               if len(seen) > 1 else [])
+        mean = sum(seg) / len(seg) if seg else float("nan")
+        first = seen[0][1] if seen else float("nan")
+        print(f"attempt {i}: rc {att.returncode}, {att.wall_s:.3f} s, peak "
+              f"RSS {att.peak_rss_bytes} bytes; started at snapshot "
+              f"{start[0]} (result.json {start[1]}); snapshots "
+              f"{[s for s, _ in seen]} seen at "
+              f"{[round(t, 3) for _, t in seen]} s after Popen; a segment "
+              f"(2 chunks, the mean gap between snapshots) {mean:.3f} s; "
+              f"the first snapshot less one mean segment (derived start-up) "
+              f"{first - mean:.3f} s")
+    if not (res.ok and len(res.attempts) == 2
+            and res.attempts[0].returncode == -signal.SIGKILL
+            and popen.starts[0] == (None, False)
+            and popen.starts[1][0] is not None
+            and popen.starts[1][0] >= 2 and not popen.starts[1][1]):
+        print(log.read_text()[-4000:])
+        raise AssertionError(f"kill and resume: {res.to_dict()}, starts "
+                             f"{popen.starts}")
+    got = json.loads((ckpt / "result.json").read_text())
+    _differs("the resumed allreduce", got, golden)
+    print(f"result.json equals {KILL_GOLDEN.name} field for field")
+    return ckpt, golden
+
+
+def resume_window(scalar_slot: dict) -> dict:
+    """Point B: the 1k pareto serving point through ``run_resumable`` in
+    this process, then cut back to its cursor-192 snapshot and resumed;
+    both against the golden, with their launches.  Returns the launches
+    of the set-up and both runs."""
+    import torch
+    from repro_torch.api import (Experiment, SimulatorCache, resume,
+                                 run_resumable)
+    from repro_torch.checkpointing import Checkpointer
+    from repro_torch.simulator.engine import Simulator
+    golden = json.loads(RESUME_GOLDEN.read_text())
+    exp = Experiment.from_dict(golden["experiment"])
+    ckpt = CKPT_ROOT / "b"
+    total = dict.fromkeys(KERNELS, 0)
+    steps, chunks, saves = [0], [], []
+    saved = {name: getattr(cls, name) for cls, name in (
+        (Simulator, "_step"), (Simulator, "run_chunk"),
+        (Checkpointer, "save"))}
+
+    def step(self, *a, **kw):
+        steps[0] += 1
+        return saved["_step"](self, *a, **kw)
+
+    def run_chunk(self, st, traffic, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved["run_chunk"](self, st, traffic, n)
+        torch.cuda.synchronize()
+        chunks.append((n, time.perf_counter() - t0))
+        return out
+
+    def save(self, *a, **kw):
+        t0 = time.perf_counter()
+        saved["save"](self, *a, **kw)
+        saves.append(time.perf_counter() - t0)
+
+    Simulator._step, Simulator.run_chunk, Checkpointer.save = \
+        step, run_chunk, save
+    try:
+        with SimulatorCache() as cache:
+            reset_counts()
+            sim = cache.get(exp.network, exp.route)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check_counts(counts, {**NO_LAUNCHES,
+                                  "minplus_hops": sim.tables.squarings},
+                         "the 1k MRLS set-up")
+            for k in total:
+                total[k] += counts[k]
+            for label in ("run_resumable", "resume from cursor 192"):
+                steps[0] = 0
+                chunks.clear()
+                saves.clear()
+                reset_counts()
+                t0 = time.perf_counter()
+                res = (run_resumable(exp, str(ckpt), every=64, keep=8,
+                                     cache=cache)
+                       if label == "run_resumable"
+                       else resume(str(ckpt), every=64, cache=cache))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                _differs(f"{exp.name} through {label}", res.to_dict(),
+                         golden)
+                run_s = sum(t for _, t in chunks)
+                latest = Checkpointer(str(ckpt)).latest_step()
+                npz = ckpt / f"step_{latest:010d}" / "arrays.npz"
+                print(f"{exp.name} through {label}: equals "
+                      f"{RESUME_GOLDEN.name}; {steps[0]} steps in "
+                      f"{len(chunks)} segments, {wall:.3f} s "
+                      f"({run_s:.3f} s stepping, "
+                      f"{1e3 * run_s / max(steps[0], 1):.4f} ms a slot; "
+                      f"phase 6's Figure-5 slot {scalar_slot['ms']} ms); "
+                      f"segments {[round(t, 3) for _, t in chunks]} s; "
+                      f"{len(saves)} snapshots of {npz.stat().st_size} "
+                      f"npz bytes, {[round(t, 4) for t in saves]} s each")
+                check_counts(counts, {**NO_LAUNCHES,
+                                      "vc_prearb": 3 * steps[0],
+                                      "switch_arbitrate_rows": 2 * steps[0]},
+                             f"{label} ({steps[0]} steps)")
+                for k in total:
+                    total[k] += counts[k]
+                if label == "run_resumable":
+                    if steps[0] != exp.warm + exp.measure:
+                        raise AssertionError(f"{steps[0]} steps")
+                    (ckpt / "result.json").unlink()
+                    kept, cut = [], []
+                    for d in sorted(ckpt.glob("step_*")):
+                        cursor = json.loads(
+                            (d / "meta.json").read_text())["cursor"]
+                        if cursor > 192:
+                            shutil.rmtree(d)
+                            cut.append(d.name)
+                        else:
+                            kept.append(cursor)
+                    if kept[-1:] != [192] or not cut:
+                        raise AssertionError(f"no cursor-192 snapshot to "
+                                             f"resume from: kept {kept}")
+                    print(f"cut back to cursor 192: deleted result.json and "
+                          f"{cut}")
+                elif steps[0] != exp.warm + exp.measure - 192:
+                    raise AssertionError(f"the resume ran {steps[0]} steps")
+    finally:
+        Simulator._step, Simulator.run_chunk, Checkpointer.save = (
+            saved["_step"], saved["run_chunk"], saved["save"])
+    snapshot_cost(ckpt, "1k serving")
+    return total
+
+
+def resume_cli(ckpt: Path, golden: dict) -> dict:
+    """``python -m repro_torch.api resume`` through the CLI's ``main`` in
+    this process: point A's finished directory cut back to its oldest
+    kept snapshot (``result.json`` and the later snapshots deleted),
+    resumed on the card to the same final segment, its printed record
+    against the golden.  Returns its launches."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.api.__main__ import main
+    from repro_torch.checkpointing import Checkpointer
+    from repro_torch.simulator.engine import Simulator
+    (ckpt / "result.json").unlink()
+    kept = sorted(int(d.name[5:]) for d in ckpt.glob("step_*"))
+    if len(kept) < 2:
+        raise AssertionError(f"{ckpt.name} keeps snapshots {kept}: none "
+                             f"to cut back to")
+    for step in kept[1:]:
+        shutil.rmtree(ckpt / f"step_{step:010d}")
+    sims, steps = {}, [0]
+    saved = Simulator._step
+
+    def counted(self, *a, **kw):
+        sims[id(self)] = self
+        steps[0] += 1
+        return saved(self, *a, **kw)
+
+    out = io.StringIO()
+    Simulator._step = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main(["resume", str(ckpt), "--ckpt-every", "2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        Simulator._step = saved
+    if rc or not steps[0] or \
+            Checkpointer(str(ckpt)).latest_step() != kept[-1]:
+        raise AssertionError(f"resume {ckpt.name}: rc {rc}, {steps[0]} "
+                             f"steps, kept {kept}")
+    _differs("resume's record", json.loads(out.getvalue()), golden)
+    check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * steps[0],
+                          "switch_arbitrate_rows": 2 * steps[0],
+                          "minplus_hops": sum(s.tables.squarings
+                                              for s in sims.values())},
+                 f"resume {ckpt.name} ({steps[0]} steps)")
+    print(f"python -m repro_torch.api resume {ckpt.name} (its main, in "
+          f"process) from snapshot {kept[0]} to {kept[-1]}: {steps[0]} "
+          f"steps, {wall:.3f} s with the fabric's set-up; its record "
+          f"equals {KILL_GOLDEN.name}")
+    return counts
+
+
+def run_phase18(scalar_slot: dict) -> dict:
+    """The resumable runtime: a SIGKILLed Figure-5 allreduce resumed by
+    the supervisor's retry, a 1k serving window cut back and resumed in
+    process, and the allreduce cut back and resumed through the CLI's
+    ``resume``, each against its golden.  Returns the in-process
+    launches."""
+    import torch
+    phase("18. resumable runtime: a SIGKILLed Figure-5 allreduce and a "
+          "resumed 1k serving window")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        ckpt, golden = kill_and_resume()
+        t1 = time.perf_counter()
+        total = resume_window(scalar_slot)
+        t2 = time.perf_counter()
+        for k, n in resume_cli(ckpt, golden).items():
+            total[k] += n
+        t3 = time.perf_counter()
+        snapshot_cost(ckpt, "Figure-5 program")
+        print(f"phase 18 parts: kill and resume {t1 - t0:.3f} s, the "
+              f"resumed window {t2 - t1:.3f} s, the CLI's resume "
+              f"{t3 - t2:.3f} s, snapshot costs "
+              f"{time.perf_counter() - t3:.3f} s")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------- #
 # LM serving slice: Hymba-1.5B
 # ---------------------------------------------------------------------- #
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
@@ -2457,6 +2809,8 @@ def main() -> int:
         launches[k] += n
     for k, n in run_phase17(fig5_slot).items():
         launches[k] += n
+    for k, n in run_phase18(fig5_slot).items():
+        launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
     from repro_torch.configs import get_config
@@ -2481,7 +2835,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 8, 12, 13, 14, 15, 16, 17 and 11.
+    # phases 8, 12, 13, 14, 15, 16, 17, 18 (in process) and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

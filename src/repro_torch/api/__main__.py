@@ -11,7 +11,14 @@ Commands (each takes ``--device cpu|cuda``; the default is the card):
   list of records.  ``--replicas R`` overrides every experiment's
   ``replicas`` (R seeds from ``seed`` as one batched run: the record
   carries ``per_replica``, ``aggregates`` and ``replica_seeds``);
-  ``--seed`` every experiment's seed.
+  ``--seed`` every experiment's seed.  ``--ckpt-dir D`` runs a
+  single-experiment spec resumably (``run_resumable``): the engine's
+  state is snapshotted into ``D`` every ``--ckpt-every`` chunks
+  (``completion``) or slots (the windowed metrics; default 64), and the
+  same command after a kill resumes from the latest snapshot, bitwise.
+* ``resume <ckpt_dir> [--ckpt-every N] [--out f]`` — continue (or just
+  report) the run stored in a ``--ckpt-dir`` directory from its spec and
+  latest snapshot; a finished run prints its stored Result.
 * ``sweep <spec.json> [--replicas R] [--seed S] [--out f]`` — the spec
   file holds ``{"base": <experiment>, "axes": {"workload.load": [...],
   ...}}``; prints one summary line per grid point, ``--out`` writes the
@@ -46,6 +53,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from .registry import topology_families, workload_patterns
+from .resume import resume, run_resumable
 from .runner import Result, run, run_all
 from .degrade import DegradeSpec, degrade_sweep_many
 from .specs import Experiment
@@ -99,17 +107,35 @@ def _summary(res: Result) -> str:
     return "  ".join(bits)
 
 
+def _emit(text: str, out: Optional[str]) -> None:
+    print(text)
+    if out:
+        Path(out).write_text(text + "\n")
+
+
 def _cmd_run(args) -> int:
     exps = spec_experiments(args.spec, replicas=args.replicas,
                             seed=args.seed)
-    if load_spec(args.spec)[1]:
-        text = json.dumps([r.to_dict() for r in run_all(
-            exps, device=args.device)], indent=1)
+    listed = load_spec(args.spec)[1]
+    if args.ckpt_dir is not None:
+        if len(exps) != 1:
+            print("--ckpt-dir needs a single-experiment spec "
+                  f"(got {len(exps)})", file=sys.stderr)
+            return 2
+        results = [run_resumable(exps[0], args.ckpt_dir,
+                                 every=args.ckpt_every, device=args.device)]
+    elif listed:
+        results = run_all(exps, device=args.device)
     else:
-        text = run(exps[0], device=args.device).to_json(indent=1)
-    print(text)
-    if args.out:
-        Path(args.out).write_text(text + "\n")
+        results = [run(exps[0], device=args.device)]
+    _emit(json.dumps([r.to_dict() for r in results], indent=1) if listed
+          else results[0].to_json(indent=1), args.out)
+    return 0
+
+
+def _cmd_resume(args) -> int:
+    res = resume(args.ckpt_dir, every=args.ckpt_every, device=args.device)
+    _emit(res.to_json(indent=1), args.out)
     return 0
 
 
@@ -223,6 +249,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                        help="override the seed")
         p.add_argument("--out", default=None,
                        help="also write the Result(s) here")
+    run_p.add_argument("--ckpt-dir", default=None,
+                       help="checkpoint directory: run resumably, "
+                            "snapshotting the engine's state at segment "
+                            "boundaries (single-experiment specs only)")
+    run_p.add_argument("--ckpt-every", type=int, default=64,
+                       help="segment length between checkpoints, in engine "
+                            "chunks (completion) or slots (windowed "
+                            "metrics); default 64")
+    resume_p = sub.add_parser(
+        "resume", help="resume a --ckpt-dir run from its latest snapshot")
+    resume_p.add_argument("ckpt_dir", help="checkpoint directory of the run")
+    resume_p.add_argument("--ckpt-every", type=int, default=64,
+                          help="segment length for the continued run")
+    resume_p.add_argument("--out", default=None,
+                          help="also write the Result here")
     serve_p = sub.add_parser("serve-sweep",
                              help="run open-loop serving SLO sweep spec(s)")
     serve_p.add_argument("spec", help="path to the ServingSpec JSON file")
@@ -243,7 +284,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.add_argument("--device", choices=("cpu", "cuda"), default=None,
                        help="default: cuda (fails without a card)")
     args = ap.parse_args(argv)
-    return {"run": _cmd_run, "sweep": _cmd_sweep,
+    return {"run": _cmd_run, "resume": _cmd_resume, "sweep": _cmd_sweep,
             "serve-sweep": _cmd_serve_sweep, "degrade": _cmd_degrade,
             "families": _cmd_families,
             "patterns": _cmd_patterns}[args.cmd](args)

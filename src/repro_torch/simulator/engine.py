@@ -1270,7 +1270,9 @@ class Simulator:
 
     def run_completion(self, traffic: Traffic, expected: int,
                        chunk: int = 128, max_slots: int = 100_000,
-                       seed: int = 0, state: Optional[dict] = None) -> dict:
+                       seed: int = 0, state: Optional[dict] = None,
+                       budget_chunks: Optional[int] = None,
+                       done=None) -> dict:
         """Run until ``expected`` packets are delivered (collectives).
 
         ``state`` (a state of this simulator, consumed) takes the place of
@@ -1288,6 +1290,14 @@ class Simulator:
         ``pool_stall`` and ``state`` are read.  A replica that is not
         done by then reports the final slot and ``completed=False``.
         A batched state gives per-replica arrays.
+
+        ``budget_chunks=B`` bounds one call to at most ``B`` chunks, the
+        resumable runtime's segment (:mod:`repro_torch.runtime.resilient`).
+        The result then also carries ``running`` (whether the next chunk
+        would run) and ``done`` (numpy: 0-d for a scalar state, ``[R]``
+        for a batched one), which the next segment takes back beside
+        ``state``; a chain of bounded segments is bitwise one unbounded
+        call.
         """
         # p_bh packs the born slot above the hop byte; past 2^23 slots the
         # shifted value would wrap int32 and corrupt latency measurement
@@ -1295,23 +1305,35 @@ class Simulator:
             "max_slots overflows the p_bh born-slot packing (< 2^23)"
         st = state if state is not None else self.make_state(traffic, seed)
         b, scalar = self._batched(st)
-        done = torch.full_like(b["ejected"], -1)
-        while bool(((done < 0).any() & (b["slot"].max() < max_slots)
-                    ).item()):
+        if done is None:
+            done = torch.full_like(b["ejected"], -1)
+        else:
+            done = torch.as_tensor(done).to(self.device, _I32).reshape(
+                b["ejected"].shape).clone()
+        chunks = 0
+        while ((budget_chunks is None or chunks < budget_chunks)
+               and bool(((done < 0).any() & (b["slot"].max() < max_slots)
+                         ).item())):
             for _ in range(chunk):
                 self._step(b, traffic)
                 newly = (b["ejected"] >= expected) & (done < 0)
                 done = torch.where(newly, b["slot"], done)
+            chunks += 1
         if scalar:
             _unbatch(st, b)
         done, final, stall = torch.stack(
             [done, b["slot"], b["pool_stall"]]).cpu().numpy()
         slots = np.where(done >= 0, done, final)
+        out = {"state": st}
+        if budget_chunks is not None:
+            out["done"] = done.reshape(()) if scalar else done
+            out["running"] = bool((done < 0).any()
+                                  and final.max() < max_slots)
         if scalar:
             return {"slots": int(slots[0]), "completed": bool(done[0] >= 0),
-                    "pool_stall": int(stall[0]), "state": st}
+                    "pool_stall": int(stall[0]), **out}
         return {"slots": slots, "completed": done >= 0, "pool_stall": stall,
-                "state": st}
+                **out}
 
     def run_completion_batch(self, traffic: Traffic, expected: int, seeds,
                              chunk: int = 128,
@@ -1652,15 +1674,14 @@ class Simulator:
         ``window``, where a phase never completed reports the final
         slot) and ``state``; per-replica arrays when batched.
 
-        The resumable bounded segments (``budget_chunks=``) are not
-        ported yet.
+        ``budget_chunks=B`` bounds one call to at most ``B`` chunks, the
+        resumable runtime's segment: the result then also carries
+        ``running`` (whether the next chunk would run; the other fields
+        are partial until it is False), and a chain of bounded segments
+        over the same state is bitwise one unbounded call.
         """
         assert max_slots < (1 << 23), \
             "max_slots overflows the p_bh born-slot packing (< 2^23)"
-        if budget_chunks is not None:
-            raise NotImplementedError(
-                "run_program(budget_chunks=...) is the resumable runtime's "
-                "bounded segment, which is not ported yet (ROADMAP item 9)")
         traffic = self.program_traffic(program)
         if state is not None:
             st = state
@@ -1680,9 +1701,13 @@ class Simulator:
                 live = (b["phase"] < NP).any()
             return bool(live.item())
 
-        while running():
+        chunks = 0
+        while ((budget_chunks is None or chunks < budget_chunks)
+               and running()):
             for _ in range(chunk):
                 self._step(b, traffic, chunk=chunk, max_slots=max_slots)
+            chunks += 1
+        extra = {} if budget_chunks is None else {"running": running()}
         out = torch.cat([b["phase_done"], b["phase_ok"].to(_I32),
                          b["slot"][:, None], b["pool_stall"][:, None]],
                         dim=1).cpu().numpy()
@@ -1699,9 +1724,9 @@ class Simulator:
         if scalar:
             return {"slots": int(slots[0]), "completed": bool(completed[0]),
                     "pool_stall": int(stall[0]), "phase_slots": done[0],
-                    "state": st}
+                    "state": st, **extra}
         return {"slots": slots, "completed": completed, "pool_stall": stall,
-                "phase_slots": done, "state": st}
+                "phase_slots": done, "state": st, **extra}
 
 
 def _unbatch(st: dict, b: dict) -> None:

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the reference
-package, and its entry points never fall back to the CPU by themselves."""
+"""The port stands alone: it imports neither jax (nor ``ml_dtypes``,
+which comes with jax) nor the reference package, and its entry points
+never fall back to the CPU by themselves."""
 import dataclasses
 import pathlib
 import subprocess
@@ -18,14 +19,20 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 # the workload-program layer is among the modules walked
 missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.workloads.compile",
                   "repro_torch.workloads.programs",
                   "repro_torch.serving", "repro_torch.serving.spec",
                   "repro_torch.serving.bridge", "repro_torch.serving.sweep",
-                  "repro_torch.simulator.arrivals"} - set(names))
+                  "repro_torch.simulator.arrivals",
+                  "repro_torch.checkpointing",
+                  "repro_torch.checkpointing.checkpoint",
+                  "repro_torch.runtime.fault_tolerance",
+                  "repro_torch.runtime.resilient",
+                  "repro_torch.runtime.supervisor",
+                  "repro_torch.api.resume"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -116,3 +123,21 @@ def test_failure_entry_points_refuse_to_run_on_the_cpu_by_default(tmp_path):
         run(exp)
     assert run(exp, device="cpu").metric == "resilience"
     assert degrade_sweep(spec, device="cpu")["points"][1]["n_links_down"] > 0
+
+
+def test_resumable_entry_points_refuse_to_run_on_the_cpu_by_default(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.api import Experiment, resume, run_resumable
+    from repro_torch.api.__main__ import main as cli_main
+    spec = ROOT / "examples" / "specs" / "tiny_mrls_a2a.json"
+    exp = Experiment.from_json(spec.read_text())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_resumable(exp, str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["run", str(spec), "--ckpt-dir", str(tmp_path / "b")])
+    done = run_resumable(exp, str(tmp_path / "c"), device="cpu")
+    assert done.completed
+    # a finished directory is reported, not run, so it needs no device
+    assert resume(str(tmp_path / "c")) == done
