@@ -92,17 +92,20 @@ Phases, in order; any failure ends the script with a non-zero exit:
    seconds, slots/s and peak device bytes; and an OFT slot broken down
    as in phase 6;
 14. workload programs — run after phase 13: the Rabenseifner allreduce
-   of Figures 5 and 7 (8,192 ranks of 16 packets on the Figure-5 MRLS
-   and on ``oft(17)``, 16,384 on ``dragonfly(16, 8, 8)`` under ugal;
-   barrier schedule, 26 and 28 phases) and the Figure-5 MRLS's 24
-   All2All rounds as a windowed program (``window`` 4), each fabric
+   of Figures 5 and 7 (8,192 ranks of 16 packets on ``oft(17)``, 16,384
+   on ``dragonfly(16, 8, 8)`` under ugal; barrier schedule, 26 and 28
+   phases) and the Figure-5 MRLS's 24 All2All rounds as a windowed
+   program (``window`` 4); the Figure-5 MRLS allreduce is left to
+   phases 15 (its replica 0) and 18 (point A), which hold it against
+   the same golden; each fabric
    through one ``run_all`` with one ``SimulatorCache`` as in phase 13,
    each Result (``phase_slots`` included) against its
    ``tests/golden/torch_prog_*.json`` field for field with its
    launches, set-up and run seconds, slots/s and peak device bytes; then
    two barrier-program slots under the sync debug mode, and the device
    operations and device ms of a barrier-program slot beside a uniform
-   slot of the Figure-5 MRLS, from ``torch.profiler``;
+   slot of the Figure-5 MRLS (its tables from the windowed All2All's
+   simulator), from ``torch.profiler``;
 15. replicas — run after phase 14: ``switch_arbitrate_rows`` and
    ``vc_prearb`` at 4 replicas (``kernels/switch_arb/bench.py``'s
    ``run_replica_cases`` on seeded Figure-5 states, a different one a
@@ -174,17 +177,38 @@ Phases, in order; any failure ends the script with a non-zero exit:
    wrapper SIGKILLs the first child once ``D`` holds its second snapshot
    (on progress, not on a timer) and records at each attempt's start the
    latest snapshot and whether ``result.json`` exists; the retry resumes
-   from a snapshot at step 2 or later; ``D/result.json`` and ``python -m
-   repro_torch.api resume D`` (started beside the next point: it reads
-   ``result.json`` and touches no card) equal the golden; each child's start-up
-   (Popen to its first snapshot, less a segment) and its seconds a
-   segment, and a snapshot's bytes and seconds (device to host, then the
-   ``npz`` write) on the card.  Then the 1k pareto serving point of
-   ``tests/golden/torch_serve_mrls_pareto.json`` through ``run_resumable``
-   (every 64 slots, keep 8) in this process, equal to the golden; cut
-   back to its snapshot at cursor 192 (``result.json`` and the later
-   snapshot deleted), ``resume`` equals the golden again; both runs'
-   launches 3 × / 2 × the steps they ran;
+   from a snapshot at step 2 or later; ``D/result.json`` equals the
+   golden; each child's start-up (Popen to its first snapshot, less a
+   segment) and its seconds a segment.  Then the 1k pareto serving point
+   of ``tests/golden/torch_serve_mrls_pareto.json`` through
+   ``run_resumable`` (every 64 slots, keep 8) in this process, equal to
+   the golden; cut back to its snapshot at cursor 192 (``result.json``
+   and the later snapshot deleted), ``resume`` equals the golden again;
+   both runs' launches 3 × / 2 × the steps they ran.  Then ``D`` cut
+   back to its oldest kept snapshot (``result.json`` and the later
+   snapshots deleted) and resumed on the card through the CLI, as
+   ``main(["resume", D, "--ckpt-every", "2"])`` in this process: its
+   printed record equals the golden, its launches 3 × / 2 × its steps
+   and ``minplus_hops`` its table build's; last, a snapshot's bytes and
+   seconds (device to host, then the ``npz`` write) on the card;
+19. memory, admission and search — run after phase 18: the port's byte
+   model ``api.admission.device_peak_bytes`` against the peak device
+   bytes (allocated and reserved) of the three All2All runs of phase 8,
+   phase 15's 4-replica uniform run (its set-up included) and phase 16's
+   1k pareto run, never below the reserved peak and at most 1.5 × it
+   at 10k endpoints and above, with the step coefficients' fit to the
+   Figure-5 runs at one and four replicas; the 100k Fat-Tree All2All at the
+   smallest replica count the model prices over the card's budget:
+   ``run`` raises ``AdmissionError`` with ``memory_allocated`` unchanged
+   and no launch, and ``check_admission(mode="warn")`` admits it (not
+   run); then ``examples/specs/search_1k.json``'s ``search_1k_uniform``
+   cut to 6 candidates, screen 10 + 30 and full 30 + 60 slots and a 16
+   MiB ``mem_budget_mib`` through ``repro_torch.search.search`` on the
+   card: the record equals ``tests/golden/torch_search_1k_uniform_cut.json``
+   field for field but ``predicted_device_bytes``, launches 3 × / 2 ×
+   the steps and ``minplus_hops`` every table build's products (the
+   pricing's metrics and the runs' simulators), each candidate run's
+   set-up and run seconds, slots/s and peak bytes against the model;
 9. LM kernels — ``flash_attention`` (causal, window ``None`` and 2,048, and
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts) and ``selective_scan`` (the cases of
@@ -207,7 +231,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 Each phase prints its wall seconds, and the script its total.  The
 kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 16, 17,
-18 (its in-process runs) and 11 are summed.  The last lines are a
+18 (its in-process runs), 19 and 11 are summed.  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and
 power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -255,10 +279,13 @@ FIG5_OFT_GOLDENS = [ROOT / "tests" / "golden" / f"torch_fig5_oft_{name}.json"
 ADV_GOLDENS = [ROOT / "tests" / "golden" / f"torch_adv_{name}.json"
                for name in ("tornado", "shift", "hotspot", "bursty")]
 
-# phase 14: the workload programs, grouped by fabric and routing
+# phase 14: the workload programs, grouped by fabric and routing; the
+# uninterrupted Figure-5 MRLS allreduce (PROG_GOLDENS[0]) is checked by
+# phase 15 (its replica 0) and phase 18 (point A), so phase 14 leaves it
 PROG_GOLDENS = [ROOT / "tests" / "golden" / f"torch_prog_{name}.json"
                 for name in ("fig5_mrls_allreduce", "fig5_mrls_a2a_window",
                              "fig5_oft_allreduce", "fig7_df_allreduce")]
+PHASE14_GOLDENS = PROG_GOLDENS[1:]
 
 # phase 15: Figure 5's MRLS row at the figure's 4 replicas
 REP_UNIFORM_GOLDEN = (ROOT / "tests" / "golden"
@@ -281,6 +308,13 @@ KILL_GOLDEN = ROOT / "tests" / "golden" / "torch_prog_fig5_mrls_allreduce.json"
 RESUME_GOLDEN = ROOT / "tests" / "golden" / "torch_serve_mrls_pareto.json"
 # phase 18's checkpoint directories (build/ is git-ignored)
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+# phase 19: the cut 1k design-space search (SearchSpec and the
+# reference's record); the admission refusal takes the 100k Fat-Tree
+SEARCH_GOLDEN = ROOT / "tests" / "golden" / "torch_search_1k_uniform_cut.json"
+# the model's bounds against a measured reserved peak: never below it, and
+# at most this multiple of it at this many endpoints and above
+MODEL_OVER = 1.5
+MODEL_OVER_FROM = 10_000
 # the (alpha, cap) pairs whose batch map phase 16 checks on the card, and
 # the (load, amplitude, period) of its diurnal rates
 PARETO_MAPS = ((1.5, 16), (1.5, 32), (1.5, 64), (1.2, 64))
@@ -312,6 +346,10 @@ KERNELS = {
         "src/repro/kernels/selective_scan/kernel.py:39"),
 }
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# label -> {"exp", "peak", "peak_reserved"}: the runs of phases 8, 15 and
+# 16 whose peak device bytes phase 19 holds the memory model against
+MEASURED = {}
 
 _PHASE = {"name": None, "t0": 0.0}
 T_START = time.perf_counter()
@@ -971,8 +1009,9 @@ def timed_runs(timing: list, peaks: bool = False):
     (``slots_run``: the steps it took; a barrier program sets its state's
     slot back at every phase) of each ``Simulator`` measurement run, read
     around the user's call without changing it; with ``peaks``, also the
-    peak device bytes of the run alone (``peak``: the peak statistics are
-    reset before it)."""
+    peak device bytes of the run alone, allocated (``peak``) and reserved
+    by PyTorch's caching allocator (``peak_reserved``): the peak
+    statistics are reset before it."""
     import torch
     from repro_torch.simulator.engine import Simulator
     saved = {name: getattr(Simulator, name) for name in
@@ -997,7 +1036,9 @@ def timed_runs(timing: list, peaks: bool = False):
             torch.cuda.synchronize()
             timing.append(dict(
                 run_s=time.perf_counter() - t0, slots_run=steps[0],
-                peak=torch.cuda.max_memory_allocated() if peaks else None))
+                peak=torch.cuda.max_memory_allocated() if peaks else None,
+                peak_reserved=(torch.cuda.max_memory_reserved() if peaks
+                               else None)))
             return r
         return call
 
@@ -1010,13 +1051,18 @@ def timed_runs(timing: list, peaks: bool = False):
             setattr(Simulator, name, fn)
 
 
-def run_points(points: dict, squarings: dict) -> tuple:
+def run_points(points: dict, squarings: dict,
+               measured: bool = False) -> tuple:
     """Each point ``{label: (Experiment, golden Result dict, golden file
     name)}`` through ``repro_torch.api.run`` on the card: its Result
     against the golden field for field, its launches against the counts
     the slots it ran and the table build's ``squarings[label]`` give, its
-    set-up and run seconds, slots/s and peak device bytes.  Returns
-    (launches summed over the points, {label: completion slot})."""
+    set-up and run seconds, slots/s and peak device bytes, allocated and
+    reserved (the cache is emptied before each point, so the peaks are
+    the point's own, its table build included; with ``measured``, phase
+    19 holds the memory model against them through ``MEASURED``).
+    Returns (launches summed
+    over the points, {label: completion slot})."""
     import torch
     from repro_torch.api import run
     timing = []
@@ -1025,6 +1071,7 @@ def run_points(points: dict, squarings: dict) -> tuple:
     with timed_runs(timing):
         for label, (exp, golden, fname) in points.items():
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             t0 = time.perf_counter()
@@ -1038,11 +1085,16 @@ def run_points(points: dict, squarings: dict) -> tuple:
             got = res.to_dict()
             stats = {k: v for k, v in got.items()
                      if v is not None and k not in ("experiment", "metric")}
+            peak = torch.cuda.max_memory_allocated()
+            peak_reserved = torch.cuda.max_memory_reserved()
+            if measured:
+                MEASURED[label] = dict(exp=exp, peak=peak,
+                                       peak_reserved=peak_reserved)
             print(f"{label}: {res.metric} {stats}; {ran} slots run (chunk "
                   f"{exp.chunk}); {wall:.3f} s end to end = set-up "
                   f"{wall - run_s:.3f} s + run {run_s:.3f} s "
                   f"({ran / run_s:.2f} slots/s); peak device memory "
-                  f"{torch.cuda.max_memory_allocated()} bytes")
+                  f"{peak} bytes allocated, {peak_reserved} reserved")
             if got != golden:
                 diff = {k: (got.get(k), golden.get(k)) for k in golden
                         if got.get(k) != golden.get(k)}
@@ -1065,7 +1117,7 @@ def run_all2all(points: dict, squarings: dict) -> dict:
     total, slots = run_points(
         {label: (exp, json.loads(A2A_GOLDENS[label].read_text()),
                  A2A_GOLDENS[label].name)
-         for label, exp in points.items()}, squarings)
+         for label, exp in points.items()}, squarings, measured=True)
     print(f"Fat-Tree / MRLS completion slots at 104,976 endpoints: "
           f"{slots['fig6.ft50']} / {slots['fig6.mrls_f1']} = "
           f"{slots['fig6.ft50'] / slots['fig6.mrls_f1']:.4f} (simulated "
@@ -1357,11 +1409,11 @@ def run_phase14() -> dict:
     goldens, and a program slot's costs.  Returns the launches summed
     over their main paths."""
     import torch
-    phase("14. workload programs: the allreduce rows of Figures 5 and 7 "
-          "and a windowed All2All")
+    phase("14. workload programs: the allreduce rows of Figures 5 (OFT) "
+          "and 7 and a windowed All2All")
     total = dict.fromkeys(KERNELS, 0)
     groups = {}
-    for point in golden_points(PROG_GOLDENS):
+    for point in golden_points(PHASE14_GOLDENS):
         exp = point[0]
         groups.setdefault((exp.network, exp.route), []).append(point)
     mrls_tables = mrls_exp = None
@@ -1444,6 +1496,8 @@ def run_phase15(scalar_slot: dict) -> dict:
     arb_bench.run_replica_cases(geo, gen)
     arb_bench.time_replicas(geo, gen)
     del geo, gen
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     total = dict.fromkeys(KERNELS, 0)
     uniform = json.loads(REP_UNIFORM_GOLDEN.read_text())
@@ -1457,12 +1511,17 @@ def run_phase15(scalar_slot: dict) -> dict:
     timing = []
     with SimulatorCache() as cache, timed_runs(timing, peaks=True):
         reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sim = cache.get(exp.network, exp.route)
         torch.cuda.synchronize()
         counts = read_counts()
+        setup_peaks = (torch.cuda.max_memory_allocated(),
+                       torch.cuda.max_memory_reserved())
         print(f"set-up of the Figure-5 simulator: {time.perf_counter() - t0:.3f}"
-              f" s ({sim.tables.squarings} minplus_hops products)")
+              f" s ({sim.tables.squarings} minplus_hops products); peak "
+              f"device memory {setup_peaks[0]} bytes allocated, "
+              f"{setup_peaks[1]} reserved")
         check_counts(counts, {**NO_LAUNCHES,
                               "minplus_hops": sim.tables.squarings},
                      "the simulator's set-up")
@@ -1483,7 +1542,11 @@ def run_phase15(scalar_slot: dict) -> dict:
               f"({rec['slots_run'] / rec['run_s']:.2f} slots/s = "
               f"{exp.replicas * rec['slots_run'] / rec['run_s']:.2f} "
               f"replica-slots/s; {wall:.3f} s through run); peak device "
-              f"memory of the run {rec['peak']} bytes")
+              f"memory of the run {rec['peak']} bytes allocated, "
+              f"{rec['peak_reserved']} reserved")
+        MEASURED[f"{exp.name} x {exp.replicas}"] = dict(
+            exp=exp, peak=max(rec["peak"], setup_peaks[0]),
+            peak_reserved=max(rec["peak_reserved"], setup_peaks[1]))
         _differs(exp.name, got, uniform)
         print(f"{exp.name}: Result equals {REP_UNIFORM_GOLDEN.name} field for"
               " field")
@@ -1751,6 +1814,8 @@ def run_phase16(scalar_slot: dict) -> dict:
         # b-d. Fat-Tree poisson at 4 replicas, MRLS pareto and diurnal
         for exp, (golden, fname) in zip(exps, goldens):
             last.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             reset_counts()
             res = run(exp, cache=cache)
             torch.cuda.synchronize()
@@ -1766,7 +1831,13 @@ def run_phase16(scalar_slot: dict) -> dict:
                   f"{ran} slots in {rec['run_s']:.3f} s "
                   f"({ran / rec['run_s']:.2f} slots/s = "
                   f"{exp.replicas * ran / rec['run_s']:.2f} replica-slots/s)"
-                  f"; peak device memory of the run {rec['peak']} bytes")
+                  f"; peak device memory of the run {rec['peak']} bytes "
+                  f"allocated, {rec['peak_reserved']} reserved (the two 1k "
+                  "simulators held)")
+            if exp.workload.pattern == "pareto":
+                MEASURED[exp.name] = dict(
+                    exp=exp, peak=rec["peak"],
+                    peak_reserved=rec["peak_reserved"])
             _differs(exp.name, got, golden)
             print(f"{exp.name}: Result equals {fname} field for field")
             check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * ran,
@@ -2450,6 +2521,214 @@ def run_phase18(scalar_slot: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# memory, admission and search (phase 19)
+# ---------------------------------------------------------------------- #
+def hold_model(label: str, exp, peak: int, peak_reserved: int) -> None:
+    """``device_peak_bytes(exp)`` beside a run's measured peaks: never
+    below the reserved peak, and at most ``MODEL_OVER`` times it at
+    ``MODEL_OVER_FROM`` endpoints and above."""
+    from repro_torch.api.admission import device_bytes
+    est = device_bytes(exp, "cuda")
+    pred, S = est["peak_bytes"], est["n_endpoints"]
+    ratio = pred / peak_reserved
+    # what the run's allocated peak leaves for the step transients, per
+    # requester-port pair (the model's STEP_* coefficients), and the
+    # allocator's reserve over the allocated peak (ALLOCATOR_*)
+    pairs = (peak - est["resident_bytes"]) / est["n_port_rows"]
+    FIT_READINGS[label] = pairs
+    print(f"  {label} (S={S}, R={est['replicas']}): predicted "
+          f"{pred} bytes; measured {peak} allocated, {peak_reserved} "
+          f"reserved; predicted / reserved {ratio:.3f} (model terms: "
+          f"build {est['build_bytes']}, resident {est['resident_bytes']}, "
+          f"transients {est['transient_bytes']}); allocated peak less the "
+          f"model's resident bytes: {pairs:.2f} bytes a requester-port "
+          f"pair ({pairs / est['replicas']:.2f} a replica); reserved / "
+          f"allocated {peak_reserved / peak:.3f}")
+    if pred < peak_reserved:
+        raise AssertionError(f"{label}: the model predicts {pred} bytes, "
+                             f"below the reserved peak {peak_reserved}")
+    if S >= MODEL_OVER_FROM and ratio > MODEL_OVER:
+        raise AssertionError(f"{label}: the model predicts {ratio:.3f}x "
+                             f"the reserved peak (at most {MODEL_OVER}x)")
+
+
+# the bytes a requester-port pair that hold_model reads off each run
+FIT_READINGS = {}
+
+
+def fit_step_bytes() -> None:
+    """The line ``a R + b`` through the Figure-5 MRLS runs' readings at
+    one and four replicas, printed beside the model's
+    ``STEP_BYTES_PER_PORT_ROW`` and ``STEP_SHARED_BYTES_PER_PORT_ROW``,
+    which were fitted to these readings."""
+    from repro_torch.api import admission
+    one = FIT_READINGS.get("fig5.mrls_u18")
+    four = FIT_READINGS.get("fig5.mrls_u18.pol.uniform x 4")
+    if one is None or four is None:
+        print("step fit: the Figure-5 runs at R = 1 and 4 were not measured")
+        return
+    a = (four - one) / 3
+    print(f"step fit from this run: {a:.2f} R + {one - a:.2f} bytes a "
+          f"requester-port pair (the model: "
+          f"{admission.STEP_BYTES_PER_PORT_ROW} R + "
+          f"{admission.STEP_SHARED_BYTES_PER_PORT_ROW})")
+
+
+def refuse_ft50() -> None:
+    """The 100k Fat-Tree All2All at the smallest replica count the model
+    prices over the card's budget: ``run`` refuses it with nothing
+    allocated and no ``minplus_hops`` launch; ``mode="warn"`` admits
+    it (not run)."""
+    import dataclasses
+    import torch
+    from repro_torch.api import AdmissionError, Experiment, run
+    from repro_torch.api.admission import (check_admission,
+                                           device_budget_bytes,
+                                           device_peak_bytes)
+    exp = Experiment.from_dict(json.loads(
+        A2A_GOLDENS["fig6.ft50"].read_text())["experiment"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    budget = device_budget_bytes("cuda")
+    reps = 1
+    while device_peak_bytes(dataclasses.replace(exp, replicas=reps),
+                            "cuda") <= budget:
+        reps += 1
+    big = dataclasses.replace(exp, replicas=reps)
+    below = device_peak_bytes(dataclasses.replace(exp, replicas=reps - 1),
+                              "cuda")
+    print(f"{exp.name}: the card's budget {budget} bytes (free + cached "
+          f"unused); R = {reps - 1} predicts {below} bytes, R = {reps} "
+          f"{device_peak_bytes(big, 'cuda')}: the smallest refused R is "
+          f"{reps}")
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        run(big, device="cuda")
+    except AdmissionError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"run admitted {exp.name} at R = {reps}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    after = torch.cuda.memory_allocated()
+    print(f"run refused it in {time.perf_counter() - t0:.3f} s: "
+          f"AdmissionError: {msg}")
+    if after != held:
+        raise AssertionError(f"the refused run allocated {after - held} "
+                             "bytes")
+    print(f"memory_allocated {after} bytes before and after the refusal")
+    check_counts(counts, NO_LAUNCHES, "the refused run")
+    decision = check_admission(big, mode="warn", device="cuda")
+    if not decision.admitted:
+        raise AssertionError(f"mode='warn' refused: {decision}")
+    print(f"check_admission(mode='warn') admits it: action "
+          f"{decision.action!r}, predicted {decision.predicted_bytes} "
+          f"bytes, budget {decision.budget_bytes} (not run)")
+
+
+@contextlib.contextmanager
+def search_runs(log: list, products: list):
+    """Around ``repro_torch.search``: each candidate run's stage, seconds
+    (set-up and run), steps and peak device bytes (the cache emptied
+    before it; the other candidates' simulators stay held) into ``log``,
+    and every table build's ``minplus_hops`` products into
+    ``products``."""
+    import torch
+    from repro_torch.core import routing
+    from repro_torch.search import loop
+    saved_run, saved_hops = loop.run, routing.hop_distances
+    timing = []
+
+    def run(exp, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = saved_run(exp, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = timing.pop()
+        log.append(dict(exp=exp, wall=wall, run_s=rec["run_s"],
+                        steps=rec["slots_run"],
+                        peak=torch.cuda.max_memory_allocated(),
+                        peak_reserved=torch.cuda.max_memory_reserved()))
+        return res
+
+    def hop_distances(*a, **kw):
+        out = saved_hops(*a, **kw)
+        products.append(out[2])
+        return out
+
+    loop.run, routing.hop_distances = run, hop_distances
+    try:
+        with timed_runs(timing):
+            yield
+    finally:
+        loop.run, routing.hop_distances = saved_run, saved_hops
+
+
+def run_phase19() -> dict:
+    """The memory model against the card, an admission refusal, and the
+    cut 1k design-space search against the reference's record.  Returns
+    the search's launches."""
+    import torch
+    from repro_torch.search import SearchSpec, search
+    phase("19. memory, admission and search")
+    print("device_peak_bytes against the measured peaks of phases 8, 15 "
+          "and 16 (H100 80GB HBM3 allocator):")
+    for label, m in MEASURED.items():
+        hold_model(label, m["exp"], m["peak"], m["peak_reserved"])
+    fit_step_bytes()
+    refuse_ft50()
+
+    golden = json.loads(SEARCH_GOLDEN.read_text())
+    spec = SearchSpec.from_dict(golden["spec"])
+    log, products = [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    with search_runs(log, products):
+        rec = search(spec, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"search {spec.label()} ({spec.budget} of {rec['space_size']} "
+          f"candidates, screen {spec.screen_warm} + {spec.screen_measure}, "
+          f"full {spec.warm} + {spec.measure}, mem_budget_mib "
+          f"{spec.mem_budget_mib}): {wall:.3f} s; counts {rec['counts']}; "
+          f"frontier {rec['frontier']}")
+    for r in log:
+        exp = r["exp"]
+        print(f"  {exp.name}: set-up {r['wall'] - r['run_s']:.3f} s, run "
+              f"{r['run_s']:.3f} s, {r['steps']} slots "
+              f"({r['steps'] / r['run_s']:.2f} slots/s); peak device "
+              f"memory {r['peak']} bytes allocated, {r['peak_reserved']} "
+              "reserved")
+        hold_model(exp.name, exp, r["peak"], r["peak_reserved"])
+    got = json.loads(json.dumps(rec))
+    want = golden["record"]
+    for c in got["candidates"]:
+        pred = c.pop("predicted_device_bytes", None)
+        print(f"  {c['id']} {c['label']}: {c['status']}"
+              + (f", predicted_device_bytes {pred}" if pred else "")
+              + (f", {c['reason']}" if c["status"] == "pruned" else ""))
+    want = dict(want, candidates=[
+        {k: v for k, v in c.items() if k != "predicted_rss_bytes"}
+        for c in want["candidates"]])
+    _differs(spec.label(), got, want)
+    print(f"the search record equals {SEARCH_GOLDEN.name} field for field "
+          "(less predicted_device_bytes / predicted_rss_bytes)")
+    steps = sum(r["steps"] for r in log)
+    check_counts(counts, {**NO_LAUNCHES, "vc_prearb": 3 * steps,
+                          "switch_arbitrate_rows": 2 * steps,
+                          "minplus_hops": sum(products)},
+                 f"the search ({steps} steps, {len(products)} table builds)")
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------- #
 # LM serving slice: Hymba-1.5B
 # ---------------------------------------------------------------------- #
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 32
@@ -2811,6 +3090,8 @@ def main() -> int:
         launches[k] += n
     for k, n in run_phase18(fig5_slot).items():
         launches[k] += n
+    for k, n in run_phase19().items():
+        launches[k] += n
 
     # the LM serving slice: Hymba-1.5B at full width
     from repro_torch.configs import get_config
@@ -2835,7 +3116,7 @@ def main() -> int:
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 8, 12, 13, 14, 15, 16, 17, 18 (in process) and 11.
+    # phases 8, 12, 13, 14, 15, 16, 17, 18 (in process), 19 and 11.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

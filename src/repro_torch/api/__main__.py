@@ -36,12 +36,31 @@ Commands (each takes ``--device cpu|cuda``; the default is the card):
   ``{"sweeps": [...]}``; prints delivered throughput and retention per
   rate, ``--out`` writes the degradation records as a JSON list, as the
   reference's CLI does.  ``--seed`` overrides every base's seed.
+* ``estimate <spec.json> [--replicas R] [--out f]`` — price every
+  experiment of a spec without running anything: each record is the
+  reference's ``estimate_memory`` dict plus ``predicted_device_bytes``
+  (the port's ``device_peak_bytes`` on ``--device``) and
+  ``budget_bytes`` (that device's budget, as the admission gate reads
+  it), in place of the reference's ``compile_ram_multiplier`` and
+  ``predicted_peak_rss_bytes``; a line an experiment, then the device and
+  its budget.  ``--out`` writes the records as a JSON list.
+* ``search <spec.json> [--replicas R] [--seed S] [--pareto-out f]
+  [--out f]`` — the design-space search (:mod:`repro_torch.search`): the
+  file holds one ``SearchSpec``, ``{"search": {...}}`` or ``{"searches":
+  [...]}``; samples (family, radix, f, policy, vcs) candidates at a
+  fixed endpoint count, prunes them before anything is built, screens
+  the rest with short runs and promotes the survivors to the full
+  window; prints each search's counts and frontier, writes the frontier
+  artifact to ``--pareto-out`` (default
+  ``artifacts/PARETO_search.json``; an empty string disables it) and the
+  records to ``--out``, as the reference's CLI does.
 * ``families`` — list the topology families the port builds.
 * ``patterns`` — list the workload-pattern registry, each with its kind
   and whether the port runs it.
 
-``families`` and ``patterns`` run nothing; they take ``--device`` so
-that every command has the same surface.
+``estimate``, ``families`` and ``patterns`` run nothing; they take
+``--device`` so that every command has the same surface (``estimate``
+prices that device).
 """
 from __future__ import annotations
 
@@ -52,6 +71,8 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
+from .admission import device_budget_bytes, device_peak_bytes
+from .memory import estimate_memory, format_bytes
 from .registry import topology_families, workload_patterns
 from .resume import resume, run_resumable
 from .runner import Result, run, run_all
@@ -59,6 +80,7 @@ from .degrade import DegradeSpec, degrade_sweep_many
 from .specs import Experiment
 from .sweep import sweep
 from .. import serving
+from ..search.cli import PARETO_OUT, main_search
 
 
 def load_spec(path: str):
@@ -105,6 +127,16 @@ def _summary(res: Result) -> str:
         bits.append(f"slots={res.slots}")
         bits.append(f"completed={res.completed}")
     return "  ".join(bits)
+
+
+def emit_records(records: List[dict], out: Optional[str],
+                 label: str = "record") -> None:
+    """``--out`` writer for commands whose records are plain dicts (the
+    reference's format)."""
+    if out:
+        with open(out, "w") as f:
+            json.dump(records, f, indent=2)
+        print(f"wrote {len(records)} {label}(s) to {out}")
 
 
 def _emit(text: str, out: Optional[str]) -> None:
@@ -160,12 +192,14 @@ def _fmt_q(v) -> str:
     return "-" if v is None else f"{v:g}"
 
 
-def spec_docs(path: str, key: str) -> list:
+def spec_docs(path: str, key: str, plural: Optional[str] = None) -> list:
     """The spec dicts of a file: a bare spec, ``{key: {...}}`` or
-    ``{key + "s": [...]}``, as the reference's CLI reads them."""
+    ``{plural: [...]}`` (default ``key + "s"``), as the reference's CLI
+    reads them."""
     doc = json.loads(Path(path).read_text())
-    if isinstance(doc, dict) and key + "s" in doc:
-        return list(doc[key + "s"])
+    plural = plural or key + "s"
+    if isinstance(doc, dict) and plural in doc:
+        return list(doc[plural])
     if isinstance(doc, dict) and key in doc:
         return [doc[key]]
     return [doc]
@@ -220,6 +254,44 @@ def _cmd_degrade(args) -> int:
     if args.out:
         Path(args.out).write_text(json.dumps(records, indent=2))
         print(f"wrote {len(records)} degradation record(s) to {args.out}")
+    return 0
+
+
+def _cmd_estimate(args) -> int:
+    exps = spec_experiments(args.spec, replicas=args.replicas)
+    budget = device_budget_bytes(args.device)
+    device = "cuda" if args.device is None else args.device
+    records = []
+    for e in exps:
+        est = estimate_memory(e)
+        predicted = device_peak_bytes(e, device)
+        est["predicted_device_bytes"] = predicted
+        est["budget_bytes"] = budget
+        records.append({"name": e.label(), **est})
+        dims = est["dims"]
+        over = budget is not None and predicted > budget
+        tables = (est["tables"]["device_mask_bytes"]
+                  + est["tables"]["dist_leaf_bytes"])
+        print(f"{e.label()}  S={dims['n_endpoints']}  "
+              f"masks={est['tables']['mask_layout']}  "
+              f"tables={format_bytes(tables)}  "
+              f"state/replica={format_bytes(est['state_bytes_per_replica'])}"
+              f"  total={format_bytes(est['total_bytes'])}  "
+              f"peak={format_bytes(est['peak_bytes'])}  "
+              f"predicted_device={format_bytes(predicted)} ({device})"
+              + (f"  ** OVER the {device} budget {format_bytes(budget)}: "
+                 "admission would refuse **" if over else ""))
+    if budget is not None:
+        print(f"device {device}: budget {format_bytes(budget)}"
+              + (" (free + cached unused)" if device == "cuda"
+                 else " (host RAM)"))
+    emit_records(records, args.out, "estimate")
+    return 0
+
+
+def _cmd_search(args) -> int:
+    records = main_search(args, spec_docs(args.spec, "search", "searches"))
+    emit_records(records, args.out, "search record")
     return 0
 
 
@@ -278,6 +350,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                            help="override the spec's base seed")
     degrade_p.add_argument("--out", default=None,
                            help="also write the degradation records here")
+    est_p = sub.add_parser(
+        "estimate", help="estimate memory for experiment spec(s), no run")
+    est_p.add_argument("spec", help="path to the experiment JSON file")
+    est_p.add_argument("--replicas", type=int, default=None,
+                       help="override the replicas")
+    est_p.add_argument("--out", default=None,
+                       help="write the estimate records here")
+    search_p = sub.add_parser(
+        "search", help="design-space search: optimize (family, radix, f, "
+                       "policy, vcs) at fixed endpoints for throughput per "
+                       "link cost")
+    search_p.add_argument("spec", help="path to the JSON search spec "
+                                       "(one object or {'searches': [...]})")
+    search_p.add_argument("--replicas", type=int, default=None,
+                          help="override every search's replicas")
+    search_p.add_argument("--seed", type=int, default=None,
+                          help="override every search's seed")
+    search_p.add_argument("--pareto-out", default=PARETO_OUT, metavar="PATH",
+                          help="Pareto frontier artifact path (empty "
+                               f"string disables; default {PARETO_OUT})")
+    search_p.add_argument("--out", default=None,
+                          help="write the search records here")
     sub.add_parser("families", help="list topology families")
     sub.add_parser("patterns", help="list workload patterns")
     for p in sub.choices.values():
@@ -286,6 +380,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
     return {"run": _cmd_run, "resume": _cmd_resume, "sweep": _cmd_sweep,
             "serve-sweep": _cmd_serve_sweep, "degrade": _cmd_degrade,
+            "estimate": _cmd_estimate, "search": _cmd_search,
             "families": _cmd_families,
             "patterns": _cmd_patterns}[args.cmd](args)
 

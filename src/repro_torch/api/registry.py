@@ -7,7 +7,8 @@ from ..core.topology import Topology
 from ..workloads.patterns import ENGINE_PATTERNS, pattern_kinds
 from .specs import NetworkSpec
 
-__all__ = ["topology_families", "build_network", "workload_patterns"]
+__all__ = ["topology_families", "build_network", "network_topology",
+           "workload_patterns"]
 
 
 def workload_patterns() -> tuple:
@@ -33,3 +34,19 @@ def build_network(spec: NetworkSpec) -> Topology:
         raise KeyError(f"unknown topology family {spec.family!r}; known: "
                        f"{topology_families()}")
     return make(**spec.param_dict())
+
+
+# the last fabric's topology: pricing it (the admission gate, the
+# search's screen) and building its simulator then share one host build
+_topo_memo: dict = {}
+
+
+def network_topology(spec: NetworkSpec) -> Topology:
+    """``build_network(spec)``, kept for the next call with the same
+    fabric (one fabric is kept)."""
+    key = (spec.family, spec.params)
+    topo = _topo_memo.get(key)
+    if topo is None:
+        _topo_memo.clear()
+        topo = _topo_memo[key] = build_network(spec)
+    return topo

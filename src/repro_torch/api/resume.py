@@ -21,8 +21,9 @@ all2all), ``throughput``, ``latency`` and ``serving``, of one replica or
 several.  ``resilience`` runs apply failure transitions from the host at
 exact slots in the middle of a run; they are refused, as in the
 reference.  The simulator is built as :func:`repro_torch.api.run` builds
-it; the reference's admission gate comes with the port's memory model
-(ROADMAP item 10).
+it, behind the same admission gate (:mod:`repro_torch.api.admission`):
+an experiment priced over its device's budget is refused before anything
+is built.
 """
 from __future__ import annotations
 
@@ -32,9 +33,9 @@ from typing import Optional
 from .._device import resolve_device
 from ..runtime.resilient import (ResilientConfig, run_completion_resumable,
                                  run_program_resumable, run_window_resumable)
-from .runner import (Result, SimulatorCache, _LATENCY_KEYS, _batched_result,
-                     _check_runnable, _collective_program, _is_program,
-                     _make_simulator, _nan_none, _to_traffic)
+from .runner import (Result, SimulatorCache, _LATENCY_KEYS, _admit,
+                     _batched_result, _check_runnable, _collective_program,
+                     _is_program, _make_simulator, _nan_none, _to_traffic)
 from .specs import Experiment
 
 __all__ = ["run_resumable", "resume"]
@@ -100,7 +101,7 @@ def run_resumable(experiment: Experiment, ckpt_dir: str, *,
     any point and resumable by calling again with the same ``ckpt_dir``.
     ``every`` is the checkpoint cadence in engine chunks (``completion``)
     or slots (the windowed metrics).  ``device`` as in ``run``: the card
-    unless ``"cpu"`` is asked for.
+    unless ``"cpu"`` is asked for.  The same admission gate as ``run``.
     """
     metric = experiment.resolved_metric()
     if metric == "resilience":
@@ -112,6 +113,7 @@ def run_resumable(experiment: Experiment, ckpt_dir: str, *,
     dev = resolve_device(device)
     _write_spec(ckpt_dir, experiment)
     _check_runnable(experiment)
+    _admit(experiment, cache, dev)
     cfg = ResilientConfig(every=every, keep=keep)
     sim = (_make_simulator(experiment.network, experiment.route, dev)
            if cache is None

@@ -22,6 +22,11 @@ network with a failure schedule runs under the ``resilience`` metric
 (``Simulator.run_resilience``): throughput, hops, drops and latency
 while its links and switches go down and come back; its replicas run
 one after the other, since each transition rewrites the shared tables.
+
+Every entry prices its experiments before anything is built
+(:mod:`repro_torch.api.admission`): one whose predicted peak exceeds its
+device's budget is refused with an ``AdmissionError``
+(``REPRO_ADMISSION=warn|off`` relaxes the gate).
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from ..simulator.engine import Simulator, Traffic
 from ..workloads import (PROGRAM_BUILDERS, build_collective_program,
                          compile_program)
 from ..workloads.patterns import check_pattern
-from .registry import build_network
+from .admission import check_admission, device_budget_bytes, device_bytes
+from .registry import network_topology
 from .specs import Experiment, NetworkSpec, RouteSpec
 
 __all__ = ["Result", "SimulatorCache", "open_simulator", "run", "run_all"]
@@ -150,7 +156,7 @@ def _nan_none(v) -> Optional[float]:
 # ---------------------------------------------------------------------- #
 def _make_simulator(network: NetworkSpec, route: RouteSpec,
                     device: torch.device) -> Simulator:
-    topo = build_network(network)
+    topo = network_topology(network)     # the admission gate's build
     if network.failures is not None:
         network.failures.validate(topo)   # fail before the table build
     tables = build_tables(topo, device=device)
@@ -186,6 +192,12 @@ class SimulatorCache:
 
     def __len__(self) -> int:
         return len(self._sims)
+
+    def holds(self, network: NetworkSpec, route: RouteSpec,
+              device=None) -> bool:
+        """Whether the simulator of ``(network, route)`` on ``device`` is
+        built."""
+        return (network, route, resolve_device(device)) in self._sims
 
     def release(self, network: NetworkSpec, route: RouteSpec,
                 device=None) -> None:
@@ -270,6 +282,18 @@ def _check_runnable(experiment: Experiment) -> str:
     return metric
 
 
+def _admit(experiment: Experiment, cache: Optional[SimulatorCache],
+           dev: torch.device):
+    """The admission gate: price ``experiment`` against ``dev``'s budget
+    before anything is built.  A simulator the cache already holds is
+    part of the price, so its bytes count as budget."""
+    budget = device_budget_bytes(dev)
+    if (budget is not None and cache is not None
+            and cache.holds(experiment.network, experiment.route, dev)):
+        budget += device_bytes(experiment, dev)["simulator_bytes"]
+    return check_admission(experiment, budget_bytes=budget, device=dev)
+
+
 def run(experiment: Experiment, *, cache: Optional[SimulatorCache] = None,
         device=None) -> Result:
     """Execute ``experiment`` end to end and return a :class:`Result`.
@@ -278,9 +302,14 @@ def run(experiment: Experiment, *, cache: Optional[SimulatorCache] = None,
     ``device="cpu"`` to run the kernels' plain versions on the host.
     With ``cache`` given, the simulator is taken from it (built there on
     first use) and left in it; otherwise a private one is built.
+
+    Admission control runs first: an experiment whose predicted peak
+    (:func:`repro_torch.api.admission.device_peak_bytes`) exceeds the
+    device's budget raises ``AdmissionError`` before anything is built.
     """
     dev = resolve_device(device)
     metric = _check_runnable(experiment)
+    _admit(experiment, cache, dev)
     sim = (_make_simulator(experiment.network, experiment.route, dev)
            if cache is None
            else cache.get(experiment.network, experiment.route, dev))
@@ -298,17 +327,22 @@ def run_all(experiments, *, cache: Optional[SimulatorCache] = None,
     batched run, then splits the Results back out: the same Results
     (replica ``i`` is bitwise the scalar run of the group's ``i``-th
     experiment), in one run.  Every experiment is checked before
-    anything is built.
+    anything is built, and priced by the admission gate.
     """
     experiments = list(experiments)
     dev = resolve_device(device)
     for e in experiments:
         _check_runnable(e)
+    groups = (_fold_groups(experiments) if fold_seeds
+              else [[e] for e in experiments])
+    # a folded group runs as one batch of len(group) replicas
+    for group in groups:
+        _admit(group[0] if len(group) == 1
+               else dataclasses.replace(group[0], replicas=len(group)),
+               cache, dev)
     owns = cache is None
     if owns:
         cache = SimulatorCache()
-    groups = (_fold_groups(experiments) if fold_seeds
-              else [[e] for e in experiments])
     last_use = {(e.network, e.route): i for i, e in enumerate(experiments)}
     results = []
     pos = 0

@@ -52,13 +52,26 @@ __all__ = [
     "polarized_port_mask",
     "route_packet_host",
     "find_corners",
+    "mask_table_bytes",
+    "DENSE_MASK_LIMIT",
+    "POLICIES",
 ]
+
+# the routing policies of the engine (and of a search's policy axis)
+POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant",
+            "degraded")
 
 # the distance of a switch that failures cut off from a leaf: >= 0, far
 # above any diameter and far below int16 overflow, so d - 1 / d + 1
 # comparisons with real distances are false and hop budgets fail (the
 # reference's value)
 UNREACHABLE = 16384
+
+# the reference's bound on one dense [N1, N, W] numpy mask table, past
+# which its build streams the masks in leaf blocks.  The port keeps one
+# layout (the simulator packs the words on its own device), so the
+# constant only names the layout the reference's estimate reports
+DENSE_MASK_LIMIT = 256 * 1024 * 1024
 
 _I32 = torch.int32
 
@@ -479,6 +492,11 @@ def pack_mask_block(dist_block: torch.Tensor, valid: torch.Tensor,
                 (valid[:, j] & (dn == d + 1)).to(_I32) * bit)
     return min_w, away_w
 
+
+
+def mask_table_bytes(n1: int, n: int, p: int) -> int:
+    """Bytes of ONE dense ``[N1, N, W]`` uint32 mask table."""
+    return n1 * n * ((p + 31) // 32) * 4
 
 
 def build_tables(topo: Topology, full: bool = False, *,

@@ -171,10 +171,14 @@ class Supervisor:
             predicted_bytes: Optional[int] = None) -> SupervisedResult:
         """Run ``argv`` to success, retrying with backoff on failure.
 
-        ``predicted_bytes`` (a memory estimate) is checked against
-        the RSS budget *before* the first attempt: a worker predicted to
-        blow the budget raises :class:`AdmissionRefused` instead of being
-        started and OOM-killed ``max_retries + 1`` times.
+        ``predicted_bytes`` (a memory estimate: for a worker that runs
+        an experiment on the host,
+        :func:`repro_torch.api.admission.device_peak_bytes` of it with
+        ``device="cpu"``) is checked against the RSS budget *before* the
+        first attempt: a worker predicted to blow the budget raises
+        :class:`AdmissionRefused` instead of being started and OOM-killed
+        ``max_retries + 1`` times.  A worker on the card is priced by the
+        admission gate inside its own ``run``.
 
         The command must be idempotent-resumable (e.g. carry a
         ``--ckpt-dir`` directory): the supervisor re-execs the same argv and
@@ -186,8 +190,8 @@ class Supervisor:
             raise AdmissionRefused(
                 f"predicted peak RSS {predicted_bytes} B exceeds the "
                 f"supervisor budget {cfg.rss_budget_bytes} B; not starting "
-                "the worker.  Shrink the spec (fewer replicas, smaller "
-                "chunk, masks='blocked') or raise the budget.")
+                "the worker.  Shrink the spec (fewer replicas, a smaller "
+                "fabric) or raise the budget.")
         attempts: list[WorkerAttempt] = []
         total = 0
         t0 = time.monotonic()

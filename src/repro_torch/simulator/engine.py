@@ -100,7 +100,7 @@ import torch
 
 from .. import prng
 from .._device import resolve_device
-from ..core.routing import RoutingTables, pack_mask_block
+from ..core.routing import POLICIES, RoutingTables, pack_mask_block
 from ..kernels.switch_arb.ops import (flat_rows_geometry,
                                       switch_arbitrate_rows, vc_prearb)
 from ..workloads.patterns import (ARRIVAL_PATTERNS, bounded_pareto_mean,
@@ -111,8 +111,6 @@ __all__ = ["SimConfig", "Traffic", "Simulator", "pack_mask_block",
            "percentiles", "POLICIES", "POOL_KEYS", "KEY_KEYS", "MASK_KEYS",
            "LATENCY_QS", "PROG_SHARED"]
 
-POLICIES = ("polarized", "minimal_adaptive", "ksp", "ugal", "valiant",
-            "degraded")
 # the policies that route through an intermediate leaf (p_mid)
 _VALIANT_POLICIES = ("ugal", "valiant")
 

@@ -32,7 +32,13 @@ missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.runtime.fault_tolerance",
                   "repro_torch.runtime.resilient",
                   "repro_torch.runtime.supervisor",
-                  "repro_torch.api.resume"} - set(names))
+                  "repro_torch.api.resume",
+                  "repro_torch.api.memory", "repro_torch.api.admission",
+                  "repro_torch.search", "repro_torch.search.spec",
+                  "repro_torch.search.space", "repro_torch.search.pareto",
+                  "repro_torch.search.loop", "repro_torch.search.cli",
+                  "repro_torch.fabric",
+                  "repro_torch.fabric.planner"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -141,3 +147,32 @@ def test_resumable_entry_points_refuse_to_run_on_the_cpu_by_default(
     assert done.completed
     # a finished directory is reported, not run, so it needs no device
     assert resume(str(tmp_path / "c")) == done
+
+
+def test_search_and_estimate_refuse_to_run_on_the_cpu_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import json
+
+    from repro_torch.api import check_admission, device_peak_bytes
+    from repro_torch.api.__main__ import main as cli_main
+    from repro_torch.search import SearchSpec, search
+    spec = SearchSpec(endpoints=32, families=("mrls",), radix=(8,),
+                      f=(1.0,), vcs=(2,), budget=1, screen_warm=2,
+                      screen_measure=2, warm=2, measure=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search(spec)
+    path = tmp_path / "search.json"
+    path.write_text(json.dumps({"search": spec.to_dict()}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["search", str(path), "--pareto-out", ""])
+    exp_path = ROOT / "examples" / "specs" / "tiny_mrls.json"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["estimate", str(exp_path)])
+    from repro_torch.api import Experiment
+    exp = Experiment.from_json(exp_path.read_text())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        check_admission(exp)
+    # pricing the card needs no card
+    assert device_peak_bytes(exp) > device_peak_bytes(exp, "cpu")
+    assert search(spec, device="cpu")["n_candidates"] == 1
