@@ -15,3 +15,12 @@ def resolve_device(device=None) -> torch.device:
                 "versions of its kernels on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: ``"cuda"`` is the current card, so that
+    two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -206,8 +206,10 @@ class SimulatorCache:
         self._sims.pop((network, route, resolve_device(device)), None)
 
     def close(self) -> None:
-        keys, self._sims = list(self._sims), {}
-        if any(dev.type == "cuda" for _, _, dev in keys):
+        sims, self._sims = self._sims, {}
+        for sim in sims.values():
+            sim.close()
+        if any(dev.type == "cuda" for _, _, dev in sims):
             torch.cuda.empty_cache()
 
     def __enter__(self) -> "SimulatorCache":

@@ -30,6 +30,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import place_tree
+
 __all__ = ["Checkpointer"]
 
 
@@ -166,11 +168,13 @@ class Checkpointer:
             self._thread = None
 
     def restore(self, template, step: Optional[int] = None,
-                device=None) -> tuple[Any, dict]:
+                device=None, shardings=None) -> tuple[Any, dict]:
         """Load into the structure of ``template``: a tensor leaf comes
         back as a contiguous tensor of its dtype on its device (on
-        ``device`` if given), any other leaf as the stored numpy array.
-        Returns ``(tree, meta)``."""
+        ``device`` if given), any other leaf as the stored numpy array;
+        with ``shardings`` (a tree of ``parallel.sharding.Placement``s of
+        the same structure) each tensor is then re-placed, elastic across
+        meshes.  Returns ``(tree, meta)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -180,4 +184,7 @@ class Checkpointer:
         dtypes = meta.get("dtypes", {})
         with np.load(os.path.join(path, "arrays.npz")) as data:
             flat = {k: (data[k], dtypes.get(k)) for k in data.files}
-        return _rebuild(template, flat, device), meta
+        tree = _rebuild(template, flat, device)
+        if shardings is not None:
+            tree = place_tree(tree, shardings)
+        return tree, meta

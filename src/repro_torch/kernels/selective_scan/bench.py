@@ -17,8 +17,9 @@ It builds only this kernel (``_build.build_all(["selective_scan"])``, with
    grid and waves;
 3. holds every variant (K = 2, 4, 8 states a thread, planned blocks; and
    K = 4 with 64-channel blocks) bitwise to ``selective_scan_ref`` on the
-   cases of :func:`cases`: ``chip_smoke.py`` phase 9's, ``Di % 4 != 0``
-   and ``T % CHUNK_STEPS != 0``;
+   cases of :func:`cases`: ``chip_smoke.py`` phase 9's (Hymba's and
+   falcon-mamba's prefill shapes among them), ``Di % 4 != 0`` and
+   ``T % CHUNK_STEPS != 0``;
 4. times each variant at ``[4, 4096, 3200, 16]`` by CUDA events beside
    the bound of :func:`scan_bound_ms`.
 
@@ -50,6 +51,9 @@ __all__ = ["scan_bound_ms", "cases", "inputs", "run_cases", "sass_counts",
            "time_variants", "variants", "main"]
 
 SERVE = (4, 4096, 3200)          # Hymba-1.5B's prefill: batch, tokens, Di
+# falcon-mamba-7b's prefill (Di 8,192) at one request and at the serving
+# batch of chip_smoke.py phase 21
+FALCON = ((1, 4096, 8192), (2, 4096, 8192))
 STATE = kernel.STATE
 
 
@@ -75,12 +79,14 @@ def scan_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
 
 def cases() -> list:
     """``[(B, T, Di, h0 zero)]``: the serving slice first (the timed one,
-    Di % 4 == 0, T a multiple of the staged run), then ``chip_smoke.py``
-    phase 9's ragged shapes, then ``T % CHUNK_STEPS != 0`` with
-    ``Di % 4 == 0`` and not, T shorter than one run, and T = 1."""
+    Di % 4 == 0, T a multiple of the staged run), falcon-mamba's prefill
+    shapes (``FALCON``), then ``chip_smoke.py`` phase 9's ragged shapes,
+    then ``T % CHUNK_STEPS != 0`` with ``Di % 4 == 0`` and not, T shorter
+    than one run, and T = 1."""
     b, t, di = SERVE
     tc = kernel.CHUNK_STEPS
-    return [(b, t, di, True), (3, 77, 50, False), (1, 1000, 3211, False),
+    return [(b, t, di, True)] + [(*f, True) for f in FALCON] + [
+            (3, 77, 50, False), (1, 1000, 3211, False),
             (2, tc + 1, 52, False), (2, 3 * tc + 5, 17, False),
             (3, 5, 130, False), (1, 1, 6, False)]
 

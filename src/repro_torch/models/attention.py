@@ -23,15 +23,19 @@ __all__ = ["gqa_specs", "gqa_qkv", "gqa_out", "decode_attention"]
 
 def gqa_specs(cfg) -> dict:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # the reference's tensor-parallel axis: over the heads, or over the head
+    # dim where the heads do not divide (tp_heads=False, Hymba)
+    h_ax, d_ax = ("tp", None) if cfg.tp_heads else (None, "tp")
     out = {
-        "wq": ParamSpec((d, H, hd)),
-        "wk": ParamSpec((d, Hkv, hd)),
-        "wv": ParamSpec((d, Hkv, hd)),
-        "wo": ParamSpec((H, hd, d), scale=init_scale_out(cfg.n_layers)),
+        "wq": ParamSpec((d, H, hd), axes=("fsdp", h_ax, d_ax)),
+        "wk": ParamSpec((d, Hkv, hd), axes=("fsdp", h_ax, d_ax)),
+        "wv": ParamSpec((d, Hkv, hd), axes=("fsdp", h_ax, d_ax)),
+        "wo": ParamSpec((H, hd, d), scale=init_scale_out(cfg.n_layers),
+                        axes=(h_ax, d_ax, "fsdp")),
     }
     if cfg.qk_norm:
-        out["q_norm"] = ParamSpec((hd,), "float32", "ones")
-        out["k_norm"] = ParamSpec((hd,), "float32", "ones")
+        out["q_norm"] = ParamSpec((hd,), "float32", "ones", axes=(None,))
+        out["k_norm"] = ParamSpec((hd,), "float32", "ones", axes=(None,))
     return out
 
 

@@ -4,7 +4,12 @@ A model's parameters are described by a tree of :class:`ParamSpec` (nested
 dicts).  :func:`init_params_np` turns a spec tree into float32 numpy arrays
 from a seed, with no framework involved, so the same weights can be fed to
 this package and to any other implementation of the same model;
-:func:`params_to_torch` rounds them to each spec's dtype on a device.
+:func:`params_to_torch` rounds them to each spec's dtype on a device, and
+:func:`init_params` does both a block of rows at a time
+(:func:`leaf_blocks_np`), so that a model larger than the host's memory in
+float32 is drawn one layer slab at a time.  Each spec names the logical
+sharding axis of every dim (``axes``); :func:`param_shardings` resolves
+them against a ``parallel.sharding.Sharder``.
 
 The numerics keep the reference model's cast points: the norm and RoPE
 compute in float32 and cast back to the input's dtype, projections give
@@ -14,17 +19,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ParamSpec", "flatten_specs", "spec_leaf_np", "init_params_np",
-           "params_to_torch", "count_params", "fdot", "proj", "rmsnorm",
-           "rope_freqs", "apply_rope", "mlp_specs", "mlp_apply", "pad_vocab",
+__all__ = ["ParamSpec", "flatten_specs", "spec_leaf_np", "leaf_blocks_np",
+           "init_params_np", "params_to_torch", "count_params",
+           "param_shardings", "fdot", "proj", "rmsnorm", "rope_freqs",
+           "apply_rope", "mlp_specs", "mlp_apply", "pad_vocab",
            "init_params", "init_scale_out"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# float32 elements in one block that leaf_blocks_np draws (256 MiB): one
+# layer of falcon-mamba-7b's in_proj
+_BLOCK_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +44,7 @@ class ParamSpec:
     dtype: str = "bfloat16"
     init: str = "normal"        # normal | zeros | ones | mamba_a | dt_bias
     scale: float = 0.02
+    axes: Optional[tuple] = None    # logical sharding name of each dim
 
 
 def flatten_specs(tree, prefix: str = "") -> list:
@@ -48,23 +60,15 @@ def flatten_specs(tree, prefix: str = "") -> list:
     return out
 
 
-def spec_leaf_np(spec, seed: int, index: int) -> np.ndarray:
-    """The float32 array of leaf ``index`` of a spec tree, from ``seed``.
-
-    Each leaf draws from its own ``np.random.default_rng([seed, index])``:
-    ``normal`` is a float32 standard normal times ``scale``; ``dt_bias``
-    is the inverse softplus of a uniform draw in [1e-3, 1e-1); ``mamba_a``
-    is ``log(1..N)`` over the last axis; ``zeros``/``ones`` draw nothing.
-    """
-    shape = tuple(spec.shape)
+def _draw(spec, rng, shape: tuple) -> np.ndarray:
+    """The next ``shape`` float32 values of ``spec``'s init from ``rng``."""
     if spec.init == "zeros":
         return np.zeros(shape, np.float32)
     if spec.init == "ones":
         return np.ones(shape, np.float32)
     if spec.init == "mamba_a":
-        a = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32))
+        a = np.log(np.arange(1, spec.shape[-1] + 1, dtype=np.float32))
         return np.ascontiguousarray(np.broadcast_to(a, shape))
-    rng = np.random.default_rng([seed, index])
     if spec.init == "dt_bias":
         u = rng.random(shape, dtype=np.float32) * np.float32(0.099) \
             + np.float32(1e-3)
@@ -76,17 +80,64 @@ def spec_leaf_np(spec, seed: int, index: int) -> np.ndarray:
     return x
 
 
-def init_params_np(specs, seed: int = 0) -> dict:
-    """Float32 numpy arrays for every leaf of ``specs``, in the same nested
-    dict layout (see :func:`spec_leaf_np`)."""
+def spec_leaf_np(spec, seed: int, index: int,
+                 rows: Optional[int] = None) -> np.ndarray:
+    """The float32 array of leaf ``index`` of a spec tree, from ``seed``.
+
+    Each leaf draws from its own ``np.random.default_rng([seed, index])``:
+    ``normal`` is a float32 standard normal times ``scale``; ``dt_bias``
+    is the inverse softplus of a uniform draw in [1e-3, 1e-1); ``mamba_a``
+    is ``log(1..N)`` over the last axis; ``zeros``/``ones`` draw nothing.
+    ``rows`` keeps the first ``rows`` rows of the first axis: numpy fills
+    an array in C order from one stream, so they equal the whole leaf's
+    (the first layers of a stacked leaf, at the whole model's scale).
+    """
+    shape = tuple(spec.shape)
+    if rows is not None:
+        shape = (min(rows, shape[0]),) + shape[1:]
+    return _draw(spec, np.random.default_rng([seed, index]), shape)
+
+
+def leaf_blocks_np(spec, seed: int, index: int, rows: Optional[int] = None):
+    """:func:`spec_leaf_np` a block of rows of the first axis at a time:
+    yields ``(lo, hi, block)`` with ``block`` the float32 rows ``lo:hi``.
+
+    The blocks come in order from the leaf's one generator, so together
+    they are the whole leaf bit for bit, while the host holds one block
+    (at most ``_BLOCK_ELEMS`` elements, or one row): a stacked leaf is
+    drawn one layer slab at a time.  ``rows`` stops after the first
+    ``rows`` rows.  A leaf needs at least one axis."""
+    shape = tuple(spec.shape)
+    if not shape:
+        raise ValueError("a 0-d leaf has no rows to draw in blocks")
+    n = shape[0] if rows is None else min(rows, shape[0])
+    row = math.prod(shape[1:])
+    step = max(1, _BLOCK_ELEMS // max(row, 1))
+    rng = np.random.default_rng([seed, index])
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        yield lo, hi, _draw(spec, rng, (hi - lo,) + shape[1:])
+
+
+def _nest(paths: list, values: list) -> dict:
+    """The nested dict of ``flatten_specs``' paths holding ``values``."""
     out: dict = {}
-    for i, (path, spec) in enumerate(flatten_specs(specs)):
+    for path, v in zip(paths, values):
         node = out
         *parents, leaf = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})
-        node[leaf] = spec_leaf_np(spec, seed, i)
+        node[leaf] = v
     return out
+
+
+def init_params_np(specs, seed: int = 0) -> dict:
+    """Float32 numpy arrays for every leaf of ``specs``, in the same nested
+    dict layout (see :func:`spec_leaf_np`)."""
+    leaves = flatten_specs(specs)
+    return _nest([p for p, _ in leaves],
+                 [spec_leaf_np(spec, seed, i)
+                  for i, (_, spec) in enumerate(leaves)])
 
 
 def params_to_torch(specs, arrays, device) -> dict:
@@ -95,27 +146,52 @@ def params_to_torch(specs, arrays, device) -> dict:
     if isinstance(specs, dict):
         return {k: params_to_torch(specs[k], arrays[k], device)
                 for k in specs}
-    t = torch.from_numpy(np.ascontiguousarray(arrays, np.float32))
+    # ascontiguousarray makes a 0-d array 1-d: keep the leaf's shape
+    t = torch.from_numpy(np.ascontiguousarray(arrays, np.float32)
+                         .reshape(np.shape(arrays)))
     return t.to(device=device).to(_DTYPES[specs.dtype])
 
 
-def init_params(specs, seed: int, device) -> dict:
-    """:func:`init_params_np` then :func:`params_to_torch`, one leaf at a
-    time, so that the host never holds more than one float32 leaf."""
+def init_params(specs, seed: int, device, threads: int = 1) -> dict:
+    """:func:`init_params_np` then :func:`params_to_torch`, one block of
+    rows at a time (:func:`leaf_blocks_np`), each written into its leaf's
+    tensor of the spec's dtype on ``device``: the host holds one float32
+    block a thread, never a whole float32 leaf.  ``threads`` > 1 draws
+    that many leaves at once, the largest first (numpy's fills release
+    the GIL); each leaf's stream stays in one thread, so the weights are
+    the same whatever ``threads``."""
     leaves = flatten_specs(specs)
-    index = {path: i for i, (path, _) in enumerate(leaves)}
 
-    def build(tree, prefix):
-        if isinstance(tree, dict):
-            return {k: build(tree[k], f"{prefix}/{k}" if prefix else k)
-                    for k in tree}
-        return params_to_torch(tree, spec_leaf_np(tree, seed, index[prefix]),
-                               device)
-    return build(specs, "")
+    def one(i: int) -> torch.Tensor:
+        spec = leaves[i][1]
+        if not spec.shape:
+            return params_to_torch(spec, spec_leaf_np(spec, seed, i), device)
+        out = torch.empty(tuple(spec.shape), dtype=_DTYPES[spec.dtype],
+                          device=device)
+        for lo, hi, block in leaf_blocks_np(spec, seed, i):
+            out[lo:hi] = torch.from_numpy(block).to(device).to(out.dtype)
+        return out
+
+    order = sorted(range(len(leaves)),
+                   key=lambda i: -math.prod(leaves[i][1].shape))
+    if threads > 1:
+        with ThreadPoolExecutor(threads) as pool:
+            made = dict(zip(order, pool.map(one, order)))
+    else:
+        made = {i: one(i) for i in order}
+    return _nest([p for p, _ in leaves], [made[i] for i in range(len(leaves))])
 
 
 def count_params(specs) -> int:
     return sum(int(np.prod(s.shape)) for _, s in flatten_specs(specs))
+
+
+def param_shardings(specs, sh) -> dict:
+    """Each leaf's placement on ``sh``'s mesh (``Sharder.sharding`` of its
+    ``axes`` and shape), in the spec tree's layout."""
+    if isinstance(specs, dict):
+        return {k: param_shardings(v, sh) for k, v in specs.items()}
+    return sh.sharding(specs.axes, specs.shape)
 
 
 # ---------------------------------------------------------------------- #
@@ -163,8 +239,9 @@ def mlp_specs(d_model: int, d_ff: int, act: str, scale_out: float) -> dict:
             f"activation {act!r}: the port runs the SwiGLU MLP only "
             "(ROADMAP queue 1 item 13)")
     return {
-        "wi": ParamSpec((d_model, 2, d_ff)),
-        "wo": ParamSpec((d_ff, d_model), scale=scale_out),
+        "wi": ParamSpec((d_model, 2, d_ff), axes=("fsdp", None, "tp")),
+        "wo": ParamSpec((d_ff, d_model), scale=scale_out,
+                        axes=("tp", "fsdp")),
     }
 
 

@@ -9,8 +9,9 @@ a Python loop where the reference scans.
 
 Two entry points: :func:`prefill` builds the decode cache from a prompt
 and :func:`decode_step` runs one token against it, updating the cache in
-place (the reference returns a new cache).  Only the ``hybrid`` and
-``hybrid_full`` kinds (Hymba) are ported; every other kind raises.  The
+place (the reference returns a new cache).  The ``hybrid`` and
+``hybrid_full`` kinds (Hymba) and the attention-free ``mamba`` kind
+(falcon-mamba) are ported; every other kind raises.  The
 configuration also carries the reference's ``family`` and ``moe``, which
 the serving bridge reads for the architectures whose models are not
 ported.
@@ -35,12 +36,13 @@ __all__ = ["ModelConfig", "Group", "plan", "block_specs",
            "block_decode", "prefill", "decode_step"]
 
 _HYBRID = ("hybrid", "hybrid_full")
+_KINDS = _HYBRID + ("mamba",)
 
 
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"{kind!r} models are not ported yet (ROADMAP queue 1 item 13); the "
-        f"port runs the block kinds {_HYBRID}")
+        f"port runs the block kinds {_KINDS}")
 
 
 # ---------------------------------------------------------------------- #
@@ -61,6 +63,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
+    tp_heads: bool = True           # TP over heads (False -> over head_dim)
     # MoE (read by the serving bridge; the block is not ported)
     moe: Optional[MoECfg] = None
     # SSM
@@ -90,9 +93,12 @@ class Group:
 
 
 def plan(cfg: ModelConfig) -> list:
-    """The groups of layers, in order (the reference's ``plan`` for a
-    hybrid: runs of sliding-window layers between the full-attention
-    layers, each full-attention layer a group of its own)."""
+    """The groups of layers, in order (the reference's ``plan``): an SSM
+    model is one group of ``mamba`` layers; a hybrid has runs of
+    sliding-window layers between the full-attention layers, each
+    full-attention layer a group of its own."""
+    if cfg.family == "ssm":
+        return [Group("mamba", cfg.n_layers, "m")]
     if not cfg.hybrid:
         raise _not_ported(cfg.family)
     groups, prev, gi = [], 0, 0
@@ -109,10 +115,12 @@ def plan(cfg: ModelConfig) -> list:
 
 
 def _norm(cfg) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), "float32", "ones")
+    return ParamSpec((cfg.d_model,), "float32", "ones", axes=(None,))
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "mamba":
+        return {"ln1": _norm(cfg), "ssm": ssm_specs(cfg)}
     if kind not in _HYBRID:
         raise _not_ported(kind)
     return {
@@ -130,15 +138,16 @@ def _stack(specs, n: int):
     if isinstance(specs, dict):
         return {k: _stack(v, n) for k, v in specs.items()}
     return ParamSpec((n, *specs.shape), specs.dtype, specs.init,
-                     specs.scale)
+                     specs.scale, (None, *specs.axes))
 
 
 def build_specs(cfg: ModelConfig) -> dict:
     V, d = cfg.vocab_padded, cfg.d_model
     out = {
-        "embed": ParamSpec((V, d), scale=1.0 / math.sqrt(d)),
+        "embed": ParamSpec((V, d), scale=1.0 / math.sqrt(d),
+                           axes=(None, "tp")),
         "final_norm": _norm(cfg),
-        "unembed": ParamSpec((d, V)),
+        "unembed": ParamSpec((d, V), axes=("fsdp", "tp")),
         "groups": {g.name: _stack(block_specs(cfg, g.kind), g.n)
                    for g in plan(cfg)},
     }
@@ -167,6 +176,10 @@ def _mix_and_mlp(p: dict, x, a_out, s_out, cfg):
 
 def block_apply(kind: str, p: dict, x, cfg, positions):
     """Full-sequence (prefill) block.  Returns (x, cache entry)."""
+    if kind == "mamba":
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        y, (conv_s, ssm_s) = ssm_prefill(p["ssm"], h, cfg)
+        return x + y, {"conv": conv_s, "ssm": ssm_s}
     if kind not in _HYBRID:
         raise _not_ported(kind)
     window = None if kind == "hybrid_full" else cfg.sliding_window
@@ -196,6 +209,13 @@ def _write_kv(cache_k, cache_v, k, v, pos: int, window: bool) -> None:
 
 def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
     """x: [B,1,d]; updates the layer's ``cache`` in place, returns x."""
+    if kind == "mamba":
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        y, (conv_s, ssm_s) = ssm_decode(p["ssm"], h, cfg, cache["conv"],
+                                        cache["ssm"])
+        cache["conv"].copy_(conv_s)
+        cache["ssm"].copy_(ssm_s)
+        return x + y
     if kind not in _HYBRID:
         raise _not_ported(kind)
     window = None if kind == "hybrid_full" else cfg.sliding_window
@@ -229,8 +249,10 @@ def logits_from(params: dict, x, cfg) -> torch.Tensor:
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """Prompt pass: tokens [B,S] -> (last-token logits [B,1,V], cache).
 
-    The cache is ``{group: {"k", "v", "conv", "ssm"}}`` with each entry
-    stacked over the group's layers, as the reference's."""
+    The cache is ``{group: {"k", "v", "conv", "ssm"}}`` (a ``mamba``
+    group's ``{"conv", "ssm"}``: ``[L, B, di, K-1]`` and float32 ``[L, B,
+    di, N]``) with each entry stacked over the group's layers, as the
+    reference's."""
     B, S = tokens.shape
     x = embed(params, tokens)
     positions = torch.arange(S, dtype=torch.int32,

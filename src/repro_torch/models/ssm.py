@@ -1,4 +1,4 @@
-"""Mamba-1 selective SSM block (Hymba's parallel SSM path).
+"""Mamba-1 selective SSM block (falcon-mamba, Hymba's parallel SSM path).
 
 Prefill runs the causal depthwise conv and the projections in PyTorch,
 then one ``selective_scan`` over the whole prompt from a zero state: the
@@ -26,15 +26,17 @@ def ssm_specs(cfg) -> dict:
     N = cfg.ssm_state
     dt_rank = max(1, math.ceil(d / 16))
     return {
-        "in_proj": ParamSpec((d, 2, di)),
-        "conv_w": ParamSpec((cfg.ssm_conv, di)),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "x_proj": ParamSpec((di, dt_rank + 2 * N)),
-        "dt_w": ParamSpec((dt_rank, di), scale=dt_rank ** -0.5),
-        "dt_b": ParamSpec((di,), "float32", "dt_bias"),
-        "A_log": ParamSpec((di, N), "float32", "mamba_a"),
-        "D": ParamSpec((di,), "float32", "ones"),
-        "out_proj": ParamSpec((di, d), scale=init_scale_out(cfg.n_layers)),
+        "in_proj": ParamSpec((d, 2, di), axes=("fsdp", None, "tp")),
+        "conv_w": ParamSpec((cfg.ssm_conv, di), axes=(None, "tp")),
+        "conv_b": ParamSpec((di,), init="zeros", axes=("tp",)),
+        "x_proj": ParamSpec((di, dt_rank + 2 * N), axes=("tp", None)),
+        "dt_w": ParamSpec((dt_rank, di), scale=dt_rank ** -0.5,
+                          axes=(None, "tp")),
+        "dt_b": ParamSpec((di,), "float32", "dt_bias", axes=("tp",)),
+        "A_log": ParamSpec((di, N), "float32", "mamba_a", axes=("tp", None)),
+        "D": ParamSpec((di,), "float32", "ones", axes=("tp",)),
+        "out_proj": ParamSpec((di, d), scale=init_scale_out(cfg.n_layers),
+                              axes=("tp", "fsdp")),
     }
 
 

@@ -13,9 +13,11 @@ data cursor):
   deviation; a step slower than ``straggler_z`` sigmas is flagged and
   counted.
 
-Re-placing a state onto another set of devices after losing some
-(:func:`elastic_reshard`) comes with replica placement (ROADMAP item
-12); on one card :class:`FaultTolerantRunner` restores onto ``device``.
+:func:`elastic_reshard` re-places a state onto another mesh after losing
+part of the machine, leaf by leaf by its spec's sharding axes; a leaf
+that would split over distinct devices is refused (ROADMAP queue 1 item
+16).  :class:`FaultTolerantRunner` restores onto ``device`` or onto
+``shardings``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..checkpointing.checkpoint import Checkpointer
+from ..models.common import param_shardings
+from ..parallel.sharding import place_tree
 
 __all__ = ["BackoffPolicy", "FTConfig", "StragglerDetector",
            "schedule_fault_hook", "FaultTolerantRunner", "elastic_reshard"]
@@ -157,19 +161,22 @@ class FaultTolerantRunner:
     runner sleeps ``cfg.backoff.delay(consecutive, total)``; ``sleep_fn``
     is injectable so tests assert the delays without sleeping.  A
     restored state goes onto ``device`` (default: the devices of the
-    state the runner holds)."""
+    state the runner holds), then onto ``shardings`` (a tree of
+    ``parallel.sharding.Placement``s) if given."""
 
     def __init__(self, step_fn: Callable, batch_at: Callable,
                  ckpt: Checkpointer, cfg: FTConfig = FTConfig(),
                  fault_hook: Optional[Callable[[int], None]] = None,
                  device=None,
-                 sleep_fn: Callable[[float], None] = time.sleep):
+                 sleep_fn: Callable[[float], None] = time.sleep,
+                 shardings=None):
         self.step_fn = step_fn
         self.batch_at = batch_at
         self.ckpt = ckpt
         self.cfg = cfg
         self.fault_hook = fault_hook          # tests inject failures here
         self.device = device
+        self.shardings = shardings
         self.sleep_fn = sleep_fn
         self.stragglers = StragglerDetector(cfg)
         self.total_failures = 0
@@ -220,15 +227,17 @@ class FaultTolerantRunner:
                 self.delays.append(delay)
                 if delay > 0:
                     self.sleep_fn(delay)
-                state, meta = self.ckpt.restore(state, latest, self.device)
+                state, meta = self.ckpt.restore(state, latest, self.device,
+                                                self.shardings)
                 step = meta["step"]
         self.ckpt.wait()
         return state, step, history
 
 
 def elastic_reshard(tree, new_sharder, specs):
-    """Re-place a state tree onto a (possibly different-size) set of
-    devices: the recovery path after losing part of the machine."""
-    raise NotImplementedError(
-        "elastic_reshard re-places a state onto a device mesh, which "
-        "comes with replica placement across devices (ROADMAP item 12)")
+    """Re-place a state tree onto a (possibly different-size) mesh: the
+    recovery path after losing part of the machine.  Each tensor goes
+    where ``models.common.param_shardings(specs, new_sharder)`` puts it:
+    whole onto the one device its resolved axes span; a leaf that would
+    split over distinct devices raises ``NotImplementedError``."""
+    return place_tree(tree, param_shardings(specs, new_sharder))

@@ -69,6 +69,19 @@ batched states only: a caller that drives them slot by slot makes an
 (``run_completion_batch``) and ``run_program(seeds=)``, which go on a
 chunk at a time until every replica is done, as the reference's loops.
 
+Placement over devices (the reference's ``repro.parallel.sharding``
+simulator profile; ``repro_torch.parallel.sharding``):
+``run_chunk_sharded`` splits the replica axis over the devices of a
+``Sharder``'s ``replica`` axis, a contiguous ``R / n`` slice a shard,
+and steps the shards slot by slot in turn, each on a view of the
+simulator on its device (the tables copied there once, kept until
+``close``); every replica is bitwise ``run_chunk_batch``'s.  A device
+may repeat in the mesh, so one card or the CPU runs the split and the
+merge.  ``state_shardings`` gives the reference's ``switch``-axis layout
+and ``shard_state`` places a state on it over one device; a switch axis
+over distinct devices needs an exchange in ``_link_phase`` that the
+port does not have, and is refused.
+
 State and its lifetime:
 
 * The state is a dict of tensors on the simulator's device, with the
@@ -92,6 +105,8 @@ State and its lifetime:
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Optional
 
@@ -99,10 +114,11 @@ import numpy as np
 import torch
 
 from .. import prng
-from .._device import resolve_device
+from .._device import canonical_device, resolve_device
 from ..core.routing import POLICIES, RoutingTables, pack_mask_block
 from ..kernels.switch_arb.ops import (flat_rows_geometry,
                                       switch_arbitrate_rows, vc_prearb)
+from ..parallel.sharding import SPLIT_REFUSAL, Placement
 from ..workloads.patterns import (ARRIVAL_PATTERNS, bounded_pareto_mean,
                                   check_arrival, check_engine_pattern)
 from . import arrivals
@@ -326,6 +342,7 @@ class Simulator:
         self._link_nb = torch.as_tensor(nb0, dtype=_I32, device=dev)
         self._valid = torch.as_tensor(valid.reshape(-1), device=dev)
         self._init_requester_geometry(topo)
+        self._views = {}            # device -> this simulator there
 
     def _build_device_masks(self, tables: RoutingTables):
         """Device mask tables ``[N1*N, W]`` as int32 views of the uint32
@@ -1216,18 +1233,165 @@ class Simulator:
         return self.run_chunk(st, traffic, n_slots)
 
     # ------------------------------------------------------------------ #
+    # placement over devices (the repro_torch.parallel.sharding
+    # simulator profile)
+    # ------------------------------------------------------------------ #
+    def _device_view(self, device) -> "Simulator":
+        """This simulator on ``device``: itself on its own device, else a
+        shallow copy whose tensors (distances, masks, index tables) are
+        copies on ``device`` (copied once, not rebuilt: no table build
+        runs) and whose lazily filled index caches start empty.  Kept
+        until :meth:`close`."""
+        dev = canonical_device(device)
+        if dev == canonical_device(self.device):
+            return self
+        view = self._views.get(dev)
+        if view is None:
+            view = copy.copy(self)
+            for k, v in vars(self).items():
+                if isinstance(v, torch.Tensor):
+                    setattr(view, k, v.to(dev))
+                elif isinstance(v, dict):
+                    setattr(view, k, {})
+            view.device = dev
+            self._views[dev] = view
+        return view
+
+    def close(self) -> None:
+        """Drop the device views of ``run_chunk_sharded`` (their copies of
+        the tables), as the reference's ``close`` drops its sharded
+        executables; the simulator itself stays usable."""
+        self._views.clear()
+
+    def batch_pspecs(self, st, replica_axis: str) -> dict:
+        """Per-entry resolved axes sharding the leading replica dim:
+        ``(replica_axis, None, ...)``, and all ``None`` (replicated) for
+        the program's shared arrays (``PROG_SHARED``, one copy in a
+        batched state)."""
+        specs = {}
+        for k, v in st.items():
+            nd = v.ndim
+            if nd == PROG_SHARED.get(k, -1):
+                specs[k] = (None,) * nd
+            else:
+                specs[k] = (replica_axis,) + (None,) * (nd - 1)
+        return specs
+
+    def run_chunk_sharded(self, st, traffic: Traffic, n_slots: int,
+                          sharder):
+        """``run_chunk_batch`` with the replica axis split over the
+        devices of ``sharder.mesh``'s ``replica`` axis.
+
+        Shard ``i`` is the contiguous slice ``[i R/n, (i+1) R/n)`` of
+        every per-replica entry, on the view of this simulator on its
+        device (:meth:`_device_view`), with the program's shared arrays
+        on that device.  The shards advance slot by slot in turn, so that
+        distinct cards overlap; a device that repeats in the mesh runs its
+        shards one after another.  The replicas are independent, so every
+        replica is bitwise ``run_chunk_batch``'s (as the reference's
+        state, ``convert.state_to_numpy``: on the card the pool's pad
+        slot, a sink for the writes of non-writers, holds whichever write
+        lands last); each shard's crossbar round launches each kernel
+        once.  The result, concatenated on this simulator's device, is
+        written into ``st`` (consumed, as in ``run_chunk``), which is
+        returned.  ``sharder`` is a
+        ``repro_torch.parallel.sharding.Sharder`` with the simulator
+        profile (``Sharder.for_simulator()``); the replica count must
+        divide over the mesh's ``replica`` axis."""
+        axis = sharder.rules.replica
+        if axis is None:
+            raise ValueError("sharder has no replica axis; build it with "
+                             "Sharder.for_simulator()")
+        devices = sharder.mesh.axis_devices(axis)
+        n_dev = len(devices)
+        r = st["ejected"].shape[0] if st["ejected"].ndim else None
+        if r is None:
+            raise ValueError("run_chunk_sharded needs a batched state "
+                             "(make_batch_state)")
+        if r % n_dev:
+            raise ValueError(f"{r} replicas do not divide over {n_dev} "
+                             f"devices on mesh axis {axis!r}")
+        specs = self.batch_pspecs(st, axis)
+        per = r // n_dev
+        shards = []
+        for i, dev in enumerate(devices):
+            view = self._device_view(dev)
+            part = {k: (v[i * per:(i + 1) * per] if specs[k][:1] == (axis,)
+                        else v).to(view.device) for k, v in st.items()}
+            shards.append((view, view._batched(part)[0]))
+        for _ in range(n_slots):
+            for view, b in shards:
+                with _on(view.device):
+                    view._step(b, traffic)
+        for k, spec in specs.items():
+            if spec[:1] == (axis,):
+                st[k] = torch.cat([b[k].to(self.device) for _, b in shards])
+        return st
+
+    def state_shardings(self, st, sharder) -> dict:
+        """Per-entry placement (``parallel.sharding.Placement``) of the
+        reference's per-switch layout: an entry whose leading dim is
+        ``NQ`` (the queues) or ``S`` (the NICs, leaf-major, so an
+        endpoint split is a switch split) splits dim 0 over the mesh's
+        ``switch`` axis where the device count divides it; every other
+        entry (pool-indexed, with the pool's pad slot; scalars) is
+        replicated."""
+        axis = sharder.rules.switch
+        if axis is None:
+            raise ValueError("sharder has no switch axis; build it with "
+                             "Sharder.for_simulator(axis='switch')")
+        n_dev = sharder.mesh.shape[axis]
+        switch_major = {self.NQ, self.S}
+        out = {}
+        for k, v in st.items():
+            shard = (v.ndim >= 1 and v.shape[0] in switch_major
+                     and v.shape[0] % n_dev == 0)
+            spec = ((axis,) + (None,) * (v.ndim - 1) if shard
+                    else (None,) * v.ndim)
+            out[k] = Placement(sharder.mesh, spec)
+        return out
+
+    def shard_state(self, st, sharder) -> dict:
+        """Place a scalar state onto the ``switch``-axis layout.
+
+        Over a switch axis whose devices are all one device, the
+        simulator's, the whole state goes there, so a following
+        ``run_chunk`` is bitwise the unsharded one.  Over distinct
+        devices it raises ``NotImplementedError`` before it places
+        anything: each shard's link phase would have to exchange the
+        packets that cross shards, and torch has no partitioner to
+        insert that exchange as GSPMD does for the reference."""
+        shardings = self.state_shardings(st, sharder)
+        devs = Placement(sharder.mesh,
+                         (sharder.rules.switch,)).devices()
+        if len(devs) > 1:
+            raise NotImplementedError(
+                f"shard_state over {len(devs)} distinct devices "
+                f"{[str(d) for d in devs]}: {SPLIT_REFUSAL}")
+        if devs[0] != canonical_device(self.device):
+            raise ValueError(f"a switch mesh on {devs[0]} for a simulator "
+                             f"on {self.device}")
+        return {k: shardings[k].place(v) for k, v in st.items()}
+
+    # ------------------------------------------------------------------ #
     # measurement runs
     # ------------------------------------------------------------------ #
     def _throughput_window(self, st, traffic: Traffic, warm: int,
-                           measure: int):
-        """``warm`` then ``measure`` slots of ``st``; the window's
+                           measure: int, sharder=None):
+        """``warm`` then ``measure`` slots of ``st`` (through
+        :meth:`run_chunk_sharded` with a ``sharder``); the window's
         ejections, hop sum and pool stalls and the total ejections as
         numpy arrays (0-d, or [R] for a batched state), in one
         transfer."""
-        self.run_chunk(st, traffic, warm)
+        def chunk(n):
+            if sharder is None:
+                self.run_chunk(st, traffic, n)
+            else:
+                self.run_chunk_sharded(st, traffic, n, sharder)
+        chunk(warm)
         base = {k: st[k].clone() for k in ("ejected", "hop_sum",
                                            "pool_stall")}
-        self.run_chunk(st, traffic, measure)
+        chunk(measure)
         return torch.stack([st[k] - base[k] for k in base]
                            + [st["ejected"]]).cpu().numpy()
 
@@ -1248,16 +1412,12 @@ class Simulator:
                              measure: int = 400, sharder=None) -> dict:
         """Batched ``run_throughput``: one step for all ``seeds``, each
         metric a per-replica ``[R]`` array; replica ``i`` is bitwise the
-        scalar run with seed ``seeds[i]``.  A ``sharder`` (the
-        reference's split of the replicas over devices) is not ported
-        yet."""
-        if sharder is not None:
-            raise NotImplementedError(
-                "run_throughput_batch(sharder=...) splits the replicas over "
-                "devices, which is not ported yet (ROADMAP item 12)")
+        scalar run with seed ``seeds[i]``.  With a ``sharder`` (simulator
+        profile, replica axis) the window runs through
+        :meth:`run_chunk_sharded`: the same results, bitwise."""
         st = self.make_batch_state(traffic, seeds)
         ej, hop, stall, total = self._throughput_window(st, traffic, warm,
-                                                        measure)
+                                                        measure, sharder)
         return {
             "throughput": ej / (self.S * measure),
             "avg_hops": hop / np.maximum(ej, 1),
@@ -1725,6 +1885,13 @@ class Simulator:
                     "state": st, **extra}
         return {"slots": slots, "completed": completed, "pool_stall": stall,
                 "phase_slots": done, "state": st, **extra}
+
+
+def _on(device):
+    """The context that makes ``device`` current for the kernels'
+    launches (a no-op off the card)."""
+    return torch.cuda.device(device) if device.type == "cuda" else \
+        contextlib.nullcontext()
 
 
 def _unbatch(st: dict, b: dict) -> None:

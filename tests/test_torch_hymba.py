@@ -258,7 +258,7 @@ def test_unported_archs_and_kinds_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_model.build_specs(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("falcon-mamba-7b")
+        get_config("nemotron-4-15b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = reduced(get_config("hymba-1.5b"))

@@ -38,7 +38,10 @@ missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.search.space", "repro_torch.search.pareto",
                   "repro_torch.search.loop", "repro_torch.search.cli",
                   "repro_torch.fabric",
-                  "repro_torch.fabric.planner"} - set(names))
+                  "repro_torch.fabric.planner",
+                  "repro_torch.parallel", "repro_torch.parallel.sharding",
+                  "repro_torch.launch.mesh",
+                  "repro_torch.configs.falcon_mamba_7b"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -176,3 +179,17 @@ def test_search_and_estimate_refuse_to_run_on_the_cpu_by_default(tmp_path):
     # pricing the card needs no card
     assert device_peak_bytes(exp) > device_peak_bytes(exp, "cpu")
     assert search(spec, device="cpu")["n_candidates"] == 1
+
+
+def test_placement_entry_points_refuse_to_run_on_the_cpu_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import Sharder, make_sim_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sim_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Sharder.for_simulator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_test_mesh()
+    assert make_sim_mesh(2, device="cpu").devices == (torch.device("cpu"),) * 2

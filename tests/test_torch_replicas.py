@@ -22,8 +22,9 @@ and ``fat_tree(4, 1)`` under KSP; pool 4096, seeds 0, 3 and 5):
   --replicas`` equal ``repro.api``'s records;
 * a batched slot calls each crossbar kernel as often as a scalar one;
 * ``resilience`` at 2 replicas is the scalar run of each seed; the
-  refusal that stays (a ``sharder``) names its ROADMAP item, and a
-  batched ``run_program(budget_chunks=)`` runs a bounded segment.
+  refusal that stays (the ``switch`` axis over distinct devices) names
+  its ROADMAP item, and a batched ``run_program(budget_chunks=)`` runs a
+  bounded segment.
 
 Tolerance: zero.
 """
@@ -46,6 +47,7 @@ from repro.simulator.engine import Simulator as JaxSimulator
 from repro.simulator.engine import Traffic as JaxTraffic
 from repro_torch.api.__main__ import main as cli_main
 from repro_torch.convert import state_from_jax, state_to_numpy
+from repro_torch.parallel.sharding import Mesh, Sharder
 from repro_torch.simulator import engine as port_engine
 from repro_torch.simulator.engine import (PROG_SHARED, SimConfig, Simulator,
                                           Traffic)
@@ -441,9 +443,12 @@ def test_refusals_that_stay_name_their_items(tables):
     # the bounded segment runs now (tests/test_torch_resilient.py)
     seg = sim.run_program(cp, seeds=SEEDS, budget_chunks=1)
     assert seg["running"] and seg["phase_slots"].shape == (len(SEEDS), 8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sim.run_throughput_batch(Traffic("uniform"), SEEDS,
-                                 sharder=object())
+    # the switch axis over distinct devices (a sharder's replica axis
+    # runs: tests/test_torch_sharding.py); no card is touched
+    distinct = Sharder.for_simulator(
+        Mesh((torch.device("cpu"), torch.device("cuda", 0)), ("switch",)))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        sim.shard_state(sim.make_state(Traffic("uniform")), distinct)
     with pytest.raises(ValueError, match="batched state"):
         sim.run_chunk_batch(sim.make_state(Traffic("uniform")),
                             Traffic("uniform"), 1)

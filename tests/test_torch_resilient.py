@@ -52,6 +52,8 @@ from repro.simulator.engine import Simulator as JaxSimulator
 from repro.simulator.engine import Traffic as JaxTraffic
 from repro_torch.checkpointing import Checkpointer
 from repro_torch.convert import state_to_numpy
+from repro_torch.models.common import ParamSpec
+from repro_torch.parallel.sharding import Mesh, Sharder
 from repro_torch.runtime import fault_tolerance as port_ft
 from repro_torch.runtime import resilient as port_res
 from repro_torch.simulator.engine import (KEY_KEYS, MASK_KEYS, POOL_KEYS,
@@ -608,8 +610,14 @@ def test_runner_restores_a_non_finite_loss_onto_the_device(tmp_path):
     state, step, hist = run.run(torch.zeros(2, dtype=torch.int32), 0, 4)
     assert step == 4 and state.tolist() == [4, 4]
     assert run.total_failures == 1 and len(hist) == 4
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_ft.elastic_reshard({"a": state}, None, None)
+    # a leaf split over distinct devices stays refused (a split over
+    # one device runs: tests/test_torch_sharding.py); no card is touched
+    mesh = Mesh((torch.device("cpu"), torch.device("cuda", 0)),
+                ("data", "model"), (1, 2))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        port_ft.elastic_reshard(
+            {"a": state}, Sharder(mesh),
+            {"a": ParamSpec((2,), "int32", axes=("tp",))})
 
 
 def test_schedule_fault_hook_reaches_the_reference_state(tmp_path):
