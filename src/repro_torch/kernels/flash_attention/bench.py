@@ -6,10 +6,12 @@ Run from the root of a checkout on a host with one NVIDIA H100:
 
 It builds only this kernel (``_build.build_all(["flash_attention"])``,
 with ``nvcc``'s ``-Xptxas -v`` report), holds it to its plain version on
-the six cases of ``chip_smoke.py``'s phase 9 (``ref.compare_bf16``:
-Hymba-1.5B's full and 2,048-window layers of 4 x 4,096 tokens, and
-ragged and D = 16 shapes), times the two serving shapes beside the plain
-version, SDPA and the bound, and counts the ``HGMMA`` and ``UTMALDG``
+the cases of ``chip_smoke.py``'s phase 9 (``ref.compare_bf16``:
+Hymba-1.5B's full and 2,048-window layers of 4 x 4,096 tokens, ragged
+and D = 16 shapes, then ``CASES_D128``: qwen3-1.7b's and
+qwen3-moe-235b-a22b's full layers at head dim 128 and ragged D = 128
+shapes), times the serving shapes beside the plain version, SDPA and
+the bound, and counts the ``HGMMA`` and ``UTMALDG``
 instructions of the built library's kernels (``cuobjdump -sass``).  It
 exits with 1 if a case fails or either count is 0.  ``chip_smoke.py``
 phase 9 calls :func:`run_cases`, so the cases and the bound live here.
@@ -39,7 +41,8 @@ from .. import _build
 from . import kernel as fa
 from .ref import compare_bf16, flash_attention_ref, live_pairs
 
-__all__ = ["cases", "bound_ms", "run_cases", "sass_counts", "main"]
+__all__ = ["cases", "CASES_D128", "bound_ms", "run_cases", "sass_counts",
+           "main"]
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -58,6 +61,16 @@ def cases(cfg, batch: int = SERVE_BATCH, seq: int = SERVE_PROMPT) -> list:
     return [(batch, seq, seq, H, Hkv, D, None), (batch, seq, seq, H, Hkv, D, W),
             (1, 1000, 1000, H, Hkv, D, 300), (2, 77, 333, H, Hkv, D, None),
             (1, 130, 130, 5, 1, 16, 5), (3, 200, 200, 5, 1, 16, 64)]
+
+
+# head dim 128: a full causal layer of qwen3-1.7b's prefill (4 x 4,096,
+# 16 heads on 8, GQA group 2) and of qwen3-moe-235b-a22b's (2 x 4,096, 64
+# heads on 4, group 16) first (the timed ones), then ragged shapes: a
+# window, queries at the end of a longer key range, and rows past Sq
+CASES_D128 = [(4, 4096, 4096, 16, 8, 128, None),
+              (2, 4096, 4096, 64, 4, 128, None),
+              (1, 1000, 1100, 16, 2, 128, 300),
+              (2, 77, 333, 64, 4, 128, None)]
 
 
 def bound_ms(b, sq, skv, h, hkv, d, window) -> tuple:
@@ -114,16 +127,18 @@ def _sdpa(q, k, v, window: Optional[int]):
 
 def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
               seq: int = SERVE_PROMPT, n_timed: int = 2,
-              strict: bool = True) -> dict:
-    """Every case of :func:`cases` through the kernel and the plain
-    version on ``gen``'s device, held together by ``compare_bf16``;
-    raises on the first case that fails when ``strict``.  The first
-    ``n_timed`` cases are timed.  Returns ``{"max_abs_err": x, "failed":
-    [labels], "timed": {window: {"ms", "plain_ms", "library_ms",
-    "bound_ms", "bound_by"}}}``."""
+              strict: bool = True, case_list=None) -> dict:
+    """Every case of ``case_list`` (default :func:`cases` of ``cfg``)
+    through the kernel and the plain version on ``gen``'s device, held
+    together by ``compare_bf16``; raises on the first case that fails
+    when ``strict``.  The first ``n_timed`` cases are timed.  Returns
+    ``{"max_abs_err": x, "failed": [labels], "timed": {case index:
+    {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}}``."""
     dev = gen.device
     errs, timed, failed = [], {}, []
-    for i, (b, sq, skv, h, hkv, d, win) in enumerate(cases(cfg, batch, seq)):
+    if case_list is None:
+        case_list = cases(cfg, batch, seq)
+    for i, (b, sq, skv, h, hkv, d, win) in enumerate(case_list):
         q, k, v = [torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).to(torch.bfloat16)
                    for shape in ((b, sq, h, d), (b, skv, hkv, d),
@@ -157,8 +172,8 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
                             iters=3, warmup=1)
             lib_ms = cuda_ms(lib, iters=10, warmup=2)
             bnd, by = bound_ms(b, sq, skv, h, hkv, d, win)
-            timed[win] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                              bound_ms=bnd, bound_by=by)
+            timed[i] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                            bound_ms=bnd, bound_by=by)
             print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms "
                   f"({by}, {100 * bnd / ms:.2f}% of the bound; MUFU ex2 "
                   f"ceiling {ex2_ms(b, sq, skv, h, win):.6f} ms); plain "
@@ -222,18 +237,22 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(9)
     try:
         out = run_cases(cfg, gen)
+        print(json.dumps(out))
+        print("-- head dim 128: qwen3-1.7b's and qwen3-moe-235b-a22b's layers")
+        print(json.dumps(run_cases(cfg, gen, case_list=CASES_D128)))
     except AssertionError as e:
         print(f"FAILED: {e}")
         return 1
-    print(json.dumps(out))
     if args.tc_sums_only:
         define = "FLASH_ATTENTION_TC_SUMS_ONLY"
         rec = _build.build_all(["flash_attention"], (define,))
         print(f"\n-- built with {define}: the tensor cores' sums alone")
         with _kernel_library(rec["flash_attention"]["path"]):
-            abl = run_cases(cfg, torch.Generator(device="cuda").manual_seed(9),
-                            strict=False)
-        print(json.dumps(abl))
+            for case_list in (None, CASES_D128):
+                abl = run_cases(
+                    cfg, torch.Generator(device="cuda").manual_seed(9),
+                    strict=False, case_list=case_list)
+                print(json.dumps(abl))
     return 0 if counts and all(counts.values()) else 1
 
 

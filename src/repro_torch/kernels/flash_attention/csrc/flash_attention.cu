@@ -47,6 +47,10 @@
 //   clock per SM: about 0.23 ms.
 // - the float32 pipe: scale, mask, max, subtract, the expf's range
 //   reduction, sum and rescale, about 8 operations per pair: about 0.2 ms.
+// At D = 128 the tensor-core bound of a full causal layer is 2.75e11
+// operations, 0.278 ms, for qwen3-1.7b (B 4, H 16, Hkv 8) and 5.50e11,
+// 0.556 ms, for qwen3-moe-235b-a22b (B 2, H 64, Hkv 4); the exponentials
+// per pair stay the same, so the tensor cores' share of a tile doubles.
 //
 // Design.  One block is one warpgroup (128 threads) and owns a tile of 64
 // queries of one (batch, head), wgmma's M; blocks take the heaviest query
@@ -56,14 +60,18 @@
 // One thread loads Q once, and K and V tile by tile, with TMA into a ring
 // of kStages shared-memory stages, each completed on its own mbarrier;
 // TMA fills the rows past Skv (or Sq) with zeros.  Tiles are swizzled
-// (128-byte rows at D = 64, 32-byte rows at D = 16) as wgmma reads them.
+// (128-byte rows at D = 64, 32-byte rows at D = 16) as wgmma reads them;
+// at D = 128 a row is 256 bytes, wider than a 128-byte swizzled box, so a
+// tile is two 64-column halves, each loaded as its own box and swizzled as
+// a D = 64 tile, the descriptors stepping from one half to the next.
 // S = Q K^T is D/16 wgmma m64n64k16 with both operands in shared memory; it
 // leaves each thread two rows (r and r + 8) of 16 columns each, so the
 // row max and row sum are four-lane shuffles.  The mask is applied only on
 // tiles that hold a masked pair.  P is computed in place in S's registers
 // and, rounded pairwise to bf16x2, is already the register A fragment of
 // O += P V (4 wgmma m64nDk16, V read N-major through the descriptor's
-// transpose bit), so P never goes through shared memory.  O stays in
+// transpose bit; 4 m64n64k16 a half at D = 128), so P never goes through
+// shared memory.  O stays in
 // float32 registers.  A stage is refilled after the block's barrier at the
 // end of the tile that used it, so the next tile's loads overlap this
 // tile's math, and the three or four blocks that fit on an SM overlap one
@@ -114,17 +122,25 @@ constexpr float kExpSlack = 0x1p-21f;
 
 template <int D>
 struct Cfg {
-  static_assert(D == 16 || D == 64, "head dims 16 and 64");
-  static constexpr int kRowBytes = 2 * D;              // one bf16 row
-  static constexpr int kTileBytes = kBK * kRowBytes;   // a Q, K or V tile
+  static_assert(D == 16 || D == 64 || D == 128, "head dims 16, 64 and 128");
+  // a tile is kSubs sub-tiles of kSubD columns each, side by side: with
+  // the 128-byte swizzle a TMA box spans at most 128 bytes a row, so a
+  // 128-wide bf16 row (256 bytes) is loaded as two 64-column halves
+  static constexpr int kSubD = D == 128 ? 64 : D;
+  static constexpr int kSubs = D / kSubD;
+  static constexpr int kChunks = kSubD / 8;            // 16-byte chunks a row
+  static constexpr int kRowBytes = 2 * kSubD;          // one sub-tile row
+  static constexpr int kSubBytes = kBK * kRowBytes;    // one sub-tile
+  static constexpr int kTileBytes = kSubs * kSubBytes; // a Q, K or V tile
   static constexpr uint64_t kLayout =
-      D == 64 ? sm90::kSwizzle128 : sm90::kSwizzle32;
+      D >= 64 ? sm90::kSwizzle128 : sm90::kSwizzle32;
   static constexpr CUtensorMapSwizzle kMapSwizzle =
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   // eight rows of one swizzle atom: the stride between core-matrix groups
   // along M or N (Q, K) and along K (V)
   static constexpr uint32_t kSbo = 8 * kRowBytes;
   static constexpr int kOregs = D / 2;                 // O fragment floats
+  static constexpr int kSubOregs = kSubD / 2;          // of one sub-tile
   // Q, K[kStages], V[kStages], 1 + 2 kStages mbarriers, then each
   // stage's largest key norm of each warp's 16 keys
   static constexpr int kBarOffset = (1 + 2 * kStages) * kTileBytes;
@@ -134,17 +150,21 @@ struct Cfg {
 };
 
 // byte offset of the 16-byte chunk c (d = 8 c .. 8 c + 7) of row `row` in
-// a tile that TMA swizzled: the chunk index is XORed with row bits 0-2
-// (128-byte rows) or row bit 2 (32-byte rows)
+// a tile that TMA swizzled: chunk c lies in sub-tile c / kChunks, and its
+// index there is XORed with row bits 0-2 (128-byte rows) or row bit 2
+// (32-byte rows)
 template <int D>
 __device__ __forceinline__ int chunk_offset(int row, int c) {
-  const int swz = D == 64 ? (row & 7) : ((row >> 2) & 1);
-  return row * Cfg<D>::kRowBytes + ((c ^ swz) << 4);
+  using C = Cfg<D>;
+  const int swz = D >= 64 ? (row & 7) : ((row >> 2) & 1);
+  return (c / C::kChunks) * C::kSubBytes + row * C::kRowBytes +
+         (((c % C::kChunks) ^ swz) << 4);
 }
 
 // sum over d of q[row][d] k[key][d] as one float32 fmaf chain in d order
 // from 0: the sum the plain version's float32 matrix product gives (cuBLAS
-// sums a dot product of 64 or 16 terms this way), from two swizzled tiles
+// sums a dot product of 128, 64 or 16 terms this way), from two swizzled
+// tiles
 template <int D>
 __device__ __forceinline__ float dot_chain(const uint8_t* q, int row,
                                            const uint8_t* k, int key) {
@@ -240,15 +260,21 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   const int t_lo = key_lo / kBK;
   const int n_tiles = key_hi / kBK - t_lo + 1;
 
+  // one thread: a tile of 64 rows from `row` of head `head`, sub-tile by
+  // sub-tile, all completing on `bar`
+  auto load_tile = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                       int head, int row) {
+    sm90::mbar_arrive_expect_tx(bar, C::kTileBytes);
+#pragma unroll
+    for (int sub = 0; sub < C::kSubs; ++sub)
+      sm90::tma_load_4d(dst + sub * C::kSubBytes, map, bar, sub * C::kSubD,
+                        head, row, b);
+  };
   auto issue_kv = [&](int i) {              // one thread: tile i's K and V
     const int s = i % kStages;
     const int k0 = (t_lo + i) * kBK;
-    sm90::mbar_arrive_expect_tx(k_bar0 + 8 * s, C::kTileBytes);
-    sm90::tma_load_4d(k_tile0 + s * C::kTileBytes, &k_map, k_bar0 + 8 * s, 0,
-                      hk, k0, b);
-    sm90::mbar_arrive_expect_tx(v_bar0 + 8 * s, C::kTileBytes);
-    sm90::tma_load_4d(v_tile0 + s * C::kTileBytes, &v_map, v_bar0 + 8 * s, 0,
-                      hk, k0, b);
+    load_tile(k_tile0 + s * C::kTileBytes, &k_map, k_bar0 + 8 * s, hk, k0);
+    load_tile(v_tile0 + s * C::kTileBytes, &v_map, v_bar0 + 8 * s, hk, k0);
   };
 
   if (tid == 0) {
@@ -260,8 +286,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
   if (tid == 0) {
-    sm90::mbar_arrive_expect_tx(q_bar, C::kTileBytes);
-    sm90::tma_load_4d(q_tile, &q_map, q_bar, 0, h, q0, b);
+    load_tile(q_tile, &q_map, q_bar, h, q0);
     for (int i = 0; i < kStages && i < n_tiles; ++i) issue_kv(i);
   }
 
@@ -272,10 +297,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
   float acc[C::kOregs];                     // O, float32
-  float pv[C::kOregs];                      // one tile's P V
+  float pv[C::kSubs][C::kSubOregs];         // one tile's P V, by sub-tile
   float s[32];
 #pragma unroll
-  for (int i = 0; i < C::kOregs; ++i) acc[i] = pv[i] = 0.f;
+  for (int i = 0; i < C::kOregs; ++i)
+    acc[i] = pv[i / C::kSubOregs][i % C::kSubOregs] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
@@ -293,7 +319,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t parity = (i / kStages) & 1;
     const int k0 = (t_lo + i) * kBK;
 
-    // S = Q K^T: D/16 steps of k16, 32 bytes along each K-major row
+    // S = Q K^T: D/16 steps of k16, 32 bytes along each K-major row of
+    // a sub-tile, kSubD/16 steps a sub-tile
     const uint64_t k_desc = sm90::make_desc(
         k_tile0 + st * C::kTileBytes, 0, C::kSbo, C::kLayout);
     const uint8_t* k_gen = k_gen0 + st * C::kTileBytes;
@@ -302,8 +329,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     sm90::fence_operands(s);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_m64n64k16_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t step = (kk / (C::kSubD / 16)) * (C::kSubBytes >> 4) +
+                            2 * (kk % (C::kSubD / 16));
+      sm90::wgmma_m64n64k16_ss(s, q_desc + step, k_desc + step, kk);
+    }
     sm90::wgmma_commit();
     // the tile's largest key norm, while the tensor cores work: two
     // threads a key, then each warp's largest of its 16 keys
@@ -445,32 +475,40 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
         p[kk][a] = pack_bf16x2(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
     }
 
-    // pv = P V: 4 steps of k16, 16 rows of V each
+    // pv = P V: for each sub-tile of V's columns, 4 steps of k16, 16 rows
+    // of V each
     const uint64_t v_desc = sm90::make_desc(
         v_tile0 + st * C::kTileBytes, 0, C::kSbo, C::kLayout);
     sm90::mbar_wait(v_bar0 + 8 * st, parity);
-    sm90::fence_operands(pv);
+#pragma unroll
+    for (int sub = 0; sub < C::kSubs; ++sub) sm90::fence_operands(pv[sub]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(p[kk]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t vk = v_desc + ((16 * kk * C::kRowBytes) >> 4);
-      if constexpr (D == 64)
-        sm90::wgmma_m64n64k16_rs_tb(pv, p[kk], vk, kk);
-      else
-        sm90::wgmma_m64n16k16_rs_tb(pv, p[kk], vk, kk);
+    for (int sub = 0; sub < C::kSubs; ++sub) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t vk = v_desc + sub * (C::kSubBytes >> 4) +
+                            ((16 * kk * C::kRowBytes) >> 4);
+        if constexpr (D >= 64)
+          sm90::wgmma_m64n64k16_rs_tb(pv[sub], p[kk], vk, kk);
+        else
+          sm90::wgmma_m64n16k16_rs_tb(pv[sub], p[kk], vk, kk);
+      }
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
-    sm90::fence_operands(pv);
+#pragma unroll
+    for (int sub = 0; sub < C::kSubs; ++sub) sm90::fence_operands(pv[sub]);
 
     // acc = acc * alpha + pv, rounded as the plain version rounds it: the
     // tensor cores' sums truncate, which over a whole row of tiles would
     // pull acc off by more than one rounding per tile
 #pragma unroll
     for (int c = 0; c < C::kOregs; ++c)
-      acc[c] = __fadd_rn(__fmul_rn(acc[c], alpha[(c / 2) % 2]), pv[c]);
+      acc[c] = __fadd_rn(__fmul_rn(acc[c], alpha[(c / 2) % 2]),
+                         pv[c / C::kSubOregs][c % C::kSubOregs]);
 
     // every thread is done with stage st: refill it
     __syncthreads();
@@ -522,7 +560,7 @@ EncodeTiled encode_tiled() {
 }
 
 // a 4-D map over x [batch, seq, heads, D] (D innermost) whose box is one
-// head's tile of 64 rows, [64][D], swizzled as wgmma reads it
+// head's sub-tile of 64 rows, [64][kSubD], swizzled as wgmma reads it
 template <int D>
 CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* x,
                   int batch, int seq, int heads) {
@@ -532,7 +570,7 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* x,
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t row = 2ull * D;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {D, 1, kBK, 1};
+  const cuuint32_t box[4] = {Cfg<D>::kSubD, 1, kBK, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(x), dims, strides, box, unit,
@@ -576,7 +614,8 @@ extern "C" {
 // q, k, v and o are contiguous and 16-byte aligned (TMA's condition; the
 // wrapper checks it).  Returns cudaGetLastError() of the launch,
 // cudaErrorInvalidValue for a head dim without an instantiation (64 for
-// Hymba, 16 for its reduced test config), or 100000 + the CUresult when a
+// Hymba, 16 for its reduced test config, 128 for the dense and MoE
+// models), or 100000 + the CUresult when a
 // tensor map cannot be made (100000 alone: CUDA offers no
 // cuTensorMapEncodeTiled).
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -589,6 +628,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       return launch<16>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
     case 64:
       return launch<64>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
+    case 128:
+      return launch<128>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

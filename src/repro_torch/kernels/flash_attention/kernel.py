@@ -27,7 +27,8 @@ __all__ = ["flash_attention", "launch_counts", "reset_launch_counts",
 
 _launches = {"flash_attention": 0}
 
-HEAD_DIMS = (16, 64)     # the kernel's instantiations: Hymba, reduced Hymba
+# the kernel's instantiations: reduced Hymba, Hymba, the dense and MoE models
+HEAD_DIMS = (16, 64, 128)
 BLOCK_Q = 64             # queries per block (the kernel's kBQ)
 _MAX_GRID_YZ = 65535
 _MAP_ERROR = 100000      # the kernel's kMapError: a tensor map was refused

@@ -30,7 +30,7 @@ def gqa_specs(cfg) -> dict:
         "wq": ParamSpec((d, H, hd), axes=("fsdp", h_ax, d_ax)),
         "wk": ParamSpec((d, Hkv, hd), axes=("fsdp", h_ax, d_ax)),
         "wv": ParamSpec((d, Hkv, hd), axes=("fsdp", h_ax, d_ax)),
-        "wo": ParamSpec((H, hd, d), scale=init_scale_out(cfg.n_layers),
+        "wo": ParamSpec((H, hd, d), scale=init_scale_out(cfg.total_layers),
                         axes=(h_ax, d_ax, "fsdp")),
     }
     if cfg.qk_norm:

@@ -5,9 +5,9 @@ dicts).  :func:`init_params_np` turns a spec tree into float32 numpy arrays
 from a seed, with no framework involved, so the same weights can be fed to
 this package and to any other implementation of the same model;
 :func:`params_to_torch` rounds them to each spec's dtype on a device, and
-:func:`init_params` does both a block of rows at a time
-(:func:`leaf_blocks_np`), so that a model larger than the host's memory in
-float32 is drawn one layer slab at a time.  Each spec names the logical
+:func:`init_params` does both a block at a time (:func:`leaf_blocks_np`),
+so that a model larger than the host's memory in float32 is drawn a
+part of a layer at a time.  Each spec names the logical
 sharding axis of every dim (``axes``); :func:`param_shardings` resolves
 them against a ``parallel.sharding.Sharder``.
 
@@ -29,12 +29,11 @@ import torch.nn.functional as F
 __all__ = ["ParamSpec", "flatten_specs", "spec_leaf_np", "leaf_blocks_np",
            "init_params_np", "params_to_torch", "count_params",
            "param_shardings", "fdot", "proj", "rmsnorm", "rope_freqs",
-           "apply_rope", "mlp_specs", "mlp_apply", "pad_vocab",
-           "init_params", "init_scale_out"]
+           "apply_rope", "activation", "GATED_ACTS", "mlp_specs",
+           "mlp_apply", "pad_vocab", "init_params", "init_scale_out"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# float32 elements in one block that leaf_blocks_np draws (256 MiB): one
-# layer of falcon-mamba-7b's in_proj
+# float32 elements in one block that leaf_blocks_np draws (256 MiB)
 _BLOCK_ELEMS = 1 << 26
 
 
@@ -99,24 +98,31 @@ def spec_leaf_np(spec, seed: int, index: int,
 
 
 def leaf_blocks_np(spec, seed: int, index: int, rows: Optional[int] = None):
-    """:func:`spec_leaf_np` a block of rows of the first axis at a time:
-    yields ``(lo, hi, block)`` with ``block`` the float32 rows ``lo:hi``.
+    """:func:`spec_leaf_np` in blocks of at most ``_BLOCK_ELEMS`` elements
+    cut in C order: yields ``(start, stop, block)`` with ``block`` the
+    float32 elements ``start:stop`` of the flattened leaf.
 
-    The blocks come in order from the leaf's one generator, so together
-    they are the whole leaf bit for bit, while the host holds one block
-    (at most ``_BLOCK_ELEMS`` elements, or one row): a stacked leaf is
-    drawn one layer slab at a time.  ``rows`` stops after the first
-    ``rows`` rows.  A leaf needs at least one axis."""
+    A block may be part of a row, so the host holds at most
+    ``_BLOCK_ELEMS`` float32 values whatever the leaf's shape (one layer
+    of a stacked MoE ``wi`` is 1.6 B values); the blocks come in order
+    from the leaf's one generator, which fills C order from one stream,
+    so together they are the whole leaf bit for bit.  ``rows`` stops
+    after the first ``rows`` rows of the first axis (the first layers of
+    a stacked leaf, at the whole model's scale).  A leaf needs at least
+    one axis."""
     shape = tuple(spec.shape)
     if not shape:
         raise ValueError("a 0-d leaf has no rows to draw in blocks")
     n = shape[0] if rows is None else min(rows, shape[0])
-    row = math.prod(shape[1:])
-    step = max(1, _BLOCK_ELEMS // max(row, 1))
+    total = n * math.prod(shape[1:])
     rng = np.random.default_rng([seed, index])
-    for lo in range(0, n, step):
-        hi = min(lo + step, n)
-        yield lo, hi, _draw(spec, rng, (hi - lo,) + shape[1:])
+    for start in range(0, total, _BLOCK_ELEMS):
+        stop = min(start + _BLOCK_ELEMS, total)
+        if spec.init == "mamba_a":          # log(1..N) along the last axis
+            a = _draw(spec, rng, (spec.shape[-1],))
+            yield start, stop, a[np.arange(start, stop) % len(a)]
+        else:
+            yield start, stop, _draw(spec, rng, (stop - start,))
 
 
 def _nest(paths: list, values: list) -> dict:
@@ -152,24 +158,33 @@ def params_to_torch(specs, arrays, device) -> dict:
     return t.to(device=device).to(_DTYPES[specs.dtype])
 
 
-def init_params(specs, seed: int, device, threads: int = 1) -> dict:
-    """:func:`init_params_np` then :func:`params_to_torch`, one block of
-    rows at a time (:func:`leaf_blocks_np`), each written into its leaf's
-    tensor of the spec's dtype on ``device``: the host holds one float32
-    block a thread, never a whole float32 leaf.  ``threads`` > 1 draws
-    that many leaves at once, the largest first (numpy's fills release
-    the GIL); each leaf's stream stays in one thread, so the weights are
-    the same whatever ``threads``."""
+def init_params(specs, seed: int, device, threads: int = 1,
+                layers: Optional[int] = None) -> dict:
+    """:func:`init_params_np` then :func:`params_to_torch`, one block at a
+    time (:func:`leaf_blocks_np`), each written into its leaf's tensor of
+    the spec's dtype on ``device``: the host holds one float32 block a
+    thread, never a whole float32 leaf.  ``threads`` > 1 draws that many
+    leaves at once, the largest first (numpy's fills release the GIL);
+    each leaf's stream stays in one thread, so the weights are the same
+    whatever ``threads``.
+
+    ``layers`` keeps the first ``layers`` layers of every stacked leaf
+    (those under ``groups``), drawn at the scales of ``specs``: the first
+    layers of the whole model, for a config cut in depth."""
     leaves = flatten_specs(specs)
 
     def one(i: int) -> torch.Tensor:
-        spec = leaves[i][1]
+        path, spec = leaves[i]
         if not spec.shape:
             return params_to_torch(spec, spec_leaf_np(spec, seed, i), device)
-        out = torch.empty(tuple(spec.shape), dtype=_DTYPES[spec.dtype],
-                          device=device)
-        for lo, hi, block in leaf_blocks_np(spec, seed, i):
-            out[lo:hi] = torch.from_numpy(block).to(device).to(out.dtype)
+        rows = layers if path.startswith("groups/") else None
+        shape = tuple(spec.shape) if rows is None else \
+            (min(rows, spec.shape[0]),) + tuple(spec.shape[1:])
+        out = torch.empty(shape, dtype=_DTYPES[spec.dtype], device=device)
+        flat = out.view(-1)
+        for start, stop, block in leaf_blocks_np(spec, seed, i, rows):
+            flat[start:stop] = torch.from_numpy(block).to(device).to(
+                out.dtype)
         return out
 
     order = sorted(range(len(leaves)),
@@ -233,22 +248,50 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return y.to(x.dtype)
 
 
-def mlp_specs(d_model: int, d_ff: int, act: str, scale_out: float) -> dict:
-    if act != "swiglu":
-        raise NotImplementedError(
-            f"activation {act!r}: the port runs the SwiGLU MLP only "
-            "(ROADMAP queue 1 item 13)")
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation; torch's is the erf
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    """The elementwise function of a non-gated MLP (the reference's)."""
+    if name in GATED_ACTS:
+        raise ValueError("gated activations are handled in the MLP itself")
     return {
-        "wi": ParamSpec((d_model, 2, d_ff), axes=("fsdp", None, "tp")),
+        "gelu": _gelu,
+        "relu": F.relu,
+        "silu": F.silu,
+        "sq_relu": lambda x: torch.square(F.relu(x)),
+    }[name]
+
+
+GATED_ACTS = {"swiglu": F.silu, "geglu": _gelu}
+
+
+def mlp_specs(d_model: int, d_ff: int, act: str, scale_out: float) -> dict:
+    if act in GATED_ACTS:
+        return {
+            "wi": ParamSpec((d_model, 2, d_ff), axes=("fsdp", None, "tp")),
+            "wo": ParamSpec((d_ff, d_model), scale=scale_out,
+                            axes=("tp", "fsdp")),
+        }
+    return {
+        "wi": ParamSpec((d_model, d_ff), axes=("fsdp", "tp")),
         "wo": ParamSpec((d_ff, d_model), scale=scale_out,
                         axes=("tp", "fsdp")),
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``silu(x W_gate) * (x W_up)``, then the down projection."""
-    gu = proj("bsd,dgf->bsgf", x, p["wi"])
-    h = F.silu(gu[:, :, 0].float()).to(x.dtype) * gu[:, :, 1]
+def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """A gated MLP (``act(x W_gate) * (x W_up)``: SwiGLU, GeGLU) or a
+    plain one (``act(x W_in)``), then the down projection; the
+    activation runs in float32 and is cast back to x's dtype."""
+    if act in GATED_ACTS:
+        gu = proj("bsd,dgf->bsgf", x, p["wi"])
+        h = GATED_ACTS[act](gu[:, :, 0].float()).to(x.dtype) * gu[:, :, 1]
+    else:
+        h = proj("bsd,df->bsf", x, p["wi"])
+        h = activation(act)(h.float()).to(x.dtype)
     return proj("bsf,fd->bsd", h, p["wo"])
 
 

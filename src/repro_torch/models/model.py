@@ -9,12 +9,11 @@ a Python loop where the reference scans.
 
 Two entry points: :func:`prefill` builds the decode cache from a prompt
 and :func:`decode_step` runs one token against it, updating the cache in
-place (the reference returns a new cache).  The ``hybrid`` and
-``hybrid_full`` kinds (Hymba) and the attention-free ``mamba`` kind
-(falcon-mamba) are ported; every other kind raises.  The
-configuration also carries the reference's ``family`` and ``moe``, which
-the serving bridge reads for the architectures whose models are not
-ported.
+place (the reference returns a new cache).  Ported kinds: ``dense``
+(GQA attention and an MLP: Qwen3, Nemotron, StarCoder2, Command R+),
+``moe`` (GQA attention and the routed experts of ``models.moe``: the
+Qwen3 MoE), ``hybrid`` and ``hybrid_full`` (Hymba) and the
+attention-free ``mamba`` (falcon-mamba).  Every other kind raises.
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ from ..kernels.flash_attention import flash_attention_op
 from . import attention as attn
 from .common import (ParamSpec, count_params, init_scale_out, mlp_apply,
                      mlp_specs, pad_vocab, proj, rmsnorm)
-from .moe import MoECfg
+from .moe import MoECfg, moe_apply, moe_specs
 from .ssm import ssm_decode, ssm_prefill, ssm_specs
 
 __all__ = ["ModelConfig", "Group", "plan", "block_specs",
@@ -36,7 +35,7 @@ __all__ = ["ModelConfig", "Group", "plan", "block_specs",
            "block_decode", "prefill", "decode_step"]
 
 _HYBRID = ("hybrid", "hybrid_full")
-_KINDS = _HYBRID + ("mamba",)
+_KINDS = ("dense", "moe") + _HYBRID + ("mamba",)
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -64,8 +63,10 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tp_heads: bool = True           # TP over heads (False -> over head_dim)
-    # MoE (read by the serving bridge; the block is not ported)
+    # MoE
     moe: Optional[MoECfg] = None
+    dense_layers: int = 0           # leading dense layers
+    dense_d_ff: int = 0
     # SSM
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -75,8 +76,19 @@ class ModelConfig:
     sliding_window: Optional[int] = None
 
     @property
+    def total_layers(self) -> int:
+        """Layers of the whole model (the reference adds an encoder's,
+        which the port does not have)."""
+        return self.n_layers
+
+    @property
     def vocab_padded(self) -> int:
         return pad_vocab(self.vocab)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k cell (SSM / hybrid-with-window)."""
+        return self.ssm_state > 0
 
     def param_count(self) -> int:
         return count_params(build_specs(self))
@@ -96,42 +108,64 @@ def plan(cfg: ModelConfig) -> list:
     """The groups of layers, in order (the reference's ``plan``): an SSM
     model is one group of ``mamba`` layers; a hybrid has runs of
     sliding-window layers between the full-attention layers, each
-    full-attention layer a group of its own."""
+    full-attention layer a group of its own; an MoE model its leading
+    ``dense`` layers, then its ``moe`` layers; any other, one group of
+    ``dense`` layers."""
+    if cfg.family in ("vlm", "audio"):
+        raise _not_ported(cfg.family)
     if cfg.family == "ssm":
         return [Group("mamba", cfg.n_layers, "m")]
-    if not cfg.hybrid:
-        raise _not_ported(cfg.family)
-    groups, prev, gi = [], 0, 0
-    for li in sorted(cfg.full_attn_layers):
-        if li > prev:
-            groups.append(Group("hybrid", li - prev, f"h{gi}"))
+    if cfg.hybrid:
+        groups, prev, gi = [], 0, 0
+        for li in sorted(cfg.full_attn_layers):
+            if li > prev:
+                groups.append(Group("hybrid", li - prev, f"h{gi}"))
+                gi += 1
+            groups.append(Group("hybrid_full", 1, f"hf{gi}"))
             gi += 1
-        groups.append(Group("hybrid_full", 1, f"hf{gi}"))
-        gi += 1
-        prev = li + 1
-    if prev < cfg.n_layers:
-        groups.append(Group("hybrid", cfg.n_layers - prev, f"h{gi}"))
-    return groups
+            prev = li + 1
+        if prev < cfg.n_layers:
+            groups.append(Group("hybrid", cfg.n_layers - prev, f"h{gi}"))
+        return groups
+    if cfg.moe is not None:
+        groups = []
+        if cfg.dense_layers:
+            groups.append(Group("dense", cfg.dense_layers, "d"))
+        groups.append(Group("moe", cfg.n_layers - cfg.dense_layers, "e"))
+        return groups
+    return [Group("dense", cfg.n_layers, "d")]
 
 
 def _norm(cfg) -> ParamSpec:
     return ParamSpec((cfg.d_model,), "float32", "ones", axes=(None,))
 
 
+def _dense_ffn_specs(cfg) -> dict:
+    # the reference gives `dense_d_ff` to its MLA models' dense layers
+    # only, which the port does not run: every ported kind takes d_ff
+    return mlp_specs(cfg.d_model, cfg.d_ff, cfg.act,
+                     init_scale_out(cfg.total_layers))
+
+
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind == "mamba":
         return {"ln1": _norm(cfg), "ssm": ssm_specs(cfg)}
-    if kind not in _HYBRID:
+    if kind in _HYBRID:
+        return {
+            "ln1": _norm(cfg),
+            "attn": attn.gqa_specs(cfg),
+            "ssm": ssm_specs(cfg),
+            "po_norm_a": _norm(cfg), "po_norm_s": _norm(cfg),
+            "ln2": _norm(cfg), "mlp": _dense_ffn_specs(cfg),
+        }
+    if kind not in ("dense", "moe"):
         raise _not_ported(kind)
-    return {
-        "ln1": _norm(cfg),
-        "attn": attn.gqa_specs(cfg),
-        "ssm": ssm_specs(cfg),
-        "po_norm_a": _norm(cfg), "po_norm_s": _norm(cfg),
-        "ln2": _norm(cfg),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.act,
-                         init_scale_out(cfg.n_layers)),
-    }
+    out = {"ln1": _norm(cfg), "attn": attn.gqa_specs(cfg), "ln2": _norm(cfg)}
+    if kind == "moe":
+        out["moe"] = moe_specs(cfg)
+    else:
+        out["mlp"] = _dense_ffn_specs(cfg)
+    return out
 
 
 def _stack(specs, n: int):
@@ -170,8 +204,16 @@ def _mix_and_mlp(p: dict, x, a_out, s_out, cfg):
     mixed = 0.5 * (rmsnorm(a_out, p["po_norm_a"], cfg.norm_eps)
                    + rmsnorm(s_out, p["po_norm_s"], cfg.norm_eps))
     x = x + mixed
+    return _ffn("dense", p, x, cfg)
+
+
+def _ffn(kind: str, p: dict, x, cfg):
+    """The feed-forward sub-block and its residual: the routed experts
+    of a ``moe`` block, else the MLP."""
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2)
+    if kind == "moe":
+        return x + moe_apply(p["moe"], h2, cfg)
+    return x + mlp_apply(p["mlp"], h2, cfg.act)
 
 
 def block_apply(kind: str, p: dict, x, cfg, positions):
@@ -180,6 +222,12 @@ def block_apply(kind: str, p: dict, x, cfg, positions):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         y, (conv_s, ssm_s) = ssm_prefill(p["ssm"], h, cfg)
         return x + y, {"conv": conv_s, "ssm": ssm_s}
+    if kind in ("dense", "moe"):
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
+        o = flash_attention_op(q, k, v, cfg.sliding_window)
+        x = _ffn(kind, p, x + attn.gqa_out(p["attn"], o), cfg)
+        return x, {"k": k, "v": v}
     if kind not in _HYBRID:
         raise _not_ported(kind)
     window = None if kind == "hybrid_full" else cfg.sliding_window
@@ -216,7 +264,7 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
         cache["conv"].copy_(conv_s)
         cache["ssm"].copy_(ssm_s)
         return x + y
-    if kind not in _HYBRID:
+    if kind not in _KINDS:
         raise _not_ported(kind)
     window = None if kind == "hybrid_full" else cfg.sliding_window
     B = x.shape[0]
@@ -226,6 +274,8 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
     _write_kv(cache["k"], cache["v"], k, v, pos, window is not None)
     o = attn.decode_attention(q, cache["k"], cache["v"], pos, window=window)
     a_out = attn.gqa_out(p["attn"], o)
+    if kind in ("dense", "moe"):
+        return _ffn(kind, p, x + a_out, cfg)
     s_out, (conv_s, ssm_s) = ssm_decode(p["ssm"], h, cfg, cache["conv"],
                                         cache["ssm"])
     cache["conv"].copy_(conv_s)
@@ -249,10 +299,11 @@ def logits_from(params: dict, x, cfg) -> torch.Tensor:
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """Prompt pass: tokens [B,S] -> (last-token logits [B,1,V], cache).
 
-    The cache is ``{group: {"k", "v", "conv", "ssm"}}`` (a ``mamba``
-    group's ``{"conv", "ssm"}``: ``[L, B, di, K-1]`` and float32 ``[L, B,
-    di, N]``) with each entry stacked over the group's layers, as the
-    reference's."""
+    The cache is ``{group: {"k", "v", "conv", "ssm"}}`` (a ``dense`` or
+    ``moe`` group's ``{"k", "v"}``, every prompt key: ``[L, B, S, Hkv,
+    D]``; a ``mamba`` group's ``{"conv", "ssm"}``: ``[L, B, di, K-1]`` and
+    float32 ``[L, B, di, N]``) with each entry stacked over the group's
+    layers, as the reference's."""
     B, S = tokens.shape
     x = embed(params, tokens)
     positions = torch.arange(S, dtype=torch.int32,

@@ -7,7 +7,7 @@ config at full width (d 4,096, ``d_inner`` 8,192, state 16, vocab
 numpy synthesis (``repro_torch.models.common.spec_leaf_np``, seed 0)
 rounded to each leaf's dtype, one prompt of 1,024 tokens drawn with
 ``np.random.default_rng(0)``, the prefill, then 16 greedy decode steps.
-A stacked leaf is drawn one layer slab at a time
+A stacked leaf is drawn a block at a time
 (``leaf_blocks_np``), so the host never holds a float32 leaf; a golden
 of fewer than 64 layers takes each stacked leaf's first slabs at the
 64-layer scales, which are the whole model's first layers.  At the
@@ -120,14 +120,15 @@ def capture(layers: int) -> None:
         want = (layers, *pspec.shape[1:]) if stacked else tuple(pspec.shape)
         assert tuple(spec.shape) == want, path
         host = np.empty(want, jnp.dtype(spec.dtype))
+        flat = host.reshape(-1)
         for lo, hi, block in leaf_blocks_np(
                 pspec, SEED, i, rows=layers if stacked else None):
-            host[lo:hi] = np.asarray(
+            flat[lo:hi] = np.asarray(
                 jnp.asarray(block).astype(jnp.dtype(spec.dtype)))
         digests[path] = leaf_digests(pspec, i)
         arrays.append(jnp.asarray(host))
         n_bytes += host.nbytes
-        del host
+        del host, flat
     params = jax.tree.unflatten(treedef, arrays)
     print(f"weights: {n_bytes} bytes in {time.time() - t_start:.1f} s",
           flush=True)

@@ -10,15 +10,16 @@ fabric with one ``SimulatorCache``, and holds each Result to its
 committed JSON field for field:
 
 * ``fig5.oft_q17.pol.all2all`` -- All2All of the figure's 24 rounds;
-* ``fig5.oft_q17.pol.thpt.uniform`` -- uniform load 1.0, the figure's
-  300 + 300 slots;
-* ``fig5.oft_q17.pol.thpt.{rep,rsp,bu}`` -- load 1.0, 100 + 100 slots
-  (cut from 300 + 300 to keep ``chip_smoke.py`` inside its time limit);
+* ``fig5.oft_q17.pol.thpt.uniform`` -- uniform load 1.0, 100 + 100
+  slots (cut from the figure's 300 + 300 to keep ``chip_smoke.py`` inside
+  its time limit);
+* ``fig5.oft_q17.pol.thpt.{rep,rsp,bu}`` -- load 1.0, 50 + 50 slots (the
+  same cut);
 * ``fig5.oft_q17.pol.lat.mice_elephant`` -- load 0.5, latency metric,
-  100 + 100 slots (the same cut);
+  50 + 50 slots (the same cut);
 * ``fig5.mrls_u18.pol.thpt.{tornado,shift,hotspot,bursty}`` -- the
   adversarial families on the Figure-5 MRLS ``mrls(614, 18, 18,
-  seed=1)``, 100 + 100 slots: tornado at load 0.5 (the load of
+  seed=1)``, 50 + 50 slots (the same cut): tornado at load 0.5 (the load of
   ``benchmarks/bench_faults.py``), shift at 1.0 with ``shift`` 18 (one
   leaf's worth of endpoints, so every message leaves its leaf), hotspot
   at 0.7 (``hot_frac`` 0.1 onto one endpoint), bursty at 0.5
@@ -59,17 +60,17 @@ FIG5_OFT = {
         "name": "fig5.oft_q17.pol.all2all", "max_slots": 60_000},
     "torch_fig5_oft_thpt_uniform.json": _bernoulli(
         "fig5.oft_q17.pol.thpt.uniform", OFT,
-        {"pattern": "uniform", "load": 1.0}, 300),
+        {"pattern": "uniform", "load": 1.0}, 100),
     **{f"torch_fig5_oft_thpt_{p}.json": _bernoulli(
-        f"fig5.oft_q17.pol.thpt.{p}", OFT, {"pattern": p, "load": 1.0}, 100)
+        f"fig5.oft_q17.pol.thpt.{p}", OFT, {"pattern": p, "load": 1.0}, 50)
        for p in ("rep", "rsp", "bu")},
     "torch_fig5_oft_lat_mice_elephant.json": _bernoulli(
         "fig5.oft_q17.pol.lat.mice_elephant", OFT,
-        {"pattern": "mice_elephant", "load": 0.5}, 100, metric="latency"),
+        {"pattern": "mice_elephant", "load": 0.5}, 50, metric="latency"),
 }
 ADVERSARIAL = {
     f"torch_adv_{w['pattern']}.json": _bernoulli(
-        f"fig5.mrls_u18.pol.thpt.{w['pattern']}", MRLS_U18, w, 100)
+        f"fig5.mrls_u18.pol.thpt.{w['pattern']}", MRLS_U18, w, 50)
     for w in ({"pattern": "tornado", "load": 0.5},
               {"pattern": "shift", "load": 1.0, "shift": 18},
               {"pattern": "hotspot", "load": 0.7, "hot_frac": 0.1,

@@ -10,12 +10,13 @@ committed JSON field for field:
 
 * ``fig7.df.ugal.all2all``, ``fig7.dfplus.ugal.all2all`` and
   ``fig7.mrls_u19.pol.all2all`` -- All2All of 16 rounds to completion;
-* ``fig7.df.ugal.thpt.uniform`` -- uniform load 1.0, the figure's
-  300 + 300 slots;
-* ``fig7.df.ugal.thpt.{rep,rsp,bu}`` -- load 1.0, 100 + 100 slots (cut
-  from 300 + 300 to keep ``chip_smoke.py`` inside its time limit);
+* ``fig7.df.ugal.thpt.uniform`` -- uniform load 1.0, 100 + 100 slots
+  (cut from the figure's 300 + 300 to keep ``chip_smoke.py`` inside its
+  time limit);
+* ``fig7.df.ugal.thpt.{rep,rsp,bu}`` -- load 1.0, 50 + 50 slots (the
+  same cut);
 * ``fig7.df.ugal.lat.mice_elephant`` -- load 0.5, latency metric,
-  100 + 100 slots (the same cut).
+  50 + 50 slots (the same cut).
 
 Here the MRLS All2All is re-run through the reference package and must
 still equal its file; for the others the test checks that they record
@@ -64,11 +65,11 @@ POINTS = {
     "torch_fig7_mrls_u19_pol_a2a.json": _all2all("fig7.mrls_u19.pol.all2all",
                                                  MRLS_U19, POLARIZED),
     "torch_fig7_df_ugal_thpt_uniform.json": _bernoulli(
-        "fig7.df.ugal.thpt.uniform", "uniform", 1.0, 300),
+        "fig7.df.ugal.thpt.uniform", "uniform", 1.0, 100),
     **{f"torch_fig7_df_ugal_thpt_{p}.json": _bernoulli(
-        f"fig7.df.ugal.thpt.{p}", p, 1.0, 100) for p in ("rep", "rsp", "bu")},
+        f"fig7.df.ugal.thpt.{p}", p, 1.0, 50) for p in ("rep", "rsp", "bu")},
     "torch_fig7_df_ugal_lat_mice_elephant.json": _bernoulli(
-        "fig7.df.ugal.lat.mice_elephant", "mice_elephant", 0.5, 100,
+        "fig7.df.ugal.lat.mice_elephant", "mice_elephant", 0.5, 50,
         metric="latency"),
 }
 RERUN = "torch_fig7_mrls_u19_pol_a2a.json"

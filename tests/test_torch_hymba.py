@@ -32,6 +32,8 @@ inputs that may sit one ulp apart.  Greedy tokens may differ only
 where the reference's top-1/top-2 margin is within twice the logit
 tolerance, and are compared up to the first such difference.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -252,18 +254,38 @@ def test_serve_session_defaults_to_the_card(models):
 
 
 def test_unported_archs_and_kinds_raise():
-    # the serving bridge's archs are registered as config records; their
-    # models are not ported, and building one names the ROADMAP item
-    for arch in ("qwen3-1.7b", "qwen3-moe-235b-a22b"):
+    # the archs whose block kinds are not ported (MLA, the vision
+    # super-block, encoder-decoder) raise and name the ROADMAP item, as
+    # do their kinds and families
+    for arch in ("deepseek-v3-671b", "llama-3.2-vision-90b",
+                 "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_model.build_specs(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("nemotron-4-15b")
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = reduced(get_config("hymba-1.5b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model.block_specs(cfg, "dense")
+    for kind in ("mla_dense", "mla_moe", "vision_super", "enc", "dec"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_model.block_specs(cfg, kind)
+    for family in ("vlm", "audio"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_model.plan(dataclasses.replace(cfg, family=family,
+                                                hybrid=False))
+
+
+def test_dense_and_moe_archs_are_ported():
+    """The archs that used to raise build, with the reference's plan and
+    parameter count at full width."""
+    from repro.models.model import plan as jax_plan
+    for arch in ("qwen3-1.7b", "qwen3-moe-235b-a22b", "nemotron-4-15b",
+                 "starcoder2-15b", "command-r-plus-104b"):
+        cfg, jcfg = get_config(arch), jax_get_config(arch)
+        assert [dataclasses.astuple(g) for g in plan(cfg)] == \
+            [(g.kind, g.n, g.name) for g in jax_plan(jcfg)]
+        assert cfg.param_count() == jcfg.param_count()
+    cfg = reduced(get_config("hymba-1.5b"))
+    assert set(port_model.block_specs(cfg, "dense")) == \
+        {"ln1", "attn", "ln2", "mlp"}
 
 
 @pytest.mark.gpu

@@ -137,12 +137,13 @@ def test_config_field_for_field(cut):
 def test_reduced_takes_the_general_case():
     """The ssm family takes the reference's general ``reduced``; the
     hybrid override and the MoE experts stay as the reference has them."""
-    for arch in (ARCH, "hymba-1.5b", "qwen3-1.7b", "qwen3-moe-235b-a22b"):
+    for arch in (ARCH, "hymba-1.5b", "qwen3-1.7b", "qwen3-moe-235b-a22b",
+                 "nemotron-4-15b", "starcoder2-15b", "command-r-plus-104b"):
         cfg, jcfg = reduced(get_config(arch)), jax_reduced(
             jax_get_config(arch))
         for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
                   "head_dim", "d_ff", "vocab", "tp_heads", "sliding_window",
-                  "full_attn_layers"):
+                  "full_attn_layers", "dense_layers", "dense_d_ff"):
             assert getattr(cfg, f) == getattr(jcfg, f), (arch, f)
         if jcfg.moe is not None:
             assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(jcfg.moe)
@@ -302,22 +303,24 @@ LEAVES = [ParamSpec((5, 3, 7), scale=0.5),
 @pytest.mark.parametrize("block", [1, 21, 1 << 26])
 @pytest.mark.parametrize("leaf", range(len(LEAVES)))
 def test_layer_slabs_equal_the_whole_leaf(monkeypatch, leaf, block):
-    """Blocks of rows drawn in turn from the leaf's one generator are the
-    whole leaf bit for bit, and a prefix of rows is the whole leaf's."""
+    """Blocks cut in C order, parts of a row where a row is longer than a
+    block (``block`` 1 and 21 here; one layer of the full Qwen3 MoE's
+    ``wi`` is 1.6 B values), drawn in turn from the leaf's one generator:
+    together the whole leaf bit for bit, and with ``rows`` its first
+    rows, which are also ``spec_leaf_np``'s prefix."""
     spec = LEAVES[leaf]
     whole = spec_leaf_np(spec, 3, leaf)
     monkeypatch.setattr(common, "_BLOCK_ELEMS", block)
-    parts = list(leaf_blocks_np(spec, 3, leaf))
-    assert [lo for lo, _, _ in parts] == sorted({lo for lo, _, _ in parts})
-    assert parts[-1][1] == spec.shape[0]
-    np.testing.assert_array_equal(np.concatenate([b for _, _, b in parts]),
-                                  whole)
-    for rows in (1, 2):
-        np.testing.assert_array_equal(spec_leaf_np(spec, 3, leaf, rows=rows),
-                                      whole[:rows])
-        got = np.concatenate([b for _, _, b in leaf_blocks_np(
-            spec, 3, leaf, rows=rows)])
-        np.testing.assert_array_equal(got, whole[:rows])
+    for rows in (None, 1, 2):
+        want = whole if rows is None else whole[:rows]
+        parts = list(leaf_blocks_np(spec, 3, leaf, rows=rows))
+        assert [lo for lo, _, _ in parts] == list(range(0, want.size, block))
+        assert all(len(b) == hi - lo <= block for lo, hi, b in parts)
+        np.testing.assert_array_equal(
+            np.concatenate([b for _, _, b in parts]), want.reshape(-1))
+        if rows is not None:
+            np.testing.assert_array_equal(
+                spec_leaf_np(spec, 3, leaf, rows=rows), want)
 
 
 @pytest.mark.parametrize("threads", [1, 3])

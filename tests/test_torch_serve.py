@@ -64,6 +64,20 @@ def test_cli_needs_a_card_by_default():
 
 
 def test_cli_names_the_roadmap_item_for_an_unported_arch():
-    proc = _cli("--arch", "qwen3-1.7b", "--reduced", "--device", "cpu")
+    proc = _cli("--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu")
     assert proc.returncode != 0
     assert "ROADMAP" in proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-moe-235b-a22b"])
+def test_cli_serves_the_reduced_qwen3_models_on_the_cpu(arch):
+    proc = _cli("--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "16", "--max-new", "3")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["arch"] == f"{arch}-smoke" and out["generated"] == [2, 3]
+    cfg = reduced(get_config(arch))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16),
+                                                dtype=np.int32)
+    want = ServeSession(cfg, device="cpu").generate(prompts, 3)
+    assert out["sample"] == want[0].tolist()
