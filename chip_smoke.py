@@ -226,7 +226,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ragged shapes: the cases of ``kernels/flash_attention/bench.py``, with
    its ``HGMMA``/``UTMALDG`` counts; at head dim 128 its ``CASES_D128``:
    qwen3-1.7b's full layer ``[4, 4096, 16, 128]`` on 8 KV heads,
-   qwen3-moe-235b-a22b's ``[2, 4096, 64, 128]`` on 4, and ragged ones)
+   qwen3-moe-235b-a22b's ``[2, 4096, 64, 128]`` on 4, and ragged ones;
+   at queries and keys 192 wide and values 128 its ``CASES_MLA``:
+   deepseek-v3-671b's layer ``[2, 4096, 128, 192 / 128]`` and ragged
+   ``Sq`` at group 1, with the SDPA backend that ran)
    and ``selective_scan`` (the cases of ``kernels/selective_scan/bench.py``:
    ``[4, 4096, 3200, 16]``, falcon-mamba's ``[1, 4096, 8192, 16]`` and ``[2, 4096, 8192, 16]``
    (bitwise), ragged ``Di`` and ``T`` not a multiple of the kernel's
@@ -237,7 +240,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    is largest), and at falcon-mamba's shapes the launch plan (channels a
    block, grid, waves), the time a launch and the bound;
 10. Hymba golden — the full-width ``hymba-1.5b`` (weights from the seeded
-   numpy synthesis), teacher-forced on the prompt and tokens of
+   numpy synthesis, drawn by a background thread during phases 16-19
+   and moved to the card after phase 9), teacher-forced on the prompt
+   and tokens of
    ``tests/golden/torch_hymba_1p5b_s4096.json``: the prefill's and 16
    decode steps' top-8 logits and logsumexp against the JAX reference's,
    and the top-1 wherever the reference's margin is clear;
@@ -274,12 +279,25 @@ Phases, in order; any failure ends the script with a non-zero exit:
    capacity (640 at the prefill, 4 in decode), the dropped assignments
    of each layer, two prefills of the same input with the same bits,
    and the first MoE layer's device ms by step (router, selection,
-   gather, expert products, combine).
+   gather, expert products, combine);
+24. deepseek-v3-671b — the MLA MoE at full width (d 7,168, 128 heads,
+   MLA with queries and keys 192 wide and values 128 wide, 256 routed
+   experts, top 8, ``d_expert`` 2,048, a shared expert and the router
+   bias) cut to its first 4 of 61 layers (3 ``mla_dense``, 1
+   ``mla_moe``; drawn at the 61-layer scales by a background thread
+   started before phase 16): the golden's model (the first 64 of the
+   256 experts of the same draw, its router drawn again) held to
+   ``tests/golden/torch_deepseek_v3_671b_l4_e64_s1024.json`` by phase
+   23's rules; ``ServeSession.generate`` of 2 x 4,096 + 16 at 256
+   experts with 4 ``flash_attention`` launches a prefill (at q/k 192,
+   v 128) and none a decode step; capacity (320, and 4 in decode),
+   drops a layer, two prefills with the same bits, the MoE layer's
+   device ms by step, and the profiler's breakdown.
 
 Each phase prints its wall seconds, and the script its total.  The
 kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 20,
-16, 17, 18 (its in-process runs), 19, 11, 21, 22 and 23 are summed.  The last
-lines are a ``{"kernels": [...]}`` JSON line, the card's
+16, 17, 18 (its in-process runs), 19, 11, 21, 22, 23 and 24 are summed.
+The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's ``src/`` beside it, the script exits with code 2 and
@@ -2958,6 +2976,11 @@ def run_lm_kernels(cfg) -> dict:
     d128 = fa_bench.run_cases(cfg, gen, case_list=fa_bench.CASES_D128)
     fa_rec["max_abs_err"] = max(fa_rec["max_abs_err"], d128["max_abs_err"])
     fa_rec["d128"] = dict(zip(QWEN3, (d128["timed"][0], d128["timed"][1])))
+    # q/k 192, v 128: deepseek-v3-671b's prefill layers (phase 24)
+    print("-- MLA, q/k 192 and v 128: deepseek-v3-671b's layer")
+    mla = fa_bench.run_cases(cfg, gen, case_list=fa_bench.CASES_MLA)
+    fa_rec["max_abs_err"] = max(fa_rec["max_abs_err"], mla["max_abs_err"])
+    fa_rec["mla"] = mla["timed"][0]
 
     # selective_scan: the cases, the SASS counts and the bound live in the
     # kernel's bench module
@@ -3175,15 +3198,15 @@ SYNTH_THREADS = 2
 class HostWeights:
     """A model's weights from the seeded numpy synthesis
     (``models.common.init_params``, seed 0, a block at a time; with
-    ``layers``, the first layers of every stacked leaf at the whole
-    model's scales), drawn into host bf16 tensors by a background thread
-    started early in the script: the draws are numpy fills that release
-    the GIL, so they run beside the simulator phases, and the model's
-    phase moves the result to the card.  Its own seconds are printed
-    apart from any phase's."""
+    ``layers``, the model's first layers at the whole model's scales),
+    drawn into host bf16 tensors by a background thread started early in
+    the script (with ``after``, once that synthesis is done): the draws
+    are numpy fills that release the GIL, so they run beside the
+    simulator phases, and the model's phase moves the result to the
+    card.  Its own seconds are printed apart from any phase's."""
 
-    def __init__(self, arch: str, layers=None):
-        self.arch, self.layers = arch, layers
+    def __init__(self, arch: str, layers=None, after=None):
+        self.arch, self.layers, self.after = arch, layers, after
         self.params = self.error = None
         self.seconds = None
         self.t0 = time.perf_counter()
@@ -3191,9 +3214,14 @@ class HostWeights:
                                        name=f"{arch}-weights")
         self.thread.start()
         print(f"{arch} weight synthesis started in the background "
-              f"({SYNTH_THREADS} threads)", flush=True)
+              f"({SYNTH_THREADS} threads"
+              + (f", once {after.arch}'s is done)" if after else ")"),
+              flush=True)
 
     def _draw(self) -> None:
+        if self.after is not None:          # its draw first, then ours
+            self.after.thread.join()
+            self.t0 = time.perf_counter()
         try:
             from repro_torch.configs import get_config
             from repro_torch.models.common import init_params
@@ -3336,7 +3364,8 @@ def serve_counted(cfg, params, prompts, n_new: int) -> dict:
         raise AssertionError("generated tokens outside the vocabulary")
     from repro_torch.models.model import plan
     per_prefill = {**NO_LAUNCHES}
-    for name, kinds in (("flash_attention", ("dense", "moe", "hybrid",
+    for name, kinds in (("flash_attention", ("dense", "moe", "mla_dense",
+                                             "mla_moe", "hybrid",
                                              "hybrid_full")),
                         ("selective_scan", ("mamba", "hybrid",
                                             "hybrid_full"))):
@@ -3551,6 +3580,89 @@ def run_qwen3(arch: str, weights: HostWeights) -> dict:
             "flash_ms": per_launch.get("flash_attention")}
 
 
+# deepseek-v3-671b (phase 24): its first 4 of 61 layers at full width,
+# served at 256 experts; the golden's model is the same draw's first 64
+# experts with its own [d, 64] router (tests/test_torch_deepseek_reference.py)
+DEEPSEEK = {
+    "arch": "deepseek-v3-671b", "phase": "24", "layers": 4, "batch": 2,
+    "new": 16, "golden_experts": 64,
+    "golden": (ROOT / "tests" / "golden"
+               / "torch_deepseek_v3_671b_l4_e64_s1024.json")}
+
+
+def host_available() -> str:
+    """The host's available memory (``MemAvailable``) in GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return f"{int(line.split()[1]) / 1e6:.1f} GB"
+    return "not known"
+
+
+def golden_router(full, n_experts: int):
+    """The golden's ``[1, d, n_experts]`` float32 router on the card: the
+    first layer of the ``mla_moe`` router leaf of the specs with
+    ``n_experts`` routed experts (the same leaf index and stream as the
+    full model's, cut to another width)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.common import flatten_specs, leaf_blocks_np
+    from repro_torch.models.model import build_specs
+    cut = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, n_experts=n_experts))
+    leaves = flatten_specs(build_specs(cut))
+    i = [p for p, _ in leaves].index("groups/e/moe/router")
+    spec = leaves[i][1]
+    drawn = np.concatenate([b for _, _, b in leaf_blocks_np(spec, 0, i,
+                                                            rows=1)])
+    return torch.from_numpy(drawn.reshape(1, *spec.shape[1:])).to("cuda")
+
+
+def run_deepseek(weights: HostWeights) -> dict:
+    """deepseek-v3-671b's first 4 layers at full width on the card: the
+    golden's 64-expert model (views of the first 64 experts, its router
+    drawn again) teacher-forced on its golden, then
+    ``ServeSession.generate`` of 2 x 4,096 + 16 at 256 experts with 4
+    ``flash_attention`` launches a prefill and none a decode step, the
+    MoE's capacity, drops, determinism and steps, and the profiler.
+    Returns the main path's launches and the attention kernel's device
+    ms a launch there."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    spec = DEEPSEEK
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    phase(f"{spec['phase']}. {spec['arch']} at full width ({cfg.n_layers} "
+          f"layers): golden at {spec['golden_experts']} experts, serving "
+          f"{spec['batch']} x {SERVE_PROMPT} + {spec['new']} at "
+          f"{cfg.moe.n_experts}")
+    print(f"host memory available: {host_available()}")
+    params = to_card(cfg, weights)
+    golden = json.loads(spec["golden"].read_text())
+    n = spec["golden_experts"]
+    gcfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            n_experts=n))
+    e = params["groups"]["e"]
+    gmoe = {**e["moe"], "router": golden_router(full, n),
+            **{k: e["moe"][k][:, :n] for k in ("wi", "wo", "router_bias")}}
+    gparams = {**params, "groups": {**params["groups"],
+                                    "e": {**e, "moe": gmoe}}}
+    hold_to_golden(gcfg, gparams, golden, f"{spec['arch']} ({n} experts)",
+                   logit_tol(golden))
+    del gparams, gmoe
+    prompts = np.random.default_rng(int(spec["phase"])).integers(
+        0, cfg.vocab, (spec["batch"], SERVE_PROMPT), dtype=np.int32)
+    out = serve_counted(cfg, params, prompts, spec["new"])
+    moe_costs(cfg, params, prompts)
+    per_launch = profile_paths(cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": out["launches"],
+            "flash_ms": per_launch.get("flash_attention")}
+
+
 def _to_card(tree):
     """A tree of host tensors moved to the card, leaf by leaf."""
     if isinstance(tree, dict):
@@ -3609,11 +3721,21 @@ def main() -> int:
         launches[k] += n
     for k, n in run_phase15(fig5_slot).items():     # and phase 20's
         launches[k] += n
-    # the weights of falcon-mamba-7b (phase 21) and of the two Qwen3 models
-    # (phases 22 and 23), drawn beside phases 16-21
+    # the weights of hymba-1.5b (phases 10 and 11), falcon-mamba-7b (phase
+    # 21), the two Qwen3 models (phases 22 and 23) and deepseek-v3-671b
+    # (phase 24), drawn beside phases 16-23
+    print(f"host memory available: {host_available()}")
     weights = {"falcon-mamba-7b": HostWeights("falcon-mamba-7b")}
     weights.update({arch: HostWeights(arch, spec["layers"])
                     for arch, spec in QWEN3.items()})
+    # Hymba's (phases 10 and 11) once qwen3-1.7b's are drawn, and
+    # DeepSeek's 15.1 B parameters once falcon-mamba's are, so that at
+    # most three syntheses (6 threads) share the host's 8 cores
+    weights["hymba-1.5b"] = HostWeights("hymba-1.5b",
+                                        after=weights["qwen3-1.7b"])
+    weights[DEEPSEEK["arch"]] = HostWeights(
+        DEEPSEEK["arch"], DEEPSEEK["layers"],
+        after=weights["falcon-mamba-7b"])
     for k, n in run_phase16(fig5_slot).items():
         launches[k] += n
     for k, n in run_phase17(fig5_slot).items():
@@ -3625,16 +3747,9 @@ def main() -> int:
 
     # the LM serving slice: Hymba-1.5B at full width
     from repro_torch.configs import get_config
-    from repro_torch.models.common import init_params
-    from repro_torch.models.model import build_specs
     cfg = get_config("hymba-1.5b")
     records.update(run_lm_kernels(cfg))
-    t0 = time.perf_counter()
-    params = init_params(build_specs(cfg), 0, "cuda")
-    torch.cuda.synchronize()
-    print(f"hymba-1.5b weights from the seeded numpy synthesis: "
-          f"{cfg.param_count()} parameters on the card in "
-          f"{time.perf_counter() - t0:.3f} s")
+    params = to_card(cfg, weights["hymba-1.5b"])
     run_hymba_golden(cfg, params)
     serving = run_serving(cfg, params)
     reshard_hymba(cfg, params)
@@ -3642,23 +3757,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     falcon = run_falcon(weights["falcon-mamba-7b"])
     qwen3 = {arch: run_qwen3(arch, weights[arch]) for arch in QWEN3}
+    deepseek = run_deepseek(weights[DEEPSEEK["arch"]])
     phase()
-    for run in (serving, falcon, *qwen3.values()):
+    for run in (serving, falcon, *qwen3.values(), deepseek):
         for k in ("flash_attention", "selective_scan"):
             launches[k] += run["launches"][k]
     per_launch.update(selective_scan=serving["per_launch"].get(
         "selective_scan", records["selective_scan"]["ms"]))
 
-    # flash_attention runs on three paths, Hymba's (phase 11) and the two
-    # Qwen3 models' (phases 22, 23): its record is the launch-weighted mean
-    # of the paths', each path's device ms a launch from its profiler and
-    # its plain, SDPA and bound times from phase 9 at its shapes
+    # flash_attention runs on four paths, Hymba's (phase 11), the two
+    # Qwen3 models' (phases 22, 23) and DeepSeek's (phase 24): its record
+    # is the launch-weighted mean of the paths', each path's device ms a
+    # launch from its profiler and its plain, SDPA and bound times from
+    # phase 9 at its shapes
     fa = records["flash_attention"]
     paths = [(serving["launches"]["flash_attention"],
               serving["per_launch"].get("flash_attention"), dict(fa))]
-    d128 = fa.pop("d128")
+    d128, mla = fa.pop("d128"), fa.pop("mla")
     paths += [(qwen3[arch]["launches"]["flash_attention"],
                qwen3[arch]["flash_ms"], d128[arch]) for arch in QWEN3]
+    paths.append((deepseek["launches"]["flash_attention"],
+                  deepseek["flash_ms"], mla))
     n_fa = sum(n for n, _, _ in paths)
     for key in ("plain_ms", "library_ms", "bound_ms"):
         fa[key] = sum(n * rec[key] for n, _, rec in paths) / n_fa
@@ -3667,14 +3786,14 @@ def main() -> int:
     print("flash_attention by path (launches, ms a launch, bound ms): " +
           "; ".join(f"{label} {n}, {rec['ms'] if ms is None else ms:.6f}, "
                     f"{rec['bound_ms']:.6f}" for label, (n, ms, rec) in
-                    zip(("hymba-1.5b", *QWEN3), paths)))
+                    zip(("hymba-1.5b", *QWEN3, DEEPSEEK["arch"]), paths)))
 
     # a kernel's time is its device time per launch on the main path where
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
-    # phases 8, 12, 13, 14, 15, 20, 16, 17, 18 (in process), 19, 11, 21, 22
-    # and 23; selective_scan's time is its time at Hymba's shape (phase
+    # phases 8, 12, 13, 14, 15, 20, 16, 17, 18 (in process), 19, 11, 21,
+    # 22, 23 and 24; selective_scan's time is its time at Hymba's shape (phase
     # 11), falcon-mamba's is printed in phases 9 and 21.
     for k in records:
         records[k]["launches"] = launches[k]

@@ -3,8 +3,9 @@
 Registered: the architectures the port runs — the hybrid ``hymba-1.5b``,
 the attention-free ``falcon-mamba-7b``, the dense ``qwen3-1.7b``,
 ``nemotron-4-15b``, ``starcoder2-15b`` and ``command-r-plus-104b``, and
-the MoE ``qwen3-moe-235b-a22b``.  Every other arch of the reference's
-registry raises here and names the ROADMAP item that ports it.
+the MoE ``qwen3-moe-235b-a22b`` and ``deepseek-v3-671b`` (MLA).  Every
+other arch of the reference's registry raises here and names the
+ROADMAP item that ports it.
 ``reduced(cfg)`` gives the reference's tiny config of the same family for
 CPU tests (few layers, narrow width, tiny vocab, few experts).
 """
@@ -12,24 +13,23 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..models.model import ModelConfig
+from ..models.model import MLACfg, ModelConfig
 from ..models.moe import MoECfg
 from .base import SHAPES, ShapeCell, supports
-from . import (command_r_plus_104b, falcon_mamba_7b, hymba_1_5b,
-               nemotron_4_15b, qwen3_1_7b, qwen3_moe_235b_a22b,
+from . import (command_r_plus_104b, deepseek_v3_671b, falcon_mamba_7b,
+               hymba_1_5b, nemotron_4_15b, qwen3_1_7b, qwen3_moe_235b_a22b,
                starcoder2_15b)
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (nemotron_4_15b, qwen3_1_7b, starcoder2_15b,
               command_r_plus_104b, hymba_1_5b, qwen3_moe_235b_a22b,
-              falcon_mamba_7b)}
+              deepseek_v3_671b, falcon_mamba_7b)}
 
 ARCHS = tuple(REGISTRY)
 
 # archs of the reference's registry that the port does not run yet
-_NOT_PORTED = ("deepseek-v3-671b", "llama-3.2-vision-90b",
-               "seamless-m4t-medium")
+_NOT_PORTED = ("llama-3.2-vision-90b", "seamless-m4t-medium")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -48,7 +48,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     ``dense_d_ff`` 256, at most one leading dense layer), vocab 512; a
     hybrid takes 5 heads on 1 of 16 (TP over the head dim) and a 32-key
     window with full attention in layers 0 and 3; an MoE 8 experts, top
-    2, of width 64."""
+    2, of width 64; an MLA model ``MLACfg(64, 32, 32, 16, 32)`` and 4
+    heads on 4 KV heads of 32."""
     kw: dict = dict(
         name=cfg.name + "-smoke", n_layers=4, d_model=128, n_heads=4,
         n_kv_heads=2, head_dim=32, d_ff=256, vocab=512, dense_d_ff=256,
@@ -61,6 +62,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["moe"] = MoECfg(n_experts=8, top_k=2, d_expert=64,
                            n_shared=cfg.moe.n_shared,
                            router_scale_bias=cfg.moe.router_scale_bias)
+    if cfg.mla is not None:
+        kw["mla"] = MLACfg(q_lora=64, kv_lora=32, nope_dim=32, rope_dim=16,
+                           v_dim=32)
+        kw.update(n_heads=4, n_kv_heads=4, head_dim=32)
     return dataclasses.replace(cfg, **kw)
 
 

@@ -10,7 +10,9 @@ the cases of ``chip_smoke.py``'s phase 9 (``ref.compare_bf16``:
 Hymba-1.5B's full and 2,048-window layers of 4 x 4,096 tokens, ragged
 and D = 16 shapes, then ``CASES_D128``: qwen3-1.7b's and
 qwen3-moe-235b-a22b's full layers at head dim 128 and ragged D = 128
-shapes), times the serving shapes beside the plain version, SDPA and
+shapes, then ``CASES_MLA``: deepseek-v3-671b's layer with queries and
+keys 192 wide and values 128 wide, and ragged shapes of the same dims),
+times the serving shapes beside the plain version, SDPA and
 the bound, and counts the ``HGMMA`` and ``UTMALDG``
 instructions of the built library's kernels (``cuobjdump -sass``).  It
 exits with 1 if a case fails or either count is 0.  ``chip_smoke.py``
@@ -41,8 +43,8 @@ from .. import _build
 from . import kernel as fa
 from .ref import compare_bf16, flash_attention_ref, live_pairs
 
-__all__ = ["cases", "CASES_D128", "bound_ms", "run_cases", "sass_counts",
-           "main"]
+__all__ = ["cases", "CASES_D128", "CASES_MLA", "bound_ms", "run_cases",
+           "sass_counts", "main"]
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -55,7 +57,8 @@ SERVE_BATCH, SERVE_PROMPT = 4, 4096
 def cases(cfg, batch: int = SERVE_BATCH, seq: int = SERVE_PROMPT) -> list:
     """``[(B, Sq, Skv, H, Hkv, D, window)]``: the serving slice's full and
     windowed layers first (the timed ones), then ragged and D = 16
-    shapes."""
+    shapes.  A case may add an eighth entry, the values' width where it
+    is not D (``CASES_MLA``)."""
     H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.sliding_window
     return [(batch, seq, seq, H, Hkv, D, None), (batch, seq, seq, H, Hkv, D, W),
@@ -72,13 +75,23 @@ CASES_D128 = [(4, 4096, 4096, 16, 8, 128, None),
               (1, 1000, 1100, 16, 2, 128, 300),
               (2, 77, 333, 64, 4, 128, None)]
 
+# MLA: deepseek-v3-671b's prefill layer (2 x 4,096, 128 heads, group 1,
+# queries and keys 192 wide, values 128 wide) first, then ragged shapes
+# of the same dims: Sq not a multiple of 64 (the two timed ones), and
+# queries at the end of a longer key range
+CASES_MLA = [(2, 4096, 4096, 128, 128, 192, None, 128),
+             (1, 1000, 1000, 16, 16, 192, None, 128),
+             (2, 77, 333, 128, 128, 192, None, 128)]
 
-def bound_ms(b, sq, skv, h, hkv, d, window) -> tuple:
+
+def bound_ms(b, sq, skv, h, hkv, d, window, dv=None) -> tuple:
     """(least ms, "bytes" or "operations"): q, k, v read once and o
-    written once over the memory rate, against 4 d operations per live
-    (query, key) pair at the bf16 tensor-core rate."""
-    n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * hkv * d)
-    ops = 4 * d * b * h * live_pairs(sq, skv, window)
+    written once over the memory rate, against 2 (d + dv) operations per
+    live (query, key) pair (``q·k`` and ``p·v``; ``dv`` = d unless
+    given) at the bf16 tensor-core rate."""
+    dv = d if dv is None else dv
+    n_bytes = 2 * (b * sq * h * (d + dv) + b * skv * hkv * (d + dv))
+    ops = 2 * (d + dv) * b * h * live_pairs(sq, skv, window)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -125,6 +138,24 @@ def _sdpa(q, k, v, window: Optional[int]):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def sdpa_backend(fn) -> str:
+    """The SDPA backend that runs ``fn()``: the first, in PyTorch's
+    default priority order (flash, memory-efficient, the plain math),
+    that takes it alone, or "none"."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # a refusal's reasons
+                fn()
+        except RuntimeError:
+            continue
+        return backend.name.lower()
+    return "none"
+
+
 def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
               seq: int = SERVE_PROMPT, n_timed: int = 2,
               strict: bool = True, case_list=None) -> dict:
@@ -138,11 +169,13 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
     errs, timed, failed = [], {}, []
     if case_list is None:
         case_list = cases(cfg, batch, seq)
-    for i, (b, sq, skv, h, hkv, d, win) in enumerate(case_list):
+    for i, case in enumerate(case_list):
+        b, sq, skv, h, hkv, d, win = case[:7]
+        dv = case[7] if len(case) > 7 else d
         q, k, v = [torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).to(torch.bfloat16)
                    for shape in ((b, sq, h, d), (b, skv, hkv, d),
-                                 (b, skv, hkv, d))]
+                                 (b, skv, hkv, dv))]
         got = fa.flash_attention(q, k, v, window=win)
         want = flash_attention_ref(q, k, v, window=win)
         torch.cuda.synchronize()
@@ -150,7 +183,8 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
         # of one p's rounding in its row, and few elements differing at all
         # (compare_bf16 gives the reasons)
         cmp = compare_bf16(got, want, q, k, v, window=win)
-        label = f"[{b},{sq},{skv},{h},{hkv},{d}] window {win}"
+        dims = f"{d}" if dv == d else f"{d}/{dv}"
+        label = f"[{b},{sq},{skv},{h},{hkv},{dims}] window {win}"
         print(f"flash_attention {label}: max_abs_err {cmp['max_abs_err']!r}"
               f", worst error {cmp['worst']!r} of its element's bound, "
               f"{cmp['n_diff']} of {got.numel()} outputs differ (at most "
@@ -166,19 +200,21 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
             lib = _sdpa(q, k, v, win)
             lib_err = float((lib().transpose(1, 2).float() - want.float())
                             .abs().max())
+            backend = sdpa_backend(lib)
             ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=win),
                          iters=10, warmup=2)
             plain = cuda_ms(lambda: flash_attention_ref(q, k, v, window=win),
                             iters=3, warmup=1)
             lib_ms = cuda_ms(lib, iters=10, warmup=2)
-            bnd, by = bound_ms(b, sq, skv, h, hkv, d, win)
+            bnd, by = bound_ms(b, sq, skv, h, hkv, d, win, dv)
             timed[i] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                            bound_ms=bnd, bound_by=by)
+                            bound_ms=bnd, bound_by=by, sdpa_backend=backend)
             print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms "
                   f"({by}, {100 * bnd / ms:.2f}% of the bound; MUFU ex2 "
                   f"ceiling {ex2_ms(b, sq, skv, h, win):.6f} ms); plain "
-                  f"{plain:.6f} ms; SDPA {lib_ms:.6f} ms (max_abs_err "
-                  f"against the plain version {lib_err!r})", flush=True)
+                  f"{plain:.6f} ms; SDPA {lib_ms:.6f} ms ({backend} backend; "
+                  f"max_abs_err against the plain version {lib_err!r})",
+                  flush=True)
         del q, k, v, got, want
         torch.cuda.empty_cache()
     return {"max_abs_err": max(errs), "failed": failed, "timed": timed}
@@ -240,6 +276,8 @@ def main(argv=None) -> int:
         print(json.dumps(out))
         print("-- head dim 128: qwen3-1.7b's and qwen3-moe-235b-a22b's layers")
         print(json.dumps(run_cases(cfg, gen, case_list=CASES_D128)))
+        print("-- MLA, q/k 192 and v 128: deepseek-v3-671b's layer")
+        print(json.dumps(run_cases(cfg, gen, case_list=CASES_MLA)))
     except AssertionError as e:
         print(f"FAILED: {e}")
         return 1
@@ -248,7 +286,7 @@ def main(argv=None) -> int:
         rec = _build.build_all(["flash_attention"], (define,))
         print(f"\n-- built with {define}: the tensor cores' sums alone")
         with _kernel_library(rec["flash_attention"]["path"]):
-            for case_list in (None, CASES_D128):
+            for case_list in (None, CASES_D128, CASES_MLA):
                 abl = run_cases(
                     cfg, torch.Generator(device="cuda").manual_seed(9),
                     strict=False, case_list=case_list)

@@ -6,17 +6,20 @@
 // adds the sliding window that the reference's attention_core and
 // attention_ref take; causal only, as the model calls it:
 //
-//   q [B, Sq, H, D], k, v [B, Skv, Hkv, D] bf16 -> o [B, Sq, H, D] bf16,
+//   q [B, Sq, H, DQK], k [B, Skv, Hkv, DQK], v [B, Skv, Hkv, DV] bf16
+//   -> o [B, Sq, H, DV] bf16 (DV = DQK but for MLA's 192 / 128, as the
+//   reference's attention_core takes them),
 //   query head h reads key head h / (H / Hkv), query i sits at position
 //   i + Skv - Sq (Sq <= Skv), and key j is live when j <= qpos and, with
 //   a window, j > qpos - (window + 1).
 //
 // Arithmetic, as in the Pallas kernel and the plain version in ../ref.py:
-// s = (q . k) * scale in float32 (bf16 products are exact; the scale is
-// applied after the sum), masked entries set to NEG = -1e30, a running max
-// m and sum l per row in float32, p = expf(s - m_new) (the accurate expf),
-// l summed from the unrounded p, p rounded to bf16 only as the A operand of
-// p . v, acc rescaled by alpha = expf(m - m_new), and
+// s = (q . k) * scale in float32 (bf16 products are exact; the scale,
+// 1 / sqrt(DQK), is applied after the sum), masked entries set to
+// NEG = -1e30, a running max m and sum l per row in float32,
+// p = expf(s - m_new) (the accurate expf), l summed from the unrounded p,
+// p rounded to bf16 only as the A operand of p . v, acc rescaled by
+// alpha = expf(m - m_new), and
 // o = acc / max(l, 1e-30) rounded to bf16.  Sums run in another order than
 // in the plain version, so a few outputs differ from it by one bf16
 // rounding.
@@ -51,6 +54,8 @@
 // operations, 0.278 ms, for qwen3-1.7b (B 4, H 16, Hkv 8) and 5.50e11,
 // 0.556 ms, for qwen3-moe-235b-a22b (B 2, H 64, Hkv 4); the exponentials
 // per pair stay the same, so the tensor cores' share of a tile doubles.
+// At DeepSeek-V3's MLA (B 2, S 4,096, H = Hkv = 128, DQK 192, DV 128) it
+// is 2 (DQK + DV) = 640 operations a pair, 1.375e12, 1.390 ms.
 //
 // Design.  One block is one warpgroup (128 threads) and owns a tile of 64
 // queries of one (batch, head), wgmma's M; blocks take the heaviest query
@@ -61,27 +66,30 @@
 // of kStages shared-memory stages, each completed on its own mbarrier;
 // TMA fills the rows past Skv (or Sq) with zeros.  Tiles are swizzled
 // (128-byte rows at D = 64, 32-byte rows at D = 16) as wgmma reads them;
-// at D = 128 a row is 256 bytes, wider than a 128-byte swizzled box, so a
-// tile is two 64-column halves, each loaded as its own box and swizzled as
-// a D = 64 tile, the descriptors stepping from one half to the next.
-// S = Q K^T is D/16 wgmma m64n64k16 with both operands in shared memory; it
-// leaves each thread two rows (r and r + 8) of 16 columns each, so the
-// row max and row sum are four-lane shuffles.  The mask is applied only on
-// tiles that hold a masked pair.  P is computed in place in S's registers
-// and, rounded pairwise to bf16x2, is already the register A fragment of
-// O += P V (4 wgmma m64nDk16, V read N-major through the descriptor's
-// transpose bit; 4 m64n64k16 a half at D = 128), so P never goes through
-// shared memory.  O stays in
-// float32 registers.  A stage is refilled after the block's barrier at the
-// end of the tile that used it, so the next tile's loads overlap this
-// tile's math, and the three or four blocks that fit on an SM overlap one
-// block's softmax with another's MMAs.
+// a row wider than 64 columns is wider than a 128-byte swizzled box, so a
+// tile is D / 64 sub-tiles of 64 columns (two at D = 128, three for MLA's
+// 192-wide Q and K), each loaded as its own box on the tile's mbarrier
+// and swizzled as a D = 64 tile, the descriptors stepping from one to the
+// next.  At (192, 128) the shared memory is Q 24 KB and 2 stages of K 24
+// KB and V 16 KB, 104 KB, so two blocks still fit on an SM.
+// S = Q K^T is DQK/16 wgmma m64n64k16 with both operands in shared
+// memory; it leaves each thread two rows (r and r + 8) of 16 columns
+// each, so the row max and row sum are four-lane shuffles.  The mask is
+// applied only on tiles that hold a masked pair.  P is computed in place
+// in S's registers and, rounded pairwise to bf16x2, is already the
+// register A fragment of O += P V (4 wgmma m64nDVk16, V read N-major
+// through the descriptor's transpose bit; 4 m64n64k16 a sub-tile at
+// DV = 128), so P never goes through shared memory.  O stays in float32
+// registers.  A stage is refilled after the block's barrier at the end of
+// the tile that used it, so the next tile's loads overlap this tile's
+// math, and the blocks that fit on an SM overlap one block's softmax with
+// another's MMAs.
 //
 // The exact chains cost more than the rest of the softmax (PERF.md): a
-// warp needs a round in most tiles, and a round is a 64-step dependent
-// chain.  Rounds shared by the block, or chains that overlap the next
-// tile's tensor-core work, are left to later work, as are warp
-// specialisation (a producer warp, setmaxnreg), ping-pong of one
+// warp needs a round in most tiles, and a round is a DQK-step dependent
+// chain (192 steps for MLA).  Rounds shared by the block, or chains that
+// overlap the next tile's tensor-core work, are left to later work, as
+// are warp specialisation (a producer warp, setmaxnreg), ping-pong of one
 // warpgroup's softmax against another's MMAs, a persistent grid, and
 // sharing each K/V tile across the g = 5 query heads of a KV head.
 
@@ -120,18 +128,20 @@ constexpr bool kExactSums = true;
 // expf's own rounding, as a share of p, added to the band of a p
 constexpr float kExpSlack = 0x1p-21f;
 
+// a tile of 64 rows of D bf16 columns in shared memory
 template <int D>
-struct Cfg {
-  static_assert(D == 16 || D == 64 || D == 128, "head dims 16, 64 and 128");
-  // a tile is kSubs sub-tiles of kSubD columns each, side by side: with
-  // the 128-byte swizzle a TMA box spans at most 128 bytes a row, so a
-  // 128-wide bf16 row (256 bytes) is loaded as two 64-column halves
-  static constexpr int kSubD = D == 128 ? 64 : D;
+struct Tile {
+  static_assert(D == 16 || D == 64 || D == 128 || D == 192,
+                "tile widths 16, 64, 128 and 192");
+  // kSubs sub-tiles of kSubD columns each, side by side: with the
+  // 128-byte swizzle a TMA box spans at most 128 bytes a row, so a row
+  // wider than 64 bf16 columns is loaded as 64-column sub-tiles
+  static constexpr int kSubD = D >= 64 ? 64 : D;
   static constexpr int kSubs = D / kSubD;
   static constexpr int kChunks = kSubD / 8;            // 16-byte chunks a row
   static constexpr int kRowBytes = 2 * kSubD;          // one sub-tile row
   static constexpr int kSubBytes = kBK * kRowBytes;    // one sub-tile
-  static constexpr int kTileBytes = kSubs * kSubBytes; // a Q, K or V tile
+  static constexpr int kTileBytes = kSubs * kSubBytes; // the tile
   static constexpr uint64_t kLayout =
       D >= 64 ? sm90::kSwizzle128 : sm90::kSwizzle32;
   static constexpr CUtensorMapSwizzle kMapSwizzle =
@@ -139,32 +149,42 @@ struct Cfg {
   // eight rows of one swizzle atom: the stride between core-matrix groups
   // along M or N (Q, K) and along K (V)
   static constexpr uint32_t kSbo = 8 * kRowBytes;
-  static constexpr int kOregs = D / 2;                 // O fragment floats
-  static constexpr int kSubOregs = kSubD / 2;          // of one sub-tile
+};
+
+template <int DQK, int DV>
+struct Cfg {
+  static_assert((DQK == DV && DV != 192) || (DQK == 192 && DV == 128),
+                "head dims (16, 16), (64, 64), (128, 128) and (192, 128)");
+  using QK = Tile<DQK>;                                // Q and K tiles
+  using V = Tile<DV>;
+  static constexpr int kOregs = DV / 2;                // O fragment floats
+  static constexpr int kSubOregs = V::kSubD / 2;       // of one sub-tile
   // Q, K[kStages], V[kStages], 1 + 2 kStages mbarriers, then each
   // stage's largest key norm of each warp's 16 keys
-  static constexpr int kBarOffset = (1 + 2 * kStages) * kTileBytes;
+  static constexpr int kKOffset = QK::kTileBytes;
+  static constexpr int kVOffset = (1 + kStages) * QK::kTileBytes;
+  static constexpr int kBarOffset = kVOffset + kStages * V::kTileBytes;
   static constexpr int kNormOffset = kBarOffset + 8 * (1 + 2 * kStages);
   static constexpr size_t kBytes = kNormOffset + 4 * kStages * 4 +
                                    kAlign;             // + alignment slack
 };
 
 // byte offset of the 16-byte chunk c (d = 8 c .. 8 c + 7) of row `row` in
-// a tile that TMA swizzled: chunk c lies in sub-tile c / kChunks, and its
-// index there is XORed with row bits 0-2 (128-byte rows) or row bit 2
-// (32-byte rows)
+// a tile of width D that TMA swizzled: chunk c lies in sub-tile
+// c / kChunks, and its index there is XORed with row bits 0-2 (128-byte
+// rows) or row bit 2 (32-byte rows)
 template <int D>
 __device__ __forceinline__ int chunk_offset(int row, int c) {
-  using C = Cfg<D>;
+  using T = Tile<D>;
   const int swz = D >= 64 ? (row & 7) : ((row >> 2) & 1);
-  return (c / C::kChunks) * C::kSubBytes + row * C::kRowBytes +
-         (((c % C::kChunks) ^ swz) << 4);
+  return (c / T::kChunks) * T::kSubBytes + row * T::kRowBytes +
+         (((c % T::kChunks) ^ swz) << 4);
 }
 
 // sum over d of q[row][d] k[key][d] as one float32 fmaf chain in d order
 // from 0: the sum the plain version's float32 matrix product gives (cuBLAS
-// sums a dot product of 128, 64 or 16 terms this way), from two swizzled
-// tiles
+// sums a dot product of 192, 128, 64 or 16 terms this way), from two
+// swizzled tiles
 template <int D>
 __device__ __forceinline__ float dot_chain(const uint8_t* q, int row,
                                            const uint8_t* k, int key) {
@@ -218,7 +238,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -226,20 +246,22 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        __nv_bfloat16* __restrict__ o, int sq, int skv,
                        int n_heads, int n_kv_heads, int window,
                        float scale) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
+  using QK = typename C::QK;
+  using V = typename C::V;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       (sm90::smem_addr(smem_raw) + (kAlign - 1)) & ~uint32_t(kAlign - 1);
   const uint32_t q_tile = base;
-  const uint32_t k_tile0 = base + C::kTileBytes;
-  const uint32_t v_tile0 = k_tile0 + kStages * C::kTileBytes;
+  const uint32_t k_tile0 = base + C::kKOffset;
+  const uint32_t v_tile0 = base + C::kVOffset;
   const uint32_t q_bar = base + C::kBarOffset;
   const uint32_t k_bar0 = q_bar + 8;
   const uint32_t v_bar0 = k_bar0 + 8 * kStages;
   // the same shared memory through generic pointers, for the exact sums
   uint8_t* const smem = smem_raw + (base - sm90::smem_addr(smem_raw));
   const uint8_t* q_gen = smem;
-  const uint8_t* k_gen0 = smem + C::kTileBytes;
+  const uint8_t* k_gen0 = smem + C::kKOffset;
   float* k_norm0 = reinterpret_cast<float*>(smem + C::kNormOffset);
 
   const int tid = threadIdx.x;
@@ -262,19 +284,22 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
 
   // one thread: a tile of 64 rows from `row` of head `head`, sub-tile by
   // sub-tile, all completing on `bar`
-  auto load_tile = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                       int head, int row) {
-    sm90::mbar_arrive_expect_tx(bar, C::kTileBytes);
+  auto load_tile = [&](auto tile, uint32_t dst, const CUtensorMap* map,
+                       uint32_t bar, int head, int row) {
+    using T = decltype(tile);
+    sm90::mbar_arrive_expect_tx(bar, T::kTileBytes);
 #pragma unroll
-    for (int sub = 0; sub < C::kSubs; ++sub)
-      sm90::tma_load_4d(dst + sub * C::kSubBytes, map, bar, sub * C::kSubD,
+    for (int sub = 0; sub < T::kSubs; ++sub)
+      sm90::tma_load_4d(dst + sub * T::kSubBytes, map, bar, sub * T::kSubD,
                         head, row, b);
   };
   auto issue_kv = [&](int i) {              // one thread: tile i's K and V
     const int s = i % kStages;
     const int k0 = (t_lo + i) * kBK;
-    load_tile(k_tile0 + s * C::kTileBytes, &k_map, k_bar0 + 8 * s, hk, k0);
-    load_tile(v_tile0 + s * C::kTileBytes, &v_map, v_bar0 + 8 * s, hk, k0);
+    load_tile(QK{}, k_tile0 + s * QK::kTileBytes, &k_map, k_bar0 + 8 * s,
+              hk, k0);
+    load_tile(V{}, v_tile0 + s * V::kTileBytes, &v_map, v_bar0 + 8 * s, hk,
+              k0);
   };
 
   if (tid == 0) {
@@ -286,7 +311,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
   if (tid == 0) {
-    load_tile(q_tile, &q_map, q_bar, h, q0);
+    load_tile(QK{}, q_tile, &q_map, q_bar, h, q0);
     for (int i = 0; i < kStages && i < n_tiles; ++i) issue_kv(i);
   }
 
@@ -297,7 +322,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
   float acc[C::kOregs];                     // O, float32
-  float pv[C::kSubs][C::kSubOregs];         // one tile's P V, by sub-tile
+  float pv[V::kSubs][C::kSubOregs];         // one tile's P V, by sub-tile
   float s[32];
 #pragma unroll
   for (int i = 0; i < C::kOregs; ++i)
@@ -305,41 +330,41 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
-  const uint64_t q_desc = sm90::make_desc(q_tile, 0, C::kSbo, C::kLayout);
+  const uint64_t q_desc = sm90::make_desc(q_tile, 0, QK::kSbo, QK::kLayout);
   sm90::mbar_wait(q_bar, 0);
   // the band of s for this thread's rows, short of the key norm
   float qband[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half)
     qband[half] = kBand * 0x1p-24f * scale *
-                  sqrtf(sum_squares<D>(q_gen, r + 8 * half, 0, D / 8));
+                  sqrtf(sum_squares<DQK>(q_gen, r + 8 * half, 0, DQK / 8));
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % kStages;
     const uint32_t parity = (i / kStages) & 1;
     const int k0 = (t_lo + i) * kBK;
 
-    // S = Q K^T: D/16 steps of k16, 32 bytes along each K-major row of
+    // S = Q K^T: DQK/16 steps of k16, 32 bytes along each K-major row of
     // a sub-tile, kSubD/16 steps a sub-tile
     const uint64_t k_desc = sm90::make_desc(
-        k_tile0 + st * C::kTileBytes, 0, C::kSbo, C::kLayout);
-    const uint8_t* k_gen = k_gen0 + st * C::kTileBytes;
+        k_tile0 + st * QK::kTileBytes, 0, QK::kSbo, QK::kLayout);
+    const uint8_t* k_gen = k_gen0 + st * QK::kTileBytes;
     float* k_norm = k_norm0 + 4 * st;
     sm90::mbar_wait(k_bar0 + 8 * st, parity);
     sm90::fence_operands(s);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t step = (kk / (C::kSubD / 16)) * (C::kSubBytes >> 4) +
-                            2 * (kk % (C::kSubD / 16));
+    for (int kk = 0; kk < DQK / 16; ++kk) {
+      const uint64_t step = (kk / (QK::kSubD / 16)) * (QK::kSubBytes >> 4) +
+                            2 * (kk % (QK::kSubD / 16));
       sm90::wgmma_m64n64k16_ss(s, q_desc + step, k_desc + step, kk);
     }
     sm90::wgmma_commit();
     // the tile's largest key norm, while the tensor cores work: two
     // threads a key, then each warp's largest of its 16 keys
     {
-      float kk2 = sum_squares<D>(k_gen, tid / 2, (tid % 2) * (D / 16),
-                                 D / 16);
+      float kk2 = sum_squares<DQK>(k_gen, tid / 2, (tid % 2) * (DQK / 16),
+                                   DQK / 16);
       kk2 += __shfl_xor_sync(kFull, kk2, 1);
 #pragma unroll
       for (int w = 2; w < 32; w *= 2)
@@ -401,7 +426,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       for (uint32_t todo = exact; __any_sync(kFull, todo);
            todo &= todo - 1) {
         const int c = todo ? __ffs(todo) - 1 : 0;
-        const float v = chain_at<D>(q_gen, k_gen, r, col, c) * scale;
+        const float v = chain_at<DQK>(q_gen, k_gen, r, col, c) * scale;
 #pragma unroll
         for (int cc = 0; cc < 32; ++cc)
           if (todo && cc == c) s[cc] = v;
@@ -443,7 +468,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     for (uint32_t todo = doubt; __any_sync(kFull, todo); todo &= todo - 1) {
       const int c = todo ? __ffs(todo) - 1 : 0;
-      const float x = expf(chain_at<D>(q_gen, k_gen, r, col, c) * scale -
+      const float x = expf(chain_at<DQK>(q_gen, k_gen, r, col, c) * scale -
                            ((c >> 1) & 1 ? m_new[1] : m_new[0]));
 #pragma unroll
       for (int cc = 0; cc < 32; ++cc)
@@ -478,20 +503,20 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     // pv = P V: for each sub-tile of V's columns, 4 steps of k16, 16 rows
     // of V each
     const uint64_t v_desc = sm90::make_desc(
-        v_tile0 + st * C::kTileBytes, 0, C::kSbo, C::kLayout);
+        v_tile0 + st * V::kTileBytes, 0, V::kSbo, V::kLayout);
     sm90::mbar_wait(v_bar0 + 8 * st, parity);
 #pragma unroll
-    for (int sub = 0; sub < C::kSubs; ++sub) sm90::fence_operands(pv[sub]);
+    for (int sub = 0; sub < V::kSubs; ++sub) sm90::fence_operands(pv[sub]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(p[kk]);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int sub = 0; sub < C::kSubs; ++sub) {
+    for (int sub = 0; sub < V::kSubs; ++sub) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t vk = v_desc + sub * (C::kSubBytes >> 4) +
-                            ((16 * kk * C::kRowBytes) >> 4);
-        if constexpr (D >= 64)
+        const uint64_t vk = v_desc + sub * (V::kSubBytes >> 4) +
+                            ((16 * kk * V::kRowBytes) >> 4);
+        if constexpr (DV >= 64)
           sm90::wgmma_m64n64k16_rs_tb(pv[sub], p[kk], vk, kk);
         else
           sm90::wgmma_m64n16k16_rs_tb(pv[sub], p[kk], vk, kk);
@@ -500,7 +525,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
 #pragma unroll
-    for (int sub = 0; sub < C::kSubs; ++sub) sm90::fence_operands(pv[sub]);
+    for (int sub = 0; sub < V::kSubs; ++sub) sm90::fence_operands(pv[sub]);
 
     // acc = acc * alpha + pv, rounded as the plain version rounds it: the
     // tensor cores' sums truncate, which over a whole row of tiles would
@@ -521,10 +546,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     if (row >= sq) continue;
     const float denom = fmaxf(l[half], 1e-30f);
     __nv_bfloat16* orow = o + (static_cast<size_t>(b) * sq + row) *
-                                  n_heads * D +
-                          static_cast<size_t>(h) * D;
+                                  n_heads * DV +
+                          static_cast<size_t>(h) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const float x0 = acc[4 * j + 2 * half] / denom;
       const float x1 = acc[4 * j + 2 * half + 1] / denom;
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) =
@@ -570,11 +595,11 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* x,
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t row = 2ull * D;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {Cfg<D>::kSubD, 1, kBK, 1};
+  const cuuint32_t box[4] = {Tile<D>::kSubD, 1, kBK, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(x), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, Cfg<D>::kMapSwizzle,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::kMapSwizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -583,7 +608,7 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* x,
 // from the CUDA runtime's own error codes
 constexpr int kMapError = 100000;
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o,
            int b, int sq, int skv, int h, int hkv, int window, float scale,
            cudaStream_t stream) {
@@ -591,17 +616,18 @@ int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kMapError;
   CUtensorMap q_map, k_map, v_map;
-  CUresult res = make_map<D>(&q_map, encode, q, b, sq, h);
-  if (res == CUDA_SUCCESS) res = make_map<D>(&k_map, encode, k, b, skv, hkv);
-  if (res == CUDA_SUCCESS) res = make_map<D>(&v_map, encode, v, b, skv, hkv);
+  CUresult res = make_map<DQK>(&q_map, encode, q, b, sq, h);
+  if (res == CUDA_SUCCESS)
+    res = make_map<DQK>(&k_map, encode, k, b, skv, hkv);
+  if (res == CUDA_SUCCESS) res = make_map<DV>(&v_map, encode, v, b, skv, hkv);
   if (res != CUDA_SUCCESS) return kMapError + static_cast<int>(res);
-  constexpr size_t bytes = Cfg<D>::kBytes;
+  constexpr size_t bytes = Cfg<DQK, DV>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      flash_attention_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
       q_map, k_map, v_map, o, sq, skv, h, hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -612,27 +638,29 @@ extern "C" {
 
 // o = causal attention(q, k, v) on `stream`; window < 0 means none.
 // q, k, v and o are contiguous and 16-byte aligned (TMA's condition; the
-// wrapper checks it).  Returns cudaGetLastError() of the launch,
-// cudaErrorInvalidValue for a head dim without an instantiation (64 for
-// Hymba, 16 for its reduced test config, 128 for the dense and MoE
-// models), or 100000 + the CUresult when a
-// tensor map cannot be made (100000 alone: CUDA offers no
-// cuTensorMapEncodeTiled).
+// wrapper checks it); q and k are d wide, v and o dv wide.  Returns
+// cudaGetLastError() of the launch, cudaErrorInvalidValue for head dims
+// without an instantiation ((64, 64) for Hymba, (16, 16) for its reduced
+// test config, (128, 128) for the dense and MoE models, (192, 128) for
+// DeepSeek-V3's MLA), or 100000 + the CUresult when a tensor map cannot
+// be made (100000 alone: CUDA offers no cuTensorMapEncodeTiled).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int sq, int skv, int h, int hkv,
-                           int d, int window, float scale, void* stream) {
+                           int d, int dv, int window, float scale,
+                           void* stream) {
   auto* oo = static_cast<__nv_bfloat16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16:
-      return launch<16>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
-    case 64:
-      return launch<64>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
-    case 128:
-      return launch<128>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d == 16 && dv == 16)
+    return launch<16, 16>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
+  if (d == 64 && dv == 64)
+    return launch<64, 64>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
+  if (d == 128 && dv == 128)
+    return launch<128, 128>(q, k, v, oo, b, sq, skv, h, hkv, window, scale,
+                            s);
+  if (d == 192 && dv == 128)
+    return launch<192, 128>(q, k, v, oo, b, sq, skv, h, hkv, window, scale,
+                            s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

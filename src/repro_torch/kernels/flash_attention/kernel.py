@@ -27,8 +27,9 @@ __all__ = ["flash_attention", "launch_counts", "reset_launch_counts",
 
 _launches = {"flash_attention": 0}
 
-# the kernel's instantiations: reduced Hymba, Hymba, the dense and MoE models
-HEAD_DIMS = (16, 64, 128)
+# the kernel's instantiations, (query and key dim, value dim): reduced
+# Hymba, Hymba, the dense and MoE models, DeepSeek-V3's MLA
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128))
 BLOCK_Q = 64             # queries per block (the kernel's kBQ)
 _MAX_GRID_YZ = 65535
 _MAP_ERROR = 100000      # the kernel's kMapError: a tensor map was refused
@@ -74,15 +75,16 @@ def _lib() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
         lib.flash_attention_launch.restype = _I
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
-    """CUDA causal flash attention forward: bf16 q [B,Sq,H,D], k, v
-    [B,Skv,Hkv,D] -> bf16 [B,Sq,H,D] (see ``ref.flash_attention_ref``)."""
+    """CUDA causal flash attention forward: bf16 q [B,Sq,H,Dqk], k
+    [B,Skv,Hkv,Dqk], v [B,Skv,Hkv,Dv] -> bf16 [B,Sq,H,Dv] (see
+    ``ref.flash_attention_ref``); ``(Dqk, Dv)`` one of ``HEAD_DIMS``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -98,19 +100,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is not 16-byte aligned")
     check_shapes(q, k, v)
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {D}, v {Dv}) not in {HEAD_DIMS}")
     if H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
         raise ValueError(f"B={B} or H={H} exceeds the kernel's grid")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    o = torch.empty_like(q)
+    o = q.new_empty((B, Sq, H, Dv))
     if o.numel() == 0:
         return o
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, Skv, H, Hkv, D, -1 if window is None else window,
+        B, Sq, Skv, H, Hkv, D, Dv, -1 if window is None else window,
         1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     if err >= _MAP_ERROR:
         raise RuntimeError(f"flash_attention: CUDA refused a TMA tensor "

@@ -19,7 +19,8 @@ __all__ = ["flash_attention_op"]
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention, over ``window + 1`` keys per query when
-    ``window`` is set, on the tensors' device."""
+    ``window`` is set, on the tensors' device; values may be narrower
+    than queries and keys (MLA)."""
     if q.device.type == "cuda":
         return kernel.flash_attention(q, k, v, window=window)
     if q.device.type == "cpu":

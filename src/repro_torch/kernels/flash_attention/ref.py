@@ -5,7 +5,9 @@
 of ``BLOCK_K`` = 64, ``s = (q·kᵀ) * scale`` in float32 (bf16 products are
 exact), a running max ``m`` and sum ``l`` in float32, ``p = exp(s - m)``
 rounded to the values' dtype before ``p·v``, and ``acc / max(l, 1e-30)``
-at the end.  This is the reference's Pallas kernel
+at the end.  Values may be narrower than queries and keys (MLA's: 192
+and 128), as in the reference's ``attention_core``; the scale is
+``1 / sqrt(Dqk)``.  This is the reference's Pallas kernel
 (``repro/kernels/flash_attention/kernel.py``) with a sliding window
 added, for causal attention: the mask keeps ``kpos <= qpos`` and, with a
 window, ``kpos > qpos - (window + 1)``, so a query sees ``window + 1``
@@ -39,11 +41,13 @@ MAX_DIFF_SHARE = 1e-3
 
 
 def check_shapes(q, k, v) -> None:
-    """Raise on shapes the kernel and this version do not take."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q [B,Sq,H,D] and k, v [B,Skv,Hkv,D] of "
-                         f"one shape, got {tuple(q.shape)}, {tuple(k.shape)},"
-                         f" {tuple(v.shape)}")
+    """Raise on shapes the kernel and this version do not take: q
+    [B,Sq,H,Dqk], k [B,Skv,Hkv,Dqk] and v [B,Skv,Hkv,Dv]."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"expected q [B,Sq,H,Dqk], k [B,Skv,Hkv,Dqk] and "
+                         f"v [B,Skv,Hkv,Dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
@@ -64,12 +68,12 @@ def _mask(sq: int, skv: int, window: Optional[int], device) -> torch.Tensor:
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention.  q: [B,Sq,H,D]; k, v: [B,Skv,Hkv,D]; returns
-    [B,Sq,H,D] in q's dtype.  Query head ``h`` reads key head
-    ``h // (H // Hkv)``."""
+    """Causal attention.  q: [B,Sq,H,Dqk]; k: [B,Skv,Hkv,Dqk]; v:
+    [B,Skv,Hkv,Dv]; returns [B,Sq,H,Dv] in q's dtype.  Query head ``h``
+    reads key head ``h // (H // Hkv)``."""
     check_shapes(q, k, v)
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     g = H // Hkv
     scale = 1.0 / math.sqrt(D)
     dev = q.device
@@ -79,7 +83,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     live = _mask(Sq, Skv, window, dev)
     m = torch.full((B, H, Sq), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=dev)
     for k0 in range(0, Skv, BLOCK_K):
         kb, vb = kf[:, :, k0:k0 + BLOCK_K], vr[:, :, k0:k0 + BLOCK_K]
         s = (qf @ kb.transpose(-1, -2)) * scale                 # [B,H,Sq,bk]
@@ -136,7 +140,7 @@ def compare_bf16(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
     row's outputs by one ulp of that ``p`` times its value, at most
     ``2^-7 * max_weight(row) * max|v|``.  Each element is held to the sum
     of the two, and at most ``MAX_DIFF_SHARE`` of the outputs (and never
-    fewer than two query rows' worth, ``2 D``) may differ at all.
+    fewer than two query rows' worth, ``2 Dv``) may differ at all.
     Returns ``max_abs_err``, ``worst`` (the largest error over its
     element's bound), ``n_diff``, ``n_allowed`` and ``ok``."""
     w = max_weight(q, k, window)[..., None]

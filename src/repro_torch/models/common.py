@@ -30,7 +30,8 @@ __all__ = ["ParamSpec", "flatten_specs", "spec_leaf_np", "leaf_blocks_np",
            "init_params_np", "params_to_torch", "count_params",
            "param_shardings", "fdot", "proj", "rmsnorm", "rope_freqs",
            "apply_rope", "activation", "GATED_ACTS", "mlp_specs",
-           "mlp_apply", "pad_vocab", "init_params", "init_scale_out"]
+           "mlp_apply", "pad_vocab", "group_rows", "init_params",
+           "init_scale_out"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # float32 elements in one block that leaf_blocks_np draws (256 MiB)
@@ -158,6 +159,22 @@ def params_to_torch(specs, arrays, device) -> dict:
     return t.to(device=device).to(_DTYPES[specs.dtype])
 
 
+def group_rows(specs, layers: Optional[int]) -> dict:
+    """``{group name: layers kept}`` when a model is cut to its first
+    ``layers`` layers: the groups of ``specs["groups"]`` in the model's
+    order (``build_specs`` adds them in the block program's order), each
+    stacked over its layers, keep their layers in turn until ``layers``
+    are kept (DeepSeek-V3's 4: 3 of ``d``, 1 of ``e``).  None keeps
+    every layer."""
+    out, left = {}, layers
+    for name, tree in specs.get("groups", {}).items():
+        n = flatten_specs(tree)[0][1].shape[0]
+        out[name] = n if left is None else min(n, left)
+        if left is not None:
+            left -= out[name]
+    return out
+
+
 def init_params(specs, seed: int, device, threads: int = 1,
                 layers: Optional[int] = None) -> dict:
     """:func:`init_params_np` then :func:`params_to_torch`, one block at a
@@ -168,16 +185,19 @@ def init_params(specs, seed: int, device, threads: int = 1,
     each leaf's stream stays in one thread, so the weights are the same
     whatever ``threads``.
 
-    ``layers`` keeps the first ``layers`` layers of every stacked leaf
-    (those under ``groups``), drawn at the scales of ``specs``: the first
-    layers of the whole model, for a config cut in depth."""
+    ``layers`` keeps the first ``layers`` layers of the whole model, a
+    group's first layers of each of its stacked leaves (those under
+    ``groups``) as :func:`group_rows` counts them, drawn at the scales of
+    ``specs``: for a config cut in depth."""
     leaves = flatten_specs(specs)
+    keep = group_rows(specs, layers)
 
     def one(i: int) -> torch.Tensor:
         path, spec = leaves[i]
         if not spec.shape:
             return params_to_torch(spec, spec_leaf_np(spec, seed, i), device)
-        rows = layers if path.startswith("groups/") else None
+        rows = keep[path.split("/")[1]] if path.startswith("groups/") \
+            else None
         shape = tuple(spec.shape) if rows is None else \
             (min(rows, spec.shape[0]),) + tuple(spec.shape[1:])
         out = torch.empty(shape, dtype=_DTYPES[spec.dtype], device=device)

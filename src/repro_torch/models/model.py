@@ -12,8 +12,10 @@ and :func:`decode_step` runs one token against it, updating the cache in
 place (the reference returns a new cache).  Ported kinds: ``dense``
 (GQA attention and an MLP: Qwen3, Nemotron, StarCoder2, Command R+),
 ``moe`` (GQA attention and the routed experts of ``models.moe``: the
-Qwen3 MoE), ``hybrid`` and ``hybrid_full`` (Hymba) and the
-attention-free ``mamba`` (falcon-mamba).  Every other kind raises.
+Qwen3 MoE), ``mla_dense`` and ``mla_moe`` (MLA attention and an MLP or
+the routed experts: DeepSeek-V3), ``hybrid`` and ``hybrid_full``
+(Hymba) and the attention-free ``mamba`` (falcon-mamba).  Every other
+kind raises.
 """
 from __future__ import annotations
 
@@ -30,12 +32,13 @@ from .common import (ParamSpec, count_params, init_scale_out, mlp_apply,
 from .moe import MoECfg, moe_apply, moe_specs
 from .ssm import ssm_decode, ssm_prefill, ssm_specs
 
-__all__ = ["ModelConfig", "Group", "plan", "block_specs",
+__all__ = ["MLACfg", "ModelConfig", "Group", "plan", "block_specs",
            "build_specs", "embed", "logits_from", "block_apply",
            "block_decode", "prefill", "decode_step"]
 
 _HYBRID = ("hybrid", "hybrid_full")
-_KINDS = ("dense", "moe") + _HYBRID + ("mamba",)
+_MLA = ("mla_dense", "mla_moe")
+_KINDS = ("dense", "moe") + _MLA + _HYBRID + ("mamba",)
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -47,6 +50,15 @@ def _not_ported(kind: str) -> NotImplementedError:
 # ---------------------------------------------------------------------- #
 # configuration: the reference's fields that the port reads
 # ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MLACfg:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    nope_dim: int = 128
+    rope_dim: int = 64
+    v_dim: int = 128
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -67,6 +79,8 @@ class ModelConfig:
     moe: Optional[MoECfg] = None
     dense_layers: int = 0           # leading dense layers
     dense_d_ff: int = 0
+    # MLA
+    mla: Optional[MLACfg] = None
     # SSM
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -109,8 +123,9 @@ def plan(cfg: ModelConfig) -> list:
     model is one group of ``mamba`` layers; a hybrid has runs of
     sliding-window layers between the full-attention layers, each
     full-attention layer a group of its own; an MoE model its leading
-    ``dense`` layers, then its ``moe`` layers; any other, one group of
-    ``dense`` layers."""
+    ``dense`` layers, then its ``moe`` layers (``mla_dense`` and
+    ``mla_moe`` where it has MLA); any other, one group of ``dense``
+    layers."""
     if cfg.family in ("vlm", "audio"):
         raise _not_ported(cfg.family)
     if cfg.family == "ssm":
@@ -128,10 +143,12 @@ def plan(cfg: ModelConfig) -> list:
             groups.append(Group("hybrid", cfg.n_layers - prev, f"h{gi}"))
         return groups
     if cfg.moe is not None:
+        pre = "mla_" if cfg.mla else ""
         groups = []
         if cfg.dense_layers:
-            groups.append(Group("dense", cfg.dense_layers, "d"))
-        groups.append(Group("moe", cfg.n_layers - cfg.dense_layers, "e"))
+            groups.append(Group(pre + "dense", cfg.dense_layers, "d"))
+        groups.append(Group(pre + "moe", cfg.n_layers - cfg.dense_layers,
+                            "e"))
         return groups
     return [Group("dense", cfg.n_layers, "d")]
 
@@ -140,10 +157,12 @@ def _norm(cfg) -> ParamSpec:
     return ParamSpec((cfg.d_model,), "float32", "ones", axes=(None,))
 
 
-def _dense_ffn_specs(cfg) -> dict:
-    # the reference gives `dense_d_ff` to its MLA models' dense layers
-    # only, which the port does not run: every ported kind takes d_ff
-    return mlp_specs(cfg.d_model, cfg.d_ff, cfg.act,
+def _dense_ffn_specs(cfg, kind: str) -> dict:
+    # the reference gives `dense_d_ff` to the MLA models' dense layers
+    # only: every other kind takes d_ff
+    d_ff = cfg.dense_d_ff if kind == "mla_dense" and cfg.dense_d_ff \
+        else cfg.d_ff
+    return mlp_specs(cfg.d_model, d_ff, cfg.act,
                      init_scale_out(cfg.total_layers))
 
 
@@ -156,15 +175,18 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
             "attn": attn.gqa_specs(cfg),
             "ssm": ssm_specs(cfg),
             "po_norm_a": _norm(cfg), "po_norm_s": _norm(cfg),
-            "ln2": _norm(cfg), "mlp": _dense_ffn_specs(cfg),
+            "ln2": _norm(cfg), "mlp": _dense_ffn_specs(cfg, kind),
         }
-    if kind not in ("dense", "moe"):
+    if kind not in ("dense", "moe") + _MLA:
         raise _not_ported(kind)
-    out = {"ln1": _norm(cfg), "attn": attn.gqa_specs(cfg), "ln2": _norm(cfg)}
-    if kind == "moe":
+    out = {"ln1": _norm(cfg),
+           "attn": attn.mla_specs(cfg) if kind in _MLA else
+           attn.gqa_specs(cfg),
+           "ln2": _norm(cfg)}
+    if kind.endswith("moe"):
         out["moe"] = moe_specs(cfg)
     else:
-        out["mlp"] = _dense_ffn_specs(cfg)
+        out["mlp"] = _dense_ffn_specs(cfg, kind)
     return out
 
 
@@ -209,9 +231,9 @@ def _mix_and_mlp(p: dict, x, a_out, s_out, cfg):
 
 def _ffn(kind: str, p: dict, x, cfg):
     """The feed-forward sub-block and its residual: the routed experts
-    of a ``moe`` block, else the MLP."""
+    of a ``moe`` or ``mla_moe`` block, else the MLP."""
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind == "moe":
+    if kind.endswith("moe"):
         return x + moe_apply(p["moe"], h2, cfg)
     return x + mlp_apply(p["mlp"], h2, cfg.act)
 
@@ -228,6 +250,12 @@ def block_apply(kind: str, p: dict, x, cfg, positions):
         o = flash_attention_op(q, k, v, cfg.sliding_window)
         x = _ffn(kind, p, x + attn.gqa_out(p["attn"], o), cfg)
         return x, {"k": k, "v": v}
+    if kind in _MLA:
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v, c_kv, k_rope = attn.mla_qkv(p["attn"], h, cfg, positions)
+        o = flash_attention_op(q, k, v)
+        x = _ffn(kind, p, x + attn.mla_out(p["attn"], o), cfg)
+        return x, {"ckv": c_kv, "kr": k_rope}
     if kind not in _HYBRID:
         raise _not_ported(kind)
     window = None if kind == "hybrid_full" else cfg.sliding_window
@@ -266,6 +294,11 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
         return x + y
     if kind not in _KINDS:
         raise _not_ported(kind)
+    if kind in _MLA:
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        a_out = attn.mla_decode(p["attn"], h, cfg, cache["ckv"], cache["kr"],
+                                pos)
+        return _ffn(kind, p, x + a_out, cfg)
     window = None if kind == "hybrid_full" else cfg.sliding_window
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -301,9 +334,11 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
 
     The cache is ``{group: {"k", "v", "conv", "ssm"}}`` (a ``dense`` or
     ``moe`` group's ``{"k", "v"}``, every prompt key: ``[L, B, S, Hkv,
-    D]``; a ``mamba`` group's ``{"conv", "ssm"}``: ``[L, B, di, K-1]`` and
-    float32 ``[L, B, di, N]``) with each entry stacked over the group's
-    layers, as the reference's."""
+    D]``; an MLA group's ``{"ckv", "kr"}``, the latent and the rotated
+    key of every prompt token: ``[L, B, S, kv_lora]`` and ``[L, B, S,
+    rope_dim]``; a ``mamba`` group's ``{"conv", "ssm"}``: ``[L, B, di,
+    K-1]`` and float32 ``[L, B, di, N]``) with each entry stacked over
+    the group's layers, as the reference's."""
     B, S = tokens.shape
     x = embed(params, tokens)
     positions = torch.arange(S, dtype=torch.int32,

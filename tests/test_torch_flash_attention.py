@@ -222,9 +222,10 @@ def test_bench_cases_are_the_serving_slice_and_the_ragged_shapes():
     """The on-card driver's cases (``chip_smoke.py`` phase 9 runs the
     same): Hymba-1.5B's full and windowed layers of 4 x 4,096 tokens
     first, then ragged and D = 16 shapes; with the D = 128 cases of the
-    Qwen3 models (``CASES_D128``) they cover every head dim the kernel is
-    built for; each bound is the tensor cores' time for the live pairs,
-    above the time to move q, k, v and o."""
+    Qwen3 models (``CASES_D128``) and the MLA cases of DeepSeek-V3
+    (``CASES_MLA``: values narrower than keys) they cover every pair of
+    head dims the kernel is built for; each bound is the tensor cores'
+    time for the live pairs, above the time to move q, k, v and o."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import bench
     cfg = get_config("hymba-1.5b")
@@ -232,7 +233,9 @@ def test_bench_cases_are_the_serving_slice_and_the_ragged_shapes():
     assert cases[:2] == [(4, 4096, 4096, 25, 5, 64, None),
                          (4, 4096, 4096, 25, 5, 64, cfg.sliding_window)]
     assert len(cases) == 6
-    assert {c[5] for c in cases + bench.CASES_D128} == set(kernel.HEAD_DIMS)
+    assert {(c[5], c[7] if len(c) > 7 else c[5]) for c in
+            cases + bench.CASES_D128 + bench.CASES_MLA} == \
+        set(kernel.HEAD_DIMS)
     assert any(c[1] < c[2] for c in cases)
     full, by = bench.bound_ms(*cases[0])
     assert by == "operations"

@@ -254,17 +254,16 @@ def test_serve_session_defaults_to_the_card(models):
 
 
 def test_unported_archs_and_kinds_raise():
-    # the archs whose block kinds are not ported (MLA, the vision
-    # super-block, encoder-decoder) raise and name the ROADMAP item, as
-    # do their kinds and families
-    for arch in ("deepseek-v3-671b", "llama-3.2-vision-90b",
-                 "seamless-m4t-medium"):
+    # the archs whose block kinds are not ported (the vision super-block,
+    # encoder-decoder) raise and name the ROADMAP item, as do their kinds
+    # and families
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = reduced(get_config("hymba-1.5b"))
-    for kind in ("mla_dense", "mla_moe", "vision_super", "enc", "dec"):
+    for kind in ("vision_super", "enc", "dec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_model.block_specs(cfg, kind)
     for family in ("vlm", "audio"):

@@ -46,6 +46,7 @@ missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.configs.nemotron_4_15b",
                   "repro_torch.configs.starcoder2_15b",
                   "repro_torch.configs.command_r_plus_104b",
+                  "repro_torch.configs.deepseek_v3_671b",
                   "repro_torch.models.moe"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)

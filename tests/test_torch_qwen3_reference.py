@@ -119,43 +119,44 @@ def leaf_digests(spec, index: int) -> dict:
     return out
 
 
-def capture(arch: str) -> None:
-    """Run the reference on the golden's layers and write the golden."""
+def capture_golden(path, cfg, specs, layers: int, meta: dict) -> None:
+    """Run the reference's ``cfg`` (its first ``layers`` layers) on the
+    golden's prompt and write the golden to ``path``, ``meta`` added.
+
+    The weights are the port's numpy draw of the whole model's ``specs``
+    (leaf for leaf in the same order): each stacked leaf's first layers
+    as ``group_rows`` counts them, at the whole model's scales."""
     import resource
 
     import jax
     import jax.numpy as jnp
 
-    from repro.configs import get_config as jax_get_config
     from repro.launch.mesh import make_test_mesh
     from repro.models.common import is_spec
     from repro.models.model import build_specs as jax_build_specs
     from repro.models.model import decode_step, prefill
     from repro.parallel.sharding import Sharder
-    from repro_torch.configs import get_config
-    from repro_torch.models.common import flatten_specs, leaf_blocks_np
-    from repro_torch.models.model import build_specs
+    from repro_torch.models.common import (flatten_specs, group_rows,
+                                           leaf_blocks_np)
 
-    fname, layers = GOLDENS[arch]
     t_start = time.time()
-    cfg = dataclasses.replace(jax_get_config(arch), n_layers=layers)
-    # the weights are the whole model's: each stacked leaf's first
-    # `layers` layers, drawn at the whole model's scales
-    port_leaves = flatten_specs(build_specs(get_config(arch)))
+    keep = group_rows(specs, layers)
+    port_leaves = flatten_specs(specs)
     leaves, treedef = jax.tree.flatten(jax_build_specs(cfg), is_leaf=is_spec)
     assert len(leaves) == len(port_leaves)
     arrays, digests, n_bytes = [], {}, 0
-    for i, (spec, (path, pspec)) in enumerate(zip(leaves, port_leaves)):
-        stacked = path.startswith("groups/")
-        want = (layers, *pspec.shape[1:]) if stacked else tuple(pspec.shape)
-        assert tuple(spec.shape) == want, path
+    for i, (spec, (leaf, pspec)) in enumerate(zip(leaves, port_leaves)):
+        rows = keep[leaf.split("/")[1]] if leaf.startswith("groups/") \
+            else None
+        want = tuple(pspec.shape) if rows is None else \
+            (rows, *pspec.shape[1:])
+        assert tuple(spec.shape) == want, leaf
         host = np.empty(want, jnp.dtype(spec.dtype))
         flat = host.reshape(-1)
-        for lo, hi, block in leaf_blocks_np(
-                pspec, SEED, i, rows=layers if stacked else None):
+        for lo, hi, block in leaf_blocks_np(pspec, SEED, i, rows=rows):
             flat[lo:hi] = np.asarray(
                 jnp.asarray(block).astype(jnp.dtype(spec.dtype)))
-        digests[path] = leaf_digests(pspec, i)
+        digests[leaf] = leaf_digests(pspec, i)
         arrays.append(jnp.asarray(host))
         n_bytes += host.nbytes
         del host, flat
@@ -188,28 +189,36 @@ def capture(arch: str) -> None:
             tokens.append(rec["top"][0][0])
             print(f"decode step {i}: {time.time() - t0:.1f} s", flush=True)
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    out = {"arch": arch, "layers": layers, "seed": SEED,
+    out = {**meta, "layers": layers, "seed": SEED,
            "prompt_seed": PROMPT_SEED, "prompt_len": PROMPT_LEN,
            "decode_steps": DECODE_STEPS, "topk": TOPK, "vocab": cfg.vocab,
            "jax": jax.__version__, "leaf_sha256": digests, "tokens": tokens,
            "steps": steps, "capture_s": round(time.time() - t_start, 1),
            "capture_max_rss_bytes": rss}
-    (GOLDEN_DIR / fname).write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {fname} in {time.time() - t_start:.1f} s, max RSS {rss} "
-          "bytes", flush=True)
+    path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {path.name} in {time.time() - t_start:.1f} s, max RSS "
+          f"{rss} bytes", flush=True)
 
 
-def port_cpu(arch: str) -> None:
-    """The port's model on the CPU, teacher-forced on the golden's prompt
-    and tokens; prints each position's errors against the golden."""
+def capture(arch: str) -> None:
+    """Run the reference on the golden's layers and write the golden."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_specs
+    fname, layers = GOLDENS[arch]
+    capture_golden(GOLDEN_DIR / fname,
+                   dataclasses.replace(jax_get_config(arch), n_layers=layers),
+                   build_specs(get_config(arch)), layers, {"arch": arch})
+
+
+def port_against(golden: dict, full, layers: int) -> None:
+    """The port's ``full`` config cut to its first ``layers`` layers on the
+    CPU (the same numpy draw), teacher-forced on the golden's prompt and
+    tokens; prints each position's errors against the golden."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.common import init_params
     from repro_torch.models.model import build_specs, decode_step, prefill
-    fname, layers = GOLDENS[arch]
-    golden = json.loads((GOLDEN_DIR / fname).read_text())
-    full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
     t0 = time.time()
     params = init_params(build_specs(full), SEED, "cpu", threads=4,
@@ -240,6 +249,13 @@ def port_cpu(arch: str) -> None:
     print(f"worst: top-8 {worst[0]!r} (tolerance {tol}), logsumexp "
           f"{worst[1]!r} (tolerance {LSE_TOL}); beyond {tol}: {beyond}; "
           f"{time.time() - t0:.1f} s")
+
+
+def port_cpu(arch: str) -> None:
+    from repro_torch.configs import get_config
+    fname, layers = GOLDENS[arch]
+    port_against(json.loads((GOLDEN_DIR / fname).read_text()),
+                 get_config(arch), layers)
 
 
 @pytest.fixture(scope="module", params=sorted(GOLDENS))

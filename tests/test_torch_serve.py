@@ -64,7 +64,8 @@ def test_cli_needs_a_card_by_default():
 
 
 def test_cli_names_the_roadmap_item_for_an_unported_arch():
-    proc = _cli("--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu")
+    proc = _cli("--arch", "llama-3.2-vision-90b", "--reduced", "--device",
+                "cpu")
     assert proc.returncode != 0
     assert "ROADMAP" in proc.stderr
 
