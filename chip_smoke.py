@@ -229,7 +229,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    qwen3-moe-235b-a22b's ``[2, 4096, 64, 128]`` on 4, and ragged ones;
    at queries and keys 192 wide and values 128 its ``CASES_MLA``:
    deepseek-v3-671b's layer ``[2, 4096, 128, 192 / 128]`` and ragged
-   ``Sq`` at group 1, with the SDPA backend that ran)
+   ``Sq`` at group 1; not causal, its ``CASES_CROSS``: llama-3.2-vision's
+   cross layer ``[2, 4096 over 1600, 64 / 8, 128]``, seamless-m4t's
+   encoder ``[4, 1024, 16, 64]`` and cross layer ``[4, 4096 over 1024,
+   16, 64]``, the two models' causal self layers, and ragged shapes
+   (``Skv`` 1,000 and 1,601, ``Sq`` above and below ``Skv``; with the
+   SDPA backend that ran)
    and ``selective_scan`` (the cases of ``kernels/selective_scan/bench.py``:
    ``[4, 4096, 3200, 16]``, falcon-mamba's ``[1, 4096, 8192, 16]`` and ``[2, 4096, 8192, 16]``
    (bitwise), ragged ``Di`` and ``T`` not a multiple of the kernel's
@@ -292,11 +297,32 @@ Phases, in order; any failure ends the script with a non-zero exit:
    experts with 4 ``flash_attention`` launches a prefill (at q/k 192,
    v 128) and none a decode step; capacity (320, and 4 in decode),
    drops a layer, two prefills with the same bits, the MoE layer's
-   device ms by step, and the profiler's breakdown.
+   device ms by step, and the profiler's breakdown;
+25. seamless-m4t-medium — the encoder-decoder whole (12 encoder and 12
+   decoder layers, d 1,024, 16 heads of 64; weights drawn in the
+   background) held to ``tests/golden/torch_seamless_m4t_medium_s1024.json``
+   by phase 22's rule over the golden's 1,024 audio frames (its
+   ``ctx``, drawn again and its digest checked); ``ServeSession.generate``
+   of 4 x 4,096 + 32 over 1,024 frames a request (drawn as the
+   reference's serving draws them) with 36 ``flash_attention`` launches
+   a prefill (12 encoder, not causal; 12 decoder self, causal; 12 cross,
+   not causal, 4,096 over 1,024) and none a decode step; prefill
+   seconds, decode ms a step, peak device bytes, and the profiler's
+   breakdown;
+26. llama-3.2-vision-90b — its first super-block of 20 at full width (4
+   self layers and 1 gated cross layer, d 8,192, 64 heads on 8 of 128;
+   drawn at the 100-layer scales once falcon-mamba's host copy is
+   freed), its gates set to the golden's 1.0 (drawn as zeros, which
+   would hide the cross layer), held to
+   ``tests/golden/torch_llama_3_2_vision_90b_sb1_s1024.json`` over 1,600
+   vision tokens, then ``generate`` of 2 x 4,096 + 16 with 5 launches a
+   prefill (4 causal; 1 not causal, 4,096 over 1,600) and none a decode
+   step, and the same measurements.
 
 Each phase prints its wall seconds, and the script its total.  The
 kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 20,
-16, 17, 18 (its in-process runs), 19, 11, 21, 22, 23 and 24 are summed.
+16, 17, 18 (its in-process runs), 19, 11, 21, 22, 23, 24, 25 and 26 are
+summed.
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2981,6 +3007,14 @@ def run_lm_kernels(cfg) -> dict:
     mla = fa_bench.run_cases(cfg, gen, case_list=fa_bench.CASES_MLA)
     fa_rec["max_abs_err"] = max(fa_rec["max_abs_err"], mla["max_abs_err"])
     fa_rec["mla"] = mla["timed"][0]
+    # not causal: seamless-m4t-medium's and llama-3.2-vision-90b's layers
+    # (phases 25 and 26), their causal self layers timed beside them
+    print("-- not causal: llama-3.2-vision-90b's and seamless-m4t-medium's "
+          "layers")
+    cross = fa_bench.run_cases(cfg, gen, n_timed=fa_bench.N_TIMED_CROSS,
+                               case_list=fa_bench.CASES_CROSS)
+    fa_rec["max_abs_err"] = max(fa_rec["max_abs_err"], cross["max_abs_err"])
+    fa_rec["cross"] = cross["timed"]
 
     # selective_scan: the cases, the SASS counts and the bound live in the
     # kernel's bench module
@@ -3205,22 +3239,30 @@ class HostWeights:
     simulator phases, and the model's phase moves the result to the
     card.  Its own seconds are printed apart from any phase's."""
 
-    def __init__(self, arch: str, layers=None, after=None):
+    def __init__(self, arch: str, layers=None, after=None, after_freed=None,
+                 threads: int = SYNTH_THREADS):
         self.arch, self.layers, self.after = arch, layers, after
+        self.after_freed, self.threads = after_freed, threads
         self.params = self.error = None
         self.seconds = None
+        # set once to_card has moved these weights and freed the host copy
+        self.freed = threading.Event()
         self.t0 = time.perf_counter()
         self.thread = threading.Thread(target=self._draw, daemon=True,
                                        name=f"{arch}-weights")
         self.thread.start()
         print(f"{arch} weight synthesis started in the background "
-              f"({SYNTH_THREADS} threads"
-              + (f", once {after.arch}'s is done)" if after else ")"),
-              flush=True)
+              f"({threads} threads"
+              + (f", once {after.arch}'s is done" if after else "")
+              + (f", once {after_freed.arch}'s host copy is freed"
+                 if after_freed else "") + ")", flush=True)
 
     def _draw(self) -> None:
         if self.after is not None:          # its draw first, then ours
             self.after.thread.join()
+            self.t0 = time.perf_counter()
+        if self.after_freed is not None:    # its host memory, then ours
+            self.after_freed.freed.wait()
             self.t0 = time.perf_counter()
         try:
             from repro_torch.configs import get_config
@@ -3228,7 +3270,7 @@ class HostWeights:
             from repro_torch.models.model import build_specs
             self.params = init_params(
                 build_specs(get_config(self.arch)), 0, "cpu",
-                threads=SYNTH_THREADS, layers=self.layers)
+                threads=self.threads, layers=self.layers)
             self.seconds = time.perf_counter() - self.t0
         except BaseException as e:      # re-raised by join()
             self.error = e
@@ -3258,19 +3300,21 @@ def to_card(cfg, weights: HostWeights):
     torch.cuda.synchronize()
     upload = time.perf_counter() - t0
     del host
+    weights.freed.set()
     n_bytes = torch.cuda.memory_allocated() - base
     print(f"weights: {cfg.param_count()} parameters, {n_bytes} bytes on the "
           f"card; synthesis {synth_s:.3f} s in the background "
-          f"({SYNTH_THREADS} threads; this phase waited {waited:.3f} s for "
+          f"({weights.threads} threads; this phase waited {waited:.3f} s for "
           f"it), host to card {upload:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated()} bytes")
     return params
 
 
 def hold_to_golden(cfg, params, golden: dict, name: str,
-                   tol: float) -> None:
-    """The model teacher-forced on the golden's prompt and tokens, held to
-    phase 10's rule at ``tol``; an MoE's positions may be routing flips
+                   tol: float, ctx=None) -> None:
+    """The model teacher-forced on the golden's prompt and tokens (and
+    its context ``ctx``, a model with context tokens), held to phase 10's
+    rule at ``tol``; an MoE's positions may be routing flips
     (``MOE_FLIP_TOL``, at most ``MOE_FLIP_SHARE`` of them)."""
     import torch
     from repro_torch.models.model import decode_step, prefill
@@ -3282,7 +3326,7 @@ def hold_to_golden(cfg, params, golden: dict, name: str,
     flip_tol = MOE_FLIP_TOL if cfg.moe is not None else None
     errs = []
     with torch.inference_mode():
-        logits, cache = prefill(params, toks, cfg)
+        logits, cache = prefill(params, toks, cfg, ctx)
         errs.append(_check_step("prefill", logits[0, -1], golden["steps"][0],
                                 cfg.vocab, name, tol, flip_tol))
         for i, tok in enumerate(golden["tokens"][:-1]):
@@ -3309,9 +3353,21 @@ def hold_to_golden(cfg, params, golden: dict, name: str,
     del cache
 
 
-def serve_counted(cfg, params, prompts, n_new: int) -> dict:
-    """``ServeSession.generate`` of ``prompts`` + ``n_new`` tokens after a
-    short warm-up, with the prefill's seconds and launches and each decode
+def flash_launches(cfg) -> int:
+    """``flash_attention`` launches of one prefill: one a layer of every
+    attention kind, two a ``dec`` layer (self and cross), ``cross_every``
+    a vision super-block (its self layers and its cross layer)."""
+    from repro_torch.models.model import plan
+    per = {"dense": 1, "moe": 1, "mla_dense": 1, "mla_moe": 1, "hybrid": 1,
+           "hybrid_full": 1, "enc": 1, "dec": 2,
+           "vision_super": cfg.cross_every}
+    return sum(g.n * per.get(g.kind, 0) for g in plan(cfg))
+
+
+def serve_counted(cfg, params, prompts, n_new: int, ctx=None) -> dict:
+    """``ServeSession.generate`` of ``prompts`` + ``n_new`` tokens (over
+    the context ``ctx``, a model with context tokens) after a short
+    warm-up, with the prefill's seconds and launches and each decode
     step's launches read around the user's call without changing it; the
     prefill launches ``per_prefill`` and a decode step none.  Returns
     ``{"toks", "wall", "prefill_s", "launches", "peak"}``."""
@@ -3340,13 +3396,13 @@ def serve_counted(cfg, params, prompts, n_new: int) -> dict:
 
     serve.prefill, serve.decode_step = timed_prefill, counted_decode
     try:
-        sess.generate(prompts[:, :64], 2)            # warm-up, short
+        sess.generate(prompts[:, :64], 2, ctx)       # warm-up, short
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         seen["decode_launches"].clear()
         t0 = time.perf_counter()
-        toks = sess.generate(prompts, n_new)
+        toks = sess.generate(prompts, n_new, ctx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -3363,13 +3419,10 @@ def serve_counted(cfg, params, prompts, n_new: int) -> dict:
     if not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError("generated tokens outside the vocabulary")
     from repro_torch.models.model import plan
-    per_prefill = {**NO_LAUNCHES}
-    for name, kinds in (("flash_attention", ("dense", "moe", "mla_dense",
-                                             "mla_moe", "hybrid",
-                                             "hybrid_full")),
-                        ("selective_scan", ("mamba", "hybrid",
-                                            "hybrid_full"))):
-        per_prefill[name] = sum(g.n for g in plan(cfg) if g.kind in kinds)
+    per_prefill = {**NO_LAUNCHES, "flash_attention": flash_launches(cfg)}
+    per_prefill["selective_scan"] = sum(
+        g.n for g in plan(cfg) if g.kind in ("mamba", "hybrid",
+                                             "hybrid_full"))
     check_counts(seen["prefill_launches"], per_prefill, "the prefill")
     for i, d in enumerate(seen["decode_launches"]):
         if any(d.values()):
@@ -3381,18 +3434,22 @@ def serve_counted(cfg, params, prompts, n_new: int) -> dict:
             "launches": launches, "peak": peak}
 
 
-def profile_paths(cfg, params, prompts) -> dict:
+def profile_paths(cfg, params, prompts, ctx=None) -> dict:
     """A prefill's device time by kind, and 4 decode steps' device ms,
     operations and idle share, from the profiler; returns each hand
-    kernel's device ms a launch on the prefill (empty when the profiler
-    saw no device time)."""
+    kernel's device ms a launch on the prefill, over all of its
+    instantiations (empty when the profiler saw no device time)."""
     import torch
+    from repro_torch.launch.serve import ctx_tensor
     from repro_torch.models.model import decode_step, prefill
     B, S = prompts.shape
     batch = torch.as_tensor(prompts, device="cuda")
+    if ctx is not None:
+        ctx = ctx_tensor(ctx, "cuda")
     per_launch = {}
     with torch.inference_mode():
-        rows, busy_s, wall = _profile(lambda: prefill(params, batch, cfg))
+        rows, busy_s, wall = _profile(lambda: prefill(params, batch, cfg,
+                                                      ctx))
         if not rows:
             print("profiler: device time not measured (no device events)")
             return per_launch
@@ -3400,18 +3457,23 @@ def profile_paths(cfg, params, prompts) -> dict:
         print(f"profiler, one prefill of {B} x {S}: wall {wall:.4f} s, "
               f"device busy {busy_s:.4f} s in {n_ops} device operations, "
               f"idle share {100 * (1 - busy_s / wall):.1f}%")
-        kinds = {}
+        kinds, hand = {}, {}
         for dev_us, count, key in rows:
             kind = _kind(key)
             kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e6
             if kind in ("flash_attention", "selective_scan"):
-                per_launch[kind] = dev_us / count / 1e3
-                print(f"  {kind}: {per_launch[kind]:.6f} ms per launch on "
-                      f"the main path ({count} launches)")
+                us, n = hand.get(kind, (0.0, 0))
+                hand[kind] = (us + dev_us, n + count)
+                print(f"  {key}: {dev_us / count / 1e3:.6f} ms per launch "
+                      f"({count} launches)")
+        for kind, (us, n) in hand.items():
+            per_launch[kind] = us / n / 1e3
+            print(f"  {kind}: {per_launch[kind]:.6f} ms per launch on the "
+                  f"main path ({n} launches)")
         print("prefill device time by kind: " + ", ".join(
             f"{k} {v:.4f} s ({100 * v / busy_s:.1f}%)"
             for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
-        _, cache = prefill(params, batch, cfg)
+        _, cache = prefill(params, batch, cfg, ctx)
         tok = batch[:, -1:]
         n_dec = 4
         rows, busy_s, wall = _profile(lambda: [
@@ -3663,11 +3725,131 @@ def run_deepseek(weights: HostWeights) -> dict:
             "flash_ms": per_launch.get("flash_attention")}
 
 
+# the models with context tokens (phases 25 and 26): each golden's layers
+# (and, for the vision model, the rows of its `vs` group: super-blocks),
+# its context length, the gates its run sets (drawn as zeros, which would
+# hide the cross layer) and the requests served; the context of a golden
+# is drawn again from CTX_SEED (tests/test_torch_qwen3_reference.py's
+# `context`), a request's as the reference's serving CLI draws it
+CTX_SEED = 1
+CROSS_MODELS = {
+    "seamless-m4t-medium": {
+        "phase": "25", "layers": 12, "group_cut": None, "ctx": 1024,
+        "gates": None, "batch": 4, "new": 32,
+        "golden": (ROOT / "tests" / "golden"
+                   / "torch_seamless_m4t_medium_s1024.json"),
+        # (flash_attention.bench.CASES_CROSS index, launches a prefill):
+        # the encoder, the decoder's self layers, its cross layers
+        "fa_cases": ((1, 12), (4, 12), (2, 12))},
+    "llama-3.2-vision-90b": {
+        "phase": "26", "layers": 5, "group_cut": 1, "ctx": 1600,
+        "gates": 1.0, "batch": 2, "new": 16,
+        "golden": (ROOT / "tests" / "golden"
+                   / "torch_llama_3_2_vision_90b_sb1_s1024.json"),
+        # the 4 self layers, the cross layer
+        "fa_cases": ((3, 4), (0, 1))},
+}
+
+
+def golden_ctx(golden: dict, d: int):
+    """The golden's context ``[1, Sc, d]`` as a bf16 tensor on the card,
+    drawn again from ``CTX_SEED``, its float32 values' digest held to
+    the golden's."""
+    import hashlib
+    import numpy as np
+    import torch
+    ctx = np.random.default_rng(CTX_SEED).standard_normal(
+        (1, golden["ctx_len"], d), dtype=np.float32)
+    if hashlib.sha256(ctx.tobytes()).hexdigest() != golden["ctx_sha256"]:
+        raise AssertionError("the golden's context does not draw again")
+    return torch.from_numpy(ctx).to("cuda").to(torch.bfloat16)
+
+
+def run_cross(arch: str, weights: HostWeights) -> dict:
+    """A model with context tokens at full width on the card (phases 25
+    and 26): the background synthesis's weights (the vision model's
+    gates set to its golden's), the golden teacher-forced over its
+    context, ``ServeSession.generate`` over a context a request with
+    ``flash_launches`` launches a prefill and none a decode step, and
+    the profiler.  Returns the main path's launches and the attention
+    kernel's device ms a launch there."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    spec = CROSS_MODELS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=spec["layers"])
+    phase(f"{spec['phase']}. {arch} at full width ({cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_dec else "")
+          + f"): golden and serving {spec['batch']} x {SERVE_PROMPT} + "
+          f"{spec['new']} over {spec['ctx']} context tokens")
+    print(f"host memory available: {host_available()}")
+    params = to_card(cfg, weights)
+    golden = json.loads(spec["golden"].read_text())
+    if golden.get("gates") != spec["gates"]:
+        raise AssertionError(f"the golden's gates are {golden.get('gates')}")
+    if spec["gates"] is not None:
+        cross = params["groups"]["vs"]["cross"]
+        for k in ("gate_attn", "gate_mlp"):
+            cross[k].fill_(spec["gates"])
+        print(f"gates set to {spec['gates']} (tanh {np.tanh(spec['gates'])})"
+              " in every super-block, for the golden and the serving run")
+    hold_to_golden(cfg, params, golden, arch, logit_tol(golden),
+                   golden_ctx(golden, cfg.d_model))
+    rng = np.random.default_rng(int(spec["phase"]))
+    prompts = rng.integers(0, cfg.vocab, (spec["batch"], SERVE_PROMPT),
+                           dtype=np.int32)
+    # the stub frontend's embeddings, drawn after the prompts from the same
+    # generator (the reference's serving CLI)
+    ctx = rng.normal(size=(spec["batch"], spec["ctx"], cfg.d_model))
+    out = serve_counted(cfg, params, prompts, spec["new"], ctx)
+    per_launch = profile_paths(cfg, params, prompts, ctx)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": out["launches"],
+            "flash_ms": per_launch.get("flash_attention")}
+
+
 def _to_card(tree):
     """A tree of host tensors moved to the card, leaf by leaf."""
     if isinstance(tree, dict):
         return {k: _to_card(v) for k, v in tree.items()}
     return tree.to("cuda")
+
+
+def flash_paths(fa: dict, serving: dict, qwen3: dict, deepseek: dict,
+                cross: dict) -> float:
+    """``flash_attention`` runs on six paths, Hymba's (phase 11), the two
+    Qwen3 models' (phases 22, 23), DeepSeek's (phase 24), seamless-m4t's
+    (25) and llama-3.2-vision's (26): its record ``fa`` (phase 9's,
+    updated in place) becomes the launch-weighted mean of the paths',
+    each path's plain, SDPA and bound times from phase 9 at its shapes (a
+    path of several shapes, their launch-weighted mean); returns the
+    launch-weighted device ms a launch, each path's from its profiler
+    (phase 9's time where the profiler saw none)."""
+    paths = [(serving["launches"]["flash_attention"],
+              serving["per_launch"].get("flash_attention"), dict(fa))]
+    d128, mla, timed = fa.pop("d128"), fa.pop("mla"), fa.pop("cross")
+    paths += [(qwen3[arch]["launches"]["flash_attention"],
+               qwen3[arch]["flash_ms"], d128[arch]) for arch in QWEN3]
+    paths.append((deepseek["launches"]["flash_attention"],
+                  deepseek["flash_ms"], mla))
+    for arch, spec in CROSS_MODELS.items():
+        n = sum(k for _, k in spec["fa_cases"])
+        mix = {key: sum(k * timed[i][key] for i, k in spec["fa_cases"]) / n
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        paths.append((cross[arch]["launches"]["flash_attention"],
+                      cross[arch]["flash_ms"], mix))
+    n_fa = sum(n for n, _, _ in paths)
+    for key in ("plain_ms", "library_ms", "bound_ms"):
+        fa[key] = sum(n * rec[key] for n, _, rec in paths) / n_fa
+    print("flash_attention by path (launches, ms a launch, bound ms): " +
+          "; ".join(f"{label} {n}, {rec['ms'] if ms is None else ms:.6f}, "
+                    f"{rec['bound_ms']:.6f}" for label, (n, ms, rec) in
+                    zip(("hymba-1.5b", *QWEN3, DEEPSEEK["arch"],
+                         *CROSS_MODELS), paths)))
+    return sum(n * (rec["ms"] if ms is None else ms)
+               for n, ms, rec in paths) / n_fa
 
 
 def main() -> int:
@@ -3722,8 +3904,9 @@ def main() -> int:
     for k, n in run_phase15(fig5_slot).items():     # and phase 20's
         launches[k] += n
     # the weights of hymba-1.5b (phases 10 and 11), falcon-mamba-7b (phase
-    # 21), the two Qwen3 models (phases 22 and 23) and deepseek-v3-671b
-    # (phase 24), drawn beside phases 16-23
+    # 21), the two Qwen3 models (phases 22 and 23), deepseek-v3-671b
+    # (phase 24) and seamless-m4t-medium (phase 25), drawn beside phases
+    # 16-23, and llama-3.2-vision-90b's (phase 26) beside phases 21-25
     print(f"host memory available: {host_available()}")
     weights = {"falcon-mamba-7b": HostWeights("falcon-mamba-7b")}
     weights.update({arch: HostWeights(arch, spec["layers"])
@@ -3736,6 +3919,16 @@ def main() -> int:
     weights[DEEPSEEK["arch"]] = HostWeights(
         DEEPSEEK["arch"], DEEPSEEK["layers"],
         after=weights["falcon-mamba-7b"])
+    # seamless-m4t-medium's 0.88 B parameters once Hymba's are drawn, and
+    # llama-3.2-vision-90b's first super-block (12.8 GB) once phase 21 has
+    # freed falcon-mamba's 14.6 GB host copy, so that the host holds no
+    # more weights at once than before: its draw runs beside phases 21-25
+    weights["seamless-m4t-medium"] = HostWeights(
+        "seamless-m4t-medium", after=weights["hymba-1.5b"])
+    llama = CROSS_MODELS["llama-3.2-vision-90b"]
+    weights["llama-3.2-vision-90b"] = HostWeights(
+        "llama-3.2-vision-90b", llama["group_cut"],
+        after_freed=weights["falcon-mamba-7b"], threads=4)
     for k, n in run_phase16(fig5_slot).items():
         launches[k] += n
     for k, n in run_phase17(fig5_slot).items():
@@ -3758,43 +3951,23 @@ def main() -> int:
     falcon = run_falcon(weights["falcon-mamba-7b"])
     qwen3 = {arch: run_qwen3(arch, weights[arch]) for arch in QWEN3}
     deepseek = run_deepseek(weights[DEEPSEEK["arch"]])
+    cross = {arch: run_cross(arch, weights[arch]) for arch in CROSS_MODELS}
     phase()
-    for run in (serving, falcon, *qwen3.values(), deepseek):
+    for run in (serving, falcon, *qwen3.values(), deepseek, *cross.values()):
         for k in ("flash_attention", "selective_scan"):
             launches[k] += run["launches"][k]
     per_launch.update(selective_scan=serving["per_launch"].get(
         "selective_scan", records["selective_scan"]["ms"]))
-
-    # flash_attention runs on four paths, Hymba's (phase 11), the two
-    # Qwen3 models' (phases 22, 23) and DeepSeek's (phase 24): its record
-    # is the launch-weighted mean of the paths', each path's device ms a
-    # launch from its profiler and its plain, SDPA and bound times from
-    # phase 9 at its shapes
-    fa = records["flash_attention"]
-    paths = [(serving["launches"]["flash_attention"],
-              serving["per_launch"].get("flash_attention"), dict(fa))]
-    d128, mla = fa.pop("d128"), fa.pop("mla")
-    paths += [(qwen3[arch]["launches"]["flash_attention"],
-               qwen3[arch]["flash_ms"], d128[arch]) for arch in QWEN3]
-    paths.append((deepseek["launches"]["flash_attention"],
-                  deepseek["flash_ms"], mla))
-    n_fa = sum(n for n, _, _ in paths)
-    for key in ("plain_ms", "library_ms", "bound_ms"):
-        fa[key] = sum(n * rec[key] for n, _, rec in paths) / n_fa
-    per_launch["flash_attention"] = sum(
-        n * (rec["ms"] if ms is None else ms) for n, ms, rec in paths) / n_fa
-    print("flash_attention by path (launches, ms a launch, bound ms): " +
-          "; ".join(f"{label} {n}, {rec['ms'] if ms is None else ms:.6f}, "
-                    f"{rec['bound_ms']:.6f}" for label, (n, ms, rec) in
-                    zip(("hymba-1.5b", *QWEN3, DEEPSEEK["arch"]), paths)))
+    per_launch["flash_attention"] = flash_paths(
+        records["flash_attention"], serving, qwen3, deepseek, cross)
 
     # a kernel's time is its device time per launch on the main path where
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
     # phases 8, 12, 13, 14, 15, 20, 16, 17, 18 (in process), 19, 11, 21,
-    # 22, 23 and 24; selective_scan's time is its time at Hymba's shape (phase
-    # 11), falcon-mamba's is printed in phases 9 and 21.
+    # 22, 23, 24, 25 and 26; selective_scan's time is its time at Hymba's
+    # shape (phase 11), falcon-mamba's is printed in phases 9 and 21.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

@@ -14,8 +14,11 @@ unbatched, in both packages.  The routing tables need no conversion:
 both packages build them from the same numpy code.
 
 :func:`params_from_jax` turns the reference model's parameter tree, as
-numpy arrays (each group stacked over its layers), into the port's, and
-:func:`cache_to_numpy` gives a decode cache back as numpy arrays.
+numpy arrays (each group stacked over its layers; a vision super-block's
+``self`` leaves stacked twice, its float32 gates one scalar a layer; an
+encoder-decoder's ``enc_final_norm``), into the port's, and
+:func:`cache_to_numpy` gives a decode cache back as numpy arrays (the
+cross layers' ``ck`` / ``cv`` beside the ``k`` / ``v`` entries).
 """
 from __future__ import annotations
 

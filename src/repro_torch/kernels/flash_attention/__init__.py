@@ -1,5 +1,6 @@
-"""Causal flash attention forward (GQA, sliding window): the CUDA kernel,
-its plain version, and the op that picks one by device."""
+"""Flash attention forward (GQA; causal with a sliding window, or not
+causal): the CUDA kernel, its plain version, and the op that picks one
+by device."""
 from .ops import flash_attention_op
 from .ref import BLOCK_K, NEG, flash_attention_ref, live_pairs
 

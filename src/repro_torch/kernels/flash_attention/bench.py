@@ -11,10 +11,13 @@ Hymba-1.5B's full and 2,048-window layers of 4 x 4,096 tokens, ragged
 and D = 16 shapes, then ``CASES_D128``: qwen3-1.7b's and
 qwen3-moe-235b-a22b's full layers at head dim 128 and ragged D = 128
 shapes, then ``CASES_MLA``: deepseek-v3-671b's layer with queries and
-keys 192 wide and values 128 wide, and ragged shapes of the same dims),
-times the serving shapes beside the plain version, SDPA and
-the bound, and counts the ``HGMMA`` and ``UTMALDG``
-instructions of the built library's kernels (``cuobjdump -sass``).  It
+keys 192 wide and values 128 wide, and ragged shapes of the same dims,
+then ``CASES_CROSS``: the non-causal layers of llama-3.2-vision-90b and
+seamless-m4t-medium, the causal self layers of the same two models, and
+ragged non-causal shapes), times the serving shapes beside the plain
+version, SDPA (and the SDPA backend that ran) and the bound, and counts
+the ``HGMMA`` and ``UTMALDG`` instructions of the built library's
+kernels (``cuobjdump -sass``).  It
 exits with 1 if a case fails or either count is 0.  ``chip_smoke.py``
 phase 9 calls :func:`run_cases`, so the cases and the bound live here.
 
@@ -43,8 +46,8 @@ from .. import _build
 from . import kernel as fa
 from .ref import compare_bf16, flash_attention_ref, live_pairs
 
-__all__ = ["cases", "CASES_D128", "CASES_MLA", "bound_ms", "run_cases",
-           "sass_counts", "main"]
+__all__ = ["cases", "CASES_D128", "CASES_MLA", "CASES_CROSS", "bound_ms",
+           "run_cases", "sass_counts", "main"]
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -58,7 +61,8 @@ def cases(cfg, batch: int = SERVE_BATCH, seq: int = SERVE_PROMPT) -> list:
     """``[(B, Sq, Skv, H, Hkv, D, window)]``: the serving slice's full and
     windowed layers first (the timed ones), then ragged and D = 16
     shapes.  A case may add an eighth entry, the values' width where it
-    is not D (``CASES_MLA``)."""
+    is not D (``CASES_MLA``), and a ninth, False where it is not causal
+    (``CASES_CROSS``)."""
     H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.sliding_window
     return [(batch, seq, seq, H, Hkv, D, None), (batch, seq, seq, H, Hkv, D, W),
@@ -84,25 +88,47 @@ CASES_MLA = [(2, 4096, 4096, 128, 128, 192, None, 128),
              (2, 77, 333, 128, 128, 192, None, 128)]
 
 
-def bound_ms(b, sq, skv, h, hkv, d, window, dv=None) -> tuple:
+# not causal: llama-3.2-vision-90b's cross layer (2 x 4,096 queries over
+# 1,600 vision tokens, 64 heads on 8 of 128), seamless-m4t-medium's
+# encoder layer (4 x 1,024 frames, 16 heads of 64, group 1) and its cross
+# layer (4 x 4,096 over 1,024 frames), then the causal self layers of the
+# same two models (llama's [2, 4,096, 64 / 8, 128], seamless's decoder
+# [4, 4,096, 16, 64]), timed so that each model's path gets its own
+# bound; then ragged non-causal shapes: Skv not a multiple of 64 (1,000,
+# 1,601), Sq above and below Skv, Sq not a multiple of 64
+CASES_CROSS = [(2, 4096, 1600, 64, 8, 128, None, 128, False),
+               (4, 1024, 1024, 16, 16, 64, None, 64, False),
+               (4, 4096, 1024, 16, 16, 64, None, 64, False),
+               (2, 4096, 4096, 64, 8, 128, None, 128, True),
+               (4, 4096, 4096, 16, 16, 64, None, 64, True),
+               (1, 1000, 1000, 16, 2, 128, None, 128, False),
+               (2, 200, 1601, 16, 16, 64, None, 64, False),
+               (2, 1601, 77, 8, 2, 64, None, 64, False),
+               (1, 130, 1000, 64, 8, 128, None, 128, False),
+               (3, 77, 33, 4, 4, 64, None, 64, False)]
+N_TIMED_CROSS = 5
+
+
+def bound_ms(b, sq, skv, h, hkv, d, window, dv=None, causal=True) -> tuple:
     """(least ms, "bytes" or "operations"): q, k, v read once and o
     written once over the memory rate, against 2 (d + dv) operations per
     live (query, key) pair (``q·k`` and ``p·v``; ``dv`` = d unless
     given) at the bf16 tensor-core rate."""
     dv = d if dv is None else dv
     n_bytes = 2 * (b * sq * h * (d + dv) + b * skv * hkv * (d + dv))
-    ops = 2 * (d + dv) * b * h * live_pairs(sq, skv, window)
+    ops = 2 * (d + dv) * b * h * live_pairs(sq, skv, window, causal)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ex2_ms(b, sq, skv, h, window) -> float:
+def ex2_ms(b, sq, skv, h, window, causal=True) -> float:
     """The least ms the card's MUFU units take for one exponential per
     (query, key) pair the kernel visits (whole 64 x 64 tiles,
     ``kernel.key_tiles``): a ceiling beside the bound, which counts the
     tensor cores' operations."""
-    n_tiles = sum(hi - lo + 1 for _, lo, hi in fa.key_tiles(sq, skv, window))
+    n_tiles = sum(hi - lo + 1 for _, lo, hi in
+                  fa.key_tiles(sq, skv, window, causal))
     return b * h * n_tiles * fa.BLOCK_Q * fa.BLOCK_K / EX2_PER_S * 1e3
 
 
@@ -122,14 +148,14 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _sdpa(q, k, v, window: Optional[int]):
+def _sdpa(q, k, v, window: Optional[int], causal: bool = True):
     """PyTorch's fused attention on the same function (the yardstick; the
     port never calls it), the window as a boolean mask."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     sq, skv = q.shape[1], k.shape[1]
     qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     kpos = torch.arange(skv, device=q.device)[None, :]
@@ -164,7 +190,8 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
     together by ``compare_bf16``; raises on the first case that fails
     when ``strict``.  The first ``n_timed`` cases are timed.  Returns
     ``{"max_abs_err": x, "failed": [labels], "timed": {case index:
-    {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}}``."""
+    {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+    "sdpa_backend"}}}``."""
     dev = gen.device
     errs, timed, failed = [], {}, []
     if case_list is None:
@@ -172,19 +199,21 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
     for i, case in enumerate(case_list):
         b, sq, skv, h, hkv, d, win = case[:7]
         dv = case[7] if len(case) > 7 else d
+        causal = case[8] if len(case) > 8 else True
         q, k, v = [torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).to(torch.bfloat16)
                    for shape in ((b, sq, h, d), (b, skv, hkv, d),
                                  (b, skv, hkv, dv))]
-        got = fa.flash_attention(q, k, v, window=win)
-        want = flash_attention_ref(q, k, v, window=win)
+        got = fa.flash_attention(q, k, v, window=win, causal=causal)
+        want = flash_attention_ref(q, k, v, window=win, causal=causal)
         torch.cuda.synchronize()
         # each element within one bf16 ulp of its own value plus one flip
         # of one p's rounding in its row, and few elements differing at all
         # (compare_bf16 gives the reasons)
-        cmp = compare_bf16(got, want, q, k, v, window=win)
+        cmp = compare_bf16(got, want, q, k, v, window=win, causal=causal)
         dims = f"{d}" if dv == d else f"{d}/{dv}"
-        label = f"[{b},{sq},{skv},{h},{hkv},{dims}] window {win}"
+        label = (f"[{b},{sq},{skv},{h},{hkv},{dims}] "
+                 + (f"window {win}" if causal else "not causal"))
         print(f"flash_attention {label}: max_abs_err {cmp['max_abs_err']!r}"
               f", worst error {cmp['worst']!r} of its element's bound, "
               f"{cmp['n_diff']} of {got.numel()} outputs differ (at most "
@@ -197,24 +226,25 @@ def run_cases(cfg, gen: torch.Generator, batch: int = SERVE_BATCH,
             print(f"  FAILS compare_bf16 at {label}")
         errs.append(cmp["max_abs_err"])
         if i < n_timed:
-            lib = _sdpa(q, k, v, win)
+            lib = _sdpa(q, k, v, win, causal)
             lib_err = float((lib().transpose(1, 2).float() - want.float())
                             .abs().max())
             backend = sdpa_backend(lib)
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=win),
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=win,
+                                                    causal=causal),
                          iters=10, warmup=2)
-            plain = cuda_ms(lambda: flash_attention_ref(q, k, v, window=win),
-                            iters=3, warmup=1)
+            plain = cuda_ms(lambda: flash_attention_ref(
+                q, k, v, window=win, causal=causal), iters=3, warmup=1)
             lib_ms = cuda_ms(lib, iters=10, warmup=2)
-            bnd, by = bound_ms(b, sq, skv, h, hkv, d, win, dv)
+            bnd, by = bound_ms(b, sq, skv, h, hkv, d, win, dv, causal)
             timed[i] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
                             bound_ms=bnd, bound_by=by, sdpa_backend=backend)
             print(f"  kernel {ms:.6f} ms per launch, bound {bnd:.6f} ms "
                   f"({by}, {100 * bnd / ms:.2f}% of the bound; MUFU ex2 "
-                  f"ceiling {ex2_ms(b, sq, skv, h, win):.6f} ms); plain "
-                  f"{plain:.6f} ms; SDPA {lib_ms:.6f} ms ({backend} backend; "
-                  f"max_abs_err against the plain version {lib_err!r})",
-                  flush=True)
+                  f"ceiling {ex2_ms(b, sq, skv, h, win, causal):.6f} ms); "
+                  f"plain {plain:.6f} ms; SDPA {lib_ms:.6f} ms ({backend} "
+                  f"backend; max_abs_err against the plain version "
+                  f"{lib_err!r})", flush=True)
         del q, k, v, got, want
         torch.cuda.empty_cache()
     return {"max_abs_err": max(errs), "failed": failed, "timed": timed}
@@ -278,6 +308,10 @@ def main(argv=None) -> int:
         print(json.dumps(run_cases(cfg, gen, case_list=CASES_D128)))
         print("-- MLA, q/k 192 and v 128: deepseek-v3-671b's layer")
         print(json.dumps(run_cases(cfg, gen, case_list=CASES_MLA)))
+        print("-- not causal: llama-3.2-vision-90b's and "
+              "seamless-m4t-medium's layers")
+        print(json.dumps(run_cases(cfg, gen, n_timed=N_TIMED_CROSS,
+                                   case_list=CASES_CROSS)))
     except AssertionError as e:
         print(f"FAILED: {e}")
         return 1
@@ -286,7 +320,7 @@ def main(argv=None) -> int:
         rec = _build.build_all(["flash_attention"], (define,))
         print(f"\n-- built with {define}: the tensor cores' sums alone")
         with _kernel_library(rec["flash_attention"]["path"]):
-            for case_list in (None, CASES_D128, CASES_MLA):
+            for case_list in (None, CASES_D128, CASES_MLA, CASES_CROSS):
                 abl = run_cases(
                     cfg, torch.Generator(device="cuda").manual_seed(9),
                     strict=False, case_list=case_list)

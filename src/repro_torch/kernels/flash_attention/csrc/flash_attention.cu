@@ -1,17 +1,21 @@
-// Causal flash attention forward (GQA, sliding window) for Hopper
-// (sm_90a) on the tensor cores, bound through ctypes.
+// Flash attention forward (GQA; causal with an optional sliding window,
+// or not causal) for Hopper (sm_90a) on the tensor cores, bound through
+// ctypes.
 //
 // Replaces the Pallas kernel flash_attention in
-// src/repro/kernels/flash_attention/kernel.py:73 (pallas_call at :89), and
-// adds the sliding window that the reference's attention_core and
-// attention_ref take; causal only, as the model calls it:
+// src/repro/kernels/flash_attention/kernel.py:73 (pallas_call at :89),
+// both of its forms (causal: bool), and adds the sliding window that the
+// reference's attention_core and attention_ref take:
 //
 //   q [B, Sq, H, DQK], k [B, Skv, Hkv, DQK], v [B, Skv, Hkv, DV] bf16
 //   -> o [B, Sq, H, DV] bf16 (DV = DQK but for MLA's 192 / 128, as the
-//   reference's attention_core takes them),
-//   query head h reads key head h / (H / Hkv), query i sits at position
-//   i + Skv - Sq (Sq <= Skv), and key j is live when j <= qpos and, with
-//   a window, j > qpos - (window + 1).
+//   reference's attention_core takes them), query head h reads key head
+//   h / (H / Hkv).  Causal (kCausal): query i sits at position
+//   i + Skv - Sq (Sq <= Skv), and key j is live when j <= qpos and, with a
+//   window, j > qpos - (window + 1).  Not causal (an encoder's
+//   self-attention, a cross-attention over a context: instantiated at
+//   (64, 64) and (128, 128)): every key j < Skv is live, Sq and Skv are
+//   free, and there is no window.
 //
 // Arithmetic, as in the Pallas kernel and the plain version in ../ref.py:
 // s = (q . k) * scale in float32 (bf16 products are exact; the scale,
@@ -57,11 +61,19 @@
 // At DeepSeek-V3's MLA (B 2, S 4,096, H = Hkv = 128, DQK 192, DV 128) it
 // is 2 (DQK + DV) = 640 operations a pair, 1.375e12, 1.390 ms.
 //
+// Not causal, every pair is live, at the same 4 D operations a pair: the
+// llama-3.2-vision cross layer (B 2, Sq 4,096 over Skv 1,600, H 64, Hkv 8,
+// D 128) is 4.29e11 operations, 0.434 ms, seamless-m4t's encoder (B 4,
+// 1,024 over 1,024, H = Hkv = 16, D 64) 1.72e10, 0.017 ms, and its cross
+// layer (4,096 over 1,024) 6.87e10, 0.069 ms.
+//
 // Design.  One block is one warpgroup (128 threads) and owns a tile of 64
-// queries of one (batch, head), wgmma's M; blocks take the heaviest query
-// tiles first.  It walks the key tiles of 64 that its queries can see
-// (tiles wholly above the diagonal or wholly left of the window are
-// skipped; kernel.py's key_tiles mirrors the range for the CPU tests).
+// queries of one (batch, head), wgmma's M; blocks take the query tiles
+// from the last (causal: the heaviest) to the first.  Causal, it walks the
+// key tiles of 64 that its queries can see (tiles wholly above the
+// diagonal or wholly left of the window are skipped); not causal, every
+// key tile, and only the last, where it holds rows past Skv, is masked
+// (kernel.py's key_tiles mirrors the range for the CPU tests).
 // One thread loads Q once, and K and V tile by tile, with TMA into a ring
 // of kStages shared-memory stages, each completed on its own mbarrier;
 // TMA fills the rows past Skv (or Sq) with zeros.  Tiles are swizzled
@@ -238,7 +250,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -272,15 +284,22 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   const int b = blockIdx.z;
   const int hk = h / (n_heads / n_kv_heads);
   const int q0 = qt * kBQ;
-  const int off = skv - sq;                   // query i sits at i + off
+  // causal: query i sits at i + off (off < 0 only where not causal, and
+  // then it is read nowhere)
+  const int off = skv - sq;
 
-  // key tiles this query tile can see (kernel.py: key_tiles)
+  // key tiles this query tile can see (kernel.py: key_tiles): causal, from
+  // the window's first to the diagonal's last; not causal, all of them
   const int qp_lo = q0 + off;
   const int qp_hi = min(q0 + kBQ, sq) - 1 + off;
-  const int key_hi = min(qp_hi, skv - 1);
-  const int key_lo = window >= 0 ? max(qp_lo - window, 0) : 0;
-  const int t_lo = key_lo / kBK;
-  const int n_tiles = key_hi / kBK - t_lo + 1;
+  int t_lo = 0;
+  int n_tiles = (skv + kBK - 1) / kBK;
+  if constexpr (kCausal) {
+    const int key_hi = min(qp_hi, skv - 1);
+    const int key_lo = window >= 0 ? max(qp_lo - window, 0) : 0;
+    t_lo = key_lo / kBK;
+    n_tiles = key_hi / kBK - t_lo + 1;
+  }
 
   // one thread: a tile of 64 rows from `row` of head `head`, sub-tile by
   // sub-tile, all completing on `bar`
@@ -378,17 +397,26 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                                      fmaxf(k_norm[2], k_norm[3])));
 
     // register 4 j + 2 half + e holds row r + 8 half, column 8 j + col + e;
-    // the mask is needed only where a key of the tile is masked for a row
-    if (k0 + kBK - 1 <= qp_lo && (window < 0 || k0 >= qp_hi - window)) {
+    // the mask is needed only where a key of the tile is masked for a row.
+    // Rows past Skv are TMA's zeros, which score s = 0, not NEG: causal,
+    // j <= qpos < Skv hides them; not causal, only the test j < Skv does,
+    // in the last tile
+    const bool unmasked =
+        kCausal ? k0 + kBK - 1 <= qp_lo && (window < 0 || k0 >= qp_hi - window)
+                : k0 + kBK <= skv;
+    if (unmasked) {
 #pragma unroll
       for (int c = 0; c < 32; ++c) s[c] *= scale;
     } else {
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
         const int kp = k0 + 8 * (c / 4) + col + c % 2;
-        const int qp = qpos[(c / 2) % 2];
-        bool live = kp < skv && kp <= qp;
-        if (window >= 0) live = live && kp > qp - (window + 1);
+        bool live = kp < skv;
+        if constexpr (kCausal) {
+          const int qp = qpos[(c / 2) % 2];
+          live = live && kp <= qp;
+          if (window >= 0) live = live && kp > qp - (window + 1);
+        }
         s[c] = live ? s[c] * scale : kNeg;
       }
     }
@@ -608,7 +636,7 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* x,
 // from the CUDA runtime's own error codes
 constexpr int kMapError = 100000;
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kCausal>
 int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o,
            int b, int sq, int skv, int h, int hkv, int window, float scale,
            cudaStream_t stream) {
@@ -623,11 +651,11 @@ int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o,
   if (res != CUDA_SUCCESS) return kMapError + static_cast<int>(res);
   constexpr size_t bytes = Cfg<DQK, DV>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<DQK, DV>,
+      flash_attention_kernel<DQK, DV, kCausal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_attention_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_kernel<DQK, DV, kCausal><<<grid, kThreads, bytes, stream>>>(
       q_map, k_map, v_map, o, sq, skv, h, hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -636,30 +664,45 @@ int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o,
 
 extern "C" {
 
-// o = causal attention(q, k, v) on `stream`; window < 0 means none.
+// o = attention(q, k, v) on `stream`: causal when `causal` != 0 (window
+// < 0 means none), else every key for every query (window must be < 0).
 // q, k, v and o are contiguous and 16-byte aligned (TMA's condition; the
 // wrapper checks it); q and k are d wide, v and o dv wide.  Returns
 // cudaGetLastError() of the launch, cudaErrorInvalidValue for head dims
-// without an instantiation ((64, 64) for Hymba, (16, 16) for its reduced
-// test config, (128, 128) for the dense and MoE models, (192, 128) for
-// DeepSeek-V3's MLA), or 100000 + the CUresult when a tensor map cannot
-// be made (100000 alone: CUDA offers no cuTensorMapEncodeTiled).
+// without an instantiation (causal: (64, 64) for Hymba, (16, 16) for its
+// reduced test config, (128, 128) for the dense and MoE models, (192, 128)
+// for DeepSeek-V3's MLA; not causal: (64, 64) for seamless-m4t, (128, 128)
+// for llama-3.2-vision) or for a window that is not causal, or
+// 100000 + the CUresult when a tensor map cannot be made (100000 alone:
+// CUDA offers no cuTensorMapEncodeTiled).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int sq, int skv, int h, int hkv,
-                           int d, int dv, int window, float scale,
+                           int d, int dv, int window, int causal, float scale,
                            void* stream) {
   auto* oo = static_cast<__nv_bfloat16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
+  if (!causal) {
+    if (window >= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (d == 64 && dv == 64)
+      return launch<64, 64, false>(q, k, v, oo, b, sq, skv, h, hkv, -1,
+                                   scale, s);
+    if (d == 128 && dv == 128)
+      return launch<128, 128, false>(q, k, v, oo, b, sq, skv, h, hkv, -1,
+                                     scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (d == 16 && dv == 16)
-    return launch<16, 16>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
+    return launch<16, 16, true>(q, k, v, oo, b, sq, skv, h, hkv, window,
+                                scale, s);
   if (d == 64 && dv == 64)
-    return launch<64, 64>(q, k, v, oo, b, sq, skv, h, hkv, window, scale, s);
+    return launch<64, 64, true>(q, k, v, oo, b, sq, skv, h, hkv, window,
+                                scale, s);
   if (d == 128 && dv == 128)
-    return launch<128, 128>(q, k, v, oo, b, sq, skv, h, hkv, window, scale,
-                            s);
+    return launch<128, 128, true>(q, k, v, oo, b, sq, skv, h, hkv, window,
+                                  scale, s);
   if (d == 192 && dv == 128)
-    return launch<192, 128>(q, k, v, oo, b, sq, skv, h, hkv, window, scale,
-                            s);
+    return launch<192, 128, true>(q, k, v, oo, b, sq, skv, h, hkv, window,
+                                  scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

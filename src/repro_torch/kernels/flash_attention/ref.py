@@ -9,10 +9,14 @@ at the end.  Values may be narrower than queries and keys (MLA's: 192
 and 128), as in the reference's ``attention_core``; the scale is
 ``1 / sqrt(Dqk)``.  This is the reference's Pallas kernel
 (``repro/kernels/flash_attention/kernel.py``) with a sliding window
-added, for causal attention: the mask keeps ``kpos <= qpos`` and, with a
-window, ``kpos > qpos - (window + 1)``, so a query sees ``window + 1``
-keys (the reference's ``attention_core`` and ``attention_ref``).  Queries
-sit at the end of the keys: query ``i`` is at position ``i + Skv - Sq``.
+added.  Causal, the mask keeps ``kpos <= qpos`` and, with a window,
+``kpos > qpos - (window + 1)``, so a query sees ``window + 1`` keys (the
+reference's ``attention_core`` and ``attention_ref``); queries sit at the
+end of the keys: query ``i`` is at position ``i + Skv - Sq``, so
+``Sq <= Skv``.  Not causal (``causal=False``: an encoder's
+self-attention, a cross-attention over a context), every query sees
+every key, ``Sq`` and ``Skv`` are free, and there is no window (no model
+calls that pair, and the Pallas kernel has none).
 
 The kernel skips key tiles that are masked for a whole tile of queries;
 this version does not, and gets the same numbers: a masked entry adds
@@ -40,9 +44,11 @@ BLOCK_K = 64        # keys per tile (the CUDA kernel's)
 MAX_DIFF_SHARE = 1e-3
 
 
-def check_shapes(q, k, v) -> None:
+def check_shapes(q, k, v, causal: bool = True,
+                 window: Optional[int] = None) -> None:
     """Raise on shapes the kernel and this version do not take: q
-    [B,Sq,H,Dqk], k [B,Skv,Hkv,Dqk] and v [B,Skv,Hkv,Dv]."""
+    [B,Sq,H,Dqk], k [B,Skv,Hkv,Dqk] and v [B,Skv,Hkv,Dv], ``Sq <= Skv``
+    when causal, and no window when not."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
             v.shape[:3] != k.shape[:3]:
         raise ValueError(f"expected q [B,Sq,H,Dqk], k [B,Skv,Hkv,Dqk] and "
@@ -52,12 +58,20 @@ def check_shapes(q, k, v) -> None:
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)} (H must be a multiple of Hkv)")
-    if Sq > k.shape[1]:
+    if causal and Sq > k.shape[1]:
         raise ValueError(f"causal attention needs Sq <= Skv (every query "
                          f"has a key), got Sq={Sq}, Skv={k.shape[1]}")
+    if not causal and window is not None:
+        raise ValueError(f"non-causal attention takes no window, got "
+                         f"window={window}")
+    if not causal and k.shape[1] == 0 and Sq:
+        raise ValueError("non-causal attention needs a key (Skv >= 1)")
 
 
-def _mask(sq: int, skv: int, window: Optional[int], device) -> torch.Tensor:
+def _mask(sq: int, skv: int, window: Optional[int], device,
+          causal: bool = True) -> torch.Tensor:
+    if not causal:
+        return torch.ones((sq, skv), dtype=torch.bool, device=device)
     qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
     kpos = torch.arange(skv, device=device)[None, :]
     mask = kpos <= qpos
@@ -67,11 +81,13 @@ def _mask(sq: int, skv: int, window: Optional[int], device) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention.  q: [B,Sq,H,Dqk]; k: [B,Skv,Hkv,Dqk]; v:
-    [B,Skv,Hkv,Dv]; returns [B,Sq,H,Dv] in q's dtype.  Query head ``h``
-    reads key head ``h // (H // Hkv)``."""
-    check_shapes(q, k, v)
+                        window: Optional[int] = None,
+                        causal: bool = True) -> torch.Tensor:
+    """Causal (or, with ``causal=False``, full) attention.  q:
+    [B,Sq,H,Dqk]; k: [B,Skv,Hkv,Dqk]; v: [B,Skv,Hkv,Dv]; returns
+    [B,Sq,H,Dv] in q's dtype.  Query head ``h`` reads key head
+    ``h // (H // Hkv)``."""
+    check_shapes(q, k, v, causal, window)
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     g = H // Hkv
@@ -80,7 +96,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.float().transpose(1, 2)                              # [B,H,Sq,D]
     kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)  # [B,H,Skv,D]
     vr = v.transpose(1, 2).repeat_interleave(g, dim=1)
-    live = _mask(Sq, Skv, window, dev)
+    live = _mask(Sq, Skv, window, dev, causal)
     m = torch.full((B, H, Sq), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=dev)
@@ -98,8 +114,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def live_pairs(sq: int, skv: int, window: Optional[int] = None) -> int:
-    """(query, key) pairs the causal mask keeps, per batch row and head."""
+def live_pairs(sq: int, skv: int, window: Optional[int] = None,
+               causal: bool = True) -> int:
+    """(query, key) pairs the mask keeps, per batch row and head: every
+    ``sq * skv`` of them when not causal."""
+    if not causal:
+        return sq * skv
     qpos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
     hi = qpos + 1
     lo = torch.clamp(qpos - window, min=0) if window is not None else \
@@ -108,15 +128,16 @@ def live_pairs(sq: int, skv: int, window: Optional[int] = None) -> int:
 
 
 def max_weight(q: torch.Tensor, k: torch.Tensor,
-               window: Optional[int] = None) -> torch.Tensor:
+               window: Optional[int] = None,
+               causal: bool = True) -> torch.Tensor:
     """The largest softmax weight of each query row, ``[B,Sq,H]`` float32:
     ``1 / sum exp(s - max s)`` over the row's live keys.  One batch row and
     one key head at a time, so the scores take ``[H/Hkv, Sq, Skv]``."""
-    check_shapes(q, k, k)
+    check_shapes(q, k, k, causal, window)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    live = _mask(Sq, Skv, window, q.device)
+    live = _mask(Sq, Skv, window, q.device, causal)
     out = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     for b in range(B):
         for j in range(Hkv):
@@ -130,7 +151,7 @@ def max_weight(q: torch.Tensor, k: torch.Tensor,
 
 def compare_bf16(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor,
-                 window: Optional[int] = None) -> dict:
+                 window: Optional[int] = None, causal: bool = True) -> dict:
     """Hold a bf16 kernel output ``got`` to this version's ``want`` on the
     same inputs, element by element.
 
@@ -143,7 +164,7 @@ def compare_bf16(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
     fewer than two query rows' worth, ``2 Dv``) may differ at all.
     Returns ``max_abs_err``, ``worst`` (the largest error over its
     element's bound), ``n_diff``, ``n_allowed`` and ``ok``."""
-    w = max_weight(q, k, window)[..., None]
+    w = max_weight(q, k, window, causal)[..., None]
     want_f, got_f = want.float(), got.float()
     err = (got_f - want_f).abs()
     bound = 2 ** -7 * (want_f.abs() + w * float(v.float().abs().max()))

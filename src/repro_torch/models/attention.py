@@ -1,15 +1,16 @@
 """Attention: GQA with RoPE, and MLA (DeepSeek-V3), for prefill and for
 one-token decode.
 
-Prefill runs causal attention, full or over a sliding window, through
-``kernels.flash_attention.flash_attention_op`` (called by the model): the
-hand-written CUDA kernel on the card, its plain PyTorch version on the
-CPU.  MLA's prefill is the reference's expanded form: per-head keys and
-values from the latent, queries and keys ``nope_dim + rope_dim`` wide and
-values ``v_dim`` wide, through the same op.  Decode (one new token
-against the cache) is one fused pass in plain PyTorch, as in the
-reference; MLA's is the absorbed form, which attends the latent cache
-directly.  Layouts are the reference's: ``[B, S, H, D]`` for queries,
+Prefill runs causal attention, full or over a sliding window, and the
+non-causal attention of an encoder and of a cross layer over a context,
+through ``kernels.flash_attention.flash_attention_op`` (called by the
+model): the hand-written CUDA kernel on the card, its plain PyTorch
+version on the CPU.  MLA's prefill is the reference's expanded form:
+per-head keys and values from the latent, queries and keys ``nope_dim +
+rope_dim`` wide and values ``v_dim`` wide, through the same op.  Decode
+(one new token against the cache) is one fused pass in plain PyTorch, as
+in the reference; MLA's is the absorbed form, which attends the latent
+cache directly.  Layouts are the reference's: ``[B, S, H, D]`` for queries,
 keys and values.
 """
 from __future__ import annotations

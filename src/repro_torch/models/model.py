@@ -8,14 +8,19 @@ reference's layout leaf for leaf.  The port walks each group's layers in
 a Python loop where the reference scans.
 
 Two entry points: :func:`prefill` builds the decode cache from a prompt
-and :func:`decode_step` runs one token against it, updating the cache in
-place (the reference returns a new cache).  Ported kinds: ``dense``
-(GQA attention and an MLP: Qwen3, Nemotron, StarCoder2, Command R+),
-``moe`` (GQA attention and the routed experts of ``models.moe``: the
-Qwen3 MoE), ``mla_dense`` and ``mla_moe`` (MLA attention and an MLP or
-the routed experts: DeepSeek-V3), ``hybrid`` and ``hybrid_full``
-(Hymba) and the attention-free ``mamba`` (falcon-mamba).  Every other
-kind raises.
+(and, for a model with context tokens, a context: vision tokens, audio
+frames) and :func:`decode_step` runs one token against it, updating the
+cache in place (the reference returns a new cache).  The kinds, every one
+of the reference's: ``dense`` (GQA attention and an MLP: Qwen3,
+Nemotron, StarCoder2, Command R+), ``moe`` (GQA attention and the routed
+experts of ``models.moe``: the Qwen3 MoE), ``mla_dense`` and ``mla_moe``
+(MLA attention and an MLP or the routed experts: DeepSeek-V3),
+``hybrid`` and ``hybrid_full`` (Hymba), the attention-free ``mamba``
+(falcon-mamba), ``vision_super`` (``cross_every - 1`` self-attention
+layers and one gated cross-attention layer over the vision tokens:
+Llama-3.2-Vision) and ``enc`` / ``dec`` (an encoder over the audio
+frames, not causal, and a decoder whose layers cross-attend its output:
+SeamlessM4T).
 """
 from __future__ import annotations
 
@@ -38,13 +43,6 @@ __all__ = ["MLACfg", "ModelConfig", "Group", "plan", "block_specs",
 
 _HYBRID = ("hybrid", "hybrid_full")
 _MLA = ("mla_dense", "mla_moe")
-_KINDS = ("dense", "moe") + _MLA + _HYBRID + ("mamba",)
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind!r} models are not ported yet (ROADMAP queue 1 item 13); the "
-        f"port runs the block kinds {_KINDS}")
 
 
 # ---------------------------------------------------------------------- #
@@ -88,12 +86,18 @@ class ModelConfig:
     hybrid: bool = False            # parallel attn + ssm (Hymba)
     full_attn_layers: tuple = ()    # hybrid: these layer idxs use full attn
     sliding_window: Optional[int] = None
+    # cross-attention context (vision tokens / audio frames)
+    cross_every: int = 0            # vlm: 1 cross layer per `cross_every`
+    n_ctx_tokens: int = 0
+    # encoder-decoder
+    enc_dec: bool = False
+    enc_layers: int = 0
 
     @property
     def total_layers(self) -> int:
-        """Layers of the whole model (the reference adds an encoder's,
-        which the port does not have)."""
-        return self.n_layers
+        """Layers of the whole model, an encoder's included: they set
+        every output projection's init scale."""
+        return self.n_layers + self.enc_layers
 
     @property
     def vocab_padded(self) -> int:
@@ -119,15 +123,23 @@ class Group:
 
 
 def plan(cfg: ModelConfig) -> list:
-    """The groups of layers, in order (the reference's ``plan``): an SSM
-    model is one group of ``mamba`` layers; a hybrid has runs of
-    sliding-window layers between the full-attention layers, each
+    """The groups of layers, in order (the reference's ``plan``): an
+    encoder-decoder is its ``enc`` layers then its ``dec`` layers; a
+    vision model one group of ``vision_super`` blocks, ``cross_every``
+    layers each; an SSM model one group of ``mamba`` layers; a hybrid has
+    runs of sliding-window layers between the full-attention layers, each
     full-attention layer a group of its own; an MoE model its leading
     ``dense`` layers, then its ``moe`` layers (``mla_dense`` and
     ``mla_moe`` where it has MLA); any other, one group of ``dense``
     layers."""
-    if cfg.family in ("vlm", "audio"):
-        raise _not_ported(cfg.family)
+    if cfg.enc_dec:
+        return [Group("enc", cfg.enc_layers, "enc"),
+                Group("dec", cfg.n_layers, "dec")]
+    if cfg.family == "vlm":
+        if not cfg.cross_every or cfg.n_layers % cfg.cross_every:
+            raise ValueError(f"a vision model's {cfg.n_layers} layers are "
+                             f"not whole super-blocks of {cfg.cross_every}")
+        return [Group("vision_super", cfg.n_layers // cfg.cross_every, "vs")]
     if cfg.family == "ssm":
         return [Group("mamba", cfg.n_layers, "m")]
     if cfg.hybrid:
@@ -166,9 +178,27 @@ def _dense_ffn_specs(cfg, kind: str) -> dict:
                      init_scale_out(cfg.total_layers))
 
 
+def _gqa_block_specs(cfg, kind: str) -> dict:
+    return {"ln1": _norm(cfg), "attn": attn.gqa_specs(cfg),
+            "ln2": _norm(cfg), "mlp": _dense_ffn_specs(cfg, kind)}
+
+
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind == "mamba":
         return {"ln1": _norm(cfg), "ssm": ssm_specs(cfg)}
+    if kind == "vision_super":
+        # the self layers stacked once more, [cross_every - 1, ...]; the
+        # gates are float32 scalars drawn as zeros
+        gate = ParamSpec((), "float32", "zeros", axes=())
+        return {"self": _stack(_gqa_block_specs(cfg, kind),
+                               cfg.cross_every - 1),
+                "cross": {**_gqa_block_specs(cfg, kind),
+                          "gate_attn": gate, "gate_mlp": gate}}
+    if kind == "dec":
+        return {**_gqa_block_specs(cfg, kind), "lnx": _norm(cfg),
+                "xattn": attn.gqa_specs(cfg)}
+    if kind == "enc":
+        return _gqa_block_specs(cfg, kind)
     if kind in _HYBRID:
         return {
             "ln1": _norm(cfg),
@@ -178,7 +208,7 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
             "ln2": _norm(cfg), "mlp": _dense_ffn_specs(cfg, kind),
         }
     if kind not in ("dense", "moe") + _MLA:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     out = {"ln1": _norm(cfg),
            "attn": attn.mla_specs(cfg) if kind in _MLA else
            attn.gqa_specs(cfg),
@@ -207,6 +237,8 @@ def build_specs(cfg: ModelConfig) -> dict:
         "groups": {g.name: _stack(block_specs(cfg, g.kind), g.n)
                    for g in plan(cfg)},
     }
+    if cfg.enc_dec:
+        out["enc_final_norm"] = _norm(cfg)
     return out
 
 
@@ -238,18 +270,86 @@ def _ffn(kind: str, p: dict, x, cfg):
     return x + mlp_apply(p["mlp"], h2, cfg.act)
 
 
-def block_apply(kind: str, p: dict, x, cfg, positions):
-    """Full-sequence (prefill) block.  Returns (x, cache entry)."""
+def _self_attn(p: dict, x, cfg, positions, causal: bool = True,
+               window: Optional[int] = None):
+    """The self-attention sub-block and its residual, through the
+    flash-attention op; returns (x, k, v)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
+    o = flash_attention_op(q, k, v, window, causal)
+    return x + attn.gqa_out(p["attn"], o), k, v
+
+
+def _cross_kv(p_attn: dict, ctx, cfg):
+    """A cross-attention's keys and values from the context (vision
+    tokens, the encoder's output): projected, no RoPE."""
+    k = proj("bsd,dhk->bshk", ctx, p_attn["wk"])
+    v = proj("bsd,dhk->bshk", ctx, p_attn["wv"])
+    if cfg.qk_norm:
+        k = rmsnorm(k, p_attn["k_norm"], cfg.norm_eps)
+    return k.contiguous(), v.contiguous()
+
+
+def _cross_q(p_attn: dict, h, cfg):
+    """A cross-attention's queries: projected, no RoPE."""
+    q = proj("bsd,dhk->bshk", h, p_attn["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p_attn["q_norm"], cfg.norm_eps)
+    return q.contiguous()
+
+
+def _gate(g, x):
+    """A cross layer's gate: ``tanh`` of the float32 scalar, cast to the
+    residual's dtype (the product with the branch is taken in it)."""
+    return torch.tanh(g).to(x.dtype)
+
+
+def _gated_cross(pc: dict, x, attend, cfg):
+    """The vision super-block's gated cross layer: ``x + tanh(gate_attn)
+    * attention`` then ``x + tanh(gate_mlp) * MLP``; ``attend(q)``
+    attends the context (prefill's or decode's)."""
+    h = rmsnorm(x, pc["ln1"], cfg.norm_eps)
+    o = attend(_cross_q(pc["attn"], h, cfg))
+    x = x + _gate(pc["gate_attn"], x) * attn.gqa_out(pc["attn"], o)
+    h2 = rmsnorm(x, pc["ln2"], cfg.norm_eps)
+    return x + _gate(pc["gate_mlp"], x) * mlp_apply(pc["mlp"], h2, cfg.act)
+
+
+def block_apply(kind: str, p: dict, x, cfg, positions, ctx=None):
+    """Full-sequence (prefill) block; ``ctx`` [B, Sc, d] is the context a
+    ``vision_super`` or ``dec`` block cross-attends (vision tokens, the
+    encoder's output).  Returns (x, cache entry)."""
     if kind == "mamba":
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         y, (conv_s, ssm_s) = ssm_prefill(p["ssm"], h, cfg)
         return x + y, {"conv": conv_s, "ssm": ssm_s}
-    if kind in ("dense", "moe"):
-        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
-        o = flash_attention_op(q, k, v, cfg.sliding_window)
-        x = _ffn(kind, p, x + attn.gqa_out(p["attn"], o), cfg)
-        return x, {"k": k, "v": v}
+    if kind in ("dense", "moe", "enc"):
+        # the encoder's attention is not causal and its layers keep no cache
+        x, k, v = _self_attn(p, x, cfg, positions, kind != "enc",
+                             cfg.sliding_window)
+        x = _ffn(kind, p, x, cfg)
+        return x, ({} if kind == "enc" else {"k": k, "v": v})
+    if kind == "dec":
+        x, k, v = _self_attn(p, x, cfg, positions)
+        ck, cv = _cross_kv(p["xattn"], ctx, cfg)
+        hx = rmsnorm(x, p["lnx"], cfg.norm_eps)
+        ox = flash_attention_op(_cross_q(p["xattn"], hx, cfg), ck, cv,
+                                causal=False)
+        x = _ffn(kind, p, x + attn.gqa_out(p["xattn"], ox), cfg)
+        return x, {"k": k, "v": v, "ck": ck, "cv": cv}
+    if kind == "vision_super":
+        ks, vs = [], []
+        for i in range(cfg.cross_every - 1):
+            pi = _layer(p["self"], i)
+            x, k, v = _self_attn(pi, x, cfg, positions)
+            x = _ffn(kind, pi, x, cfg)
+            ks.append(k)
+            vs.append(v)
+        ck, cv = _cross_kv(p["cross"]["attn"], ctx, cfg)
+        x = _gated_cross(p["cross"], x, lambda q: flash_attention_op(
+            q, ck, cv, causal=False), cfg)
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs), "ck": ck,
+                   "cv": cv}
     if kind in _MLA:
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v, c_kv, k_rope = attn.mla_qkv(p["attn"], h, cfg, positions)
@@ -257,7 +357,7 @@ def block_apply(kind: str, p: dict, x, cfg, positions):
         x = _ffn(kind, p, x + attn.mla_out(p["attn"], o), cfg)
         return x, {"ckv": c_kv, "kr": k_rope}
     if kind not in _HYBRID:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     window = None if kind == "hybrid_full" else cfg.sliding_window
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
@@ -283,6 +383,24 @@ def _write_kv(cache_k, cache_v, k, v, pos: int, window: bool) -> None:
     cache_v[:, wpos] = v[:, 0]
 
 
+def _attn_decode(p: dict, h, cfg, k_cache, v_cache, pos: int,
+                 window: Optional[int] = None):
+    """One token's self-attention output (before the residual) against
+    its layer's cache, the token's key and value written in place."""
+    B = h.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
+    _write_kv(k_cache, v_cache, k, v, pos, window is not None)
+    o = attn.decode_attention(q, k_cache, v_cache, pos, window=window)
+    return attn.gqa_out(p["attn"], o)
+
+
+def _context_attention(q, ck, cv):
+    """One token's cross-attention over the whole context cache (the
+    reference's ``pos = Sc - 1``: every slot valid)."""
+    return attn.decode_attention(q, ck, cv, ck.shape[1] - 1)
+
+
 def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
     """x: [B,1,d]; updates the layer's ``cache`` in place, returns x."""
     if kind == "mamba":
@@ -292,21 +410,32 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
         cache["conv"].copy_(conv_s)
         cache["ssm"].copy_(ssm_s)
         return x + y
-    if kind not in _KINDS:
-        raise _not_ported(kind)
     if kind in _MLA:
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         a_out = attn.mla_decode(p["attn"], h, cfg, cache["ckv"], cache["kr"],
                                 pos)
         return _ffn(kind, p, x + a_out, cfg)
+    if kind == "vision_super":
+        for i in range(cfg.cross_every - 1):
+            pi = _layer(p["self"], i)
+            h = rmsnorm(x, pi["ln1"], cfg.norm_eps)
+            x = x + _attn_decode(pi, h, cfg, cache["k"][i], cache["v"][i],
+                                 pos)
+            x = _ffn(kind, pi, x, cfg)
+        return _gated_cross(p["cross"], x, lambda q: _context_attention(
+            q, cache["ck"], cache["cv"]), cfg)
+    if kind == "dec":
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        x = x + _attn_decode(p, h, cfg, cache["k"], cache["v"], pos)
+        hx = rmsnorm(x, p["lnx"], cfg.norm_eps)
+        ox = _context_attention(_cross_q(p["xattn"], hx, cfg), cache["ck"],
+                                cache["cv"])
+        return _ffn(kind, p, x + attn.gqa_out(p["xattn"], ox), cfg)
+    if kind not in ("dense", "moe") + _HYBRID:
+        raise ValueError(f"unknown block kind {kind!r}")
     window = None if kind == "hybrid_full" else cfg.sliding_window
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
-    _write_kv(cache["k"], cache["v"], k, v, pos, window is not None)
-    o = attn.decode_attention(q, cache["k"], cache["v"], pos, window=window)
-    a_out = attn.gqa_out(p["attn"], o)
+    a_out = _attn_decode(p, h, cfg, cache["k"], cache["v"], pos, window)
     if kind in ("dense", "moe"):
         return _ffn(kind, p, x + a_out, cfg)
     s_out, (conv_s, ssm_s) = ssm_decode(p["ssm"], h, cfg, cache["conv"],
@@ -329,26 +458,76 @@ def logits_from(params: dict, x, cfg) -> torch.Tensor:
                 params["unembed"])
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
-    """Prompt pass: tokens [B,S] -> (last-token logits [B,1,V], cache).
+def _encode(params: dict, ctx, cfg):
+    """An encoder-decoder's encoder over the context (audio frames) [B,
+    Sc, d]: its ``enc`` layers, not causal, RoPE over the frames'
+    positions, then ``enc_final_norm``: the memory the decoder's cross
+    layers attend."""
+    B, S = ctx.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=ctx.device).expand(B, S)
+    g = plan(cfg)[0]
+    gp = params["groups"][g.name]
+    x = ctx
+    for i in range(g.n):
+        x, _ = block_apply(g.kind, _layer(gp, i), x, cfg, positions)
+    return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
-    The cache is ``{group: {"k", "v", "conv", "ssm"}}`` (a ``dense`` or
-    ``moe`` group's ``{"k", "v"}``, every prompt key: ``[L, B, S, Hkv,
-    D]``; an MLA group's ``{"ckv", "kr"}``, the latent and the rotated
-    key of every prompt token: ``[L, B, S, kv_lora]`` and ``[L, B, S,
-    rope_dim]``; a ``mamba`` group's ``{"conv", "ssm"}``: ``[L, B, di,
-    K-1]`` and float32 ``[L, B, di, N]``) with each entry stacked over
-    the group's layers, as the reference's."""
+
+def _decoder_groups(cfg) -> list:
+    """The groups a prefill and a decode step run: an encoder-decoder's
+    ``enc`` group runs once, on the context, in the prefill."""
+    return plan(cfg)[1:] if cfg.enc_dec else plan(cfg)
+
+
+def _check_ctx(ctx, tokens, cfg) -> None:
+    """A model with context tokens needs its context, and one without
+    takes none: ``ctx`` [B, Sc, d] bf16, the tokens' batch."""
+    if not cfg.n_ctx_tokens:
+        if ctx is not None:
+            raise ValueError(f"{cfg.name} takes no context (ctx)")
+        return
+    if ctx is None:
+        raise ValueError(f"{cfg.name} attends {cfg.n_ctx_tokens} context "
+                         "tokens a request: pass ctx [B, Sc, d]")
+    if ctx.dim() != 3 or ctx.shape[0] != tokens.shape[0] or \
+            ctx.shape[2] != cfg.d_model or ctx.shape[1] < 1:
+        raise ValueError(f"ctx must be [B={tokens.shape[0]}, Sc >= 1, "
+                         f"d={cfg.d_model}], got {tuple(ctx.shape)}")
+    if ctx.dtype != torch.bfloat16:
+        raise TypeError(f"ctx has dtype {ctx.dtype}, expected torch.bfloat16")
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            ctx: Optional[torch.Tensor] = None):
+    """Prompt pass: tokens [B,S] (and, for a model with context tokens,
+    the bf16 context ``ctx`` [B,Sc,d]: vision tokens, or the audio frames
+    the encoder reads) -> (last-token logits [B,1,V], cache).
+
+    The cache is ``{group: {...}}`` with each entry stacked over the
+    group's layers, as the reference's: a ``dense`` or ``moe`` group's
+    ``{"k", "v"}``, every prompt key: ``[L, B, S, Hkv, D]``; an MLA
+    group's ``{"ckv", "kr"}``, the latent and the rotated key of every
+    prompt token: ``[L, B, S, kv_lora]`` and ``[L, B, S, rope_dim]``; a
+    ``mamba`` group's ``{"conv", "ssm"}``: ``[L, B, di, K-1]`` and
+    float32 ``[L, B, di, N]``; a ``vision_super`` group's self layers'
+    ``{"k", "v"}``: ``[L, cross_every - 1, B, S, Hkv, D]`` and its cross
+    layer's context keys and values ``{"ck", "cv"}``: ``[L, B, Sc, Hkv,
+    D]``; a ``dec`` group's ``{"k", "v", "ck", "cv"}`` (an encoder keeps
+    none)."""
+    _check_ctx(ctx, tokens, cfg)
     B, S = tokens.shape
     x = embed(params, tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    if cfg.enc_dec:
+        ctx = _encode(params, ctx, cfg)
     caches = {}
-    for g in plan(cfg):
+    for g in _decoder_groups(cfg):
         gp = params["groups"][g.name]
         entries = []
         for i in range(g.n):
-            x, c = block_apply(g.kind, _layer(gp, i), x, cfg, positions)
+            x, c = block_apply(g.kind, _layer(gp, i), x, cfg, positions, ctx)
             entries.append(c)
         caches[g.name] = {k: torch.stack([c[k] for c in entries])
                           for k in entries[0]}
@@ -358,9 +537,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg: ModelConfig):
     """tokens: [B,1]; pos: the tokens' position.  Returns (logits, cache),
-    the cache updated in place."""
+    the cache updated in place (a cross layer reads its context keys and
+    values from it)."""
     x = embed(params, tokens)
-    for g in plan(cfg):
+    for g in _decoder_groups(cfg):
         gp, gc = params["groups"][g.name], cache[g.name]
         for i in range(g.n):
             x = block_decode(g.kind, _layer(gp, i), x, cfg, _layer(gc, i),

@@ -253,23 +253,17 @@ def test_serve_session_defaults_to_the_card(models):
         ServeSession(cfg)
 
 
-def test_unported_archs_and_kinds_raise():
-    # the archs whose block kinds are not ported (the vision super-block,
-    # encoder-decoder) raise and name the ROADMAP item, as do their kinds
-    # and families
+def test_every_reference_arch_is_registered_and_an_unknown_one_raises():
+    """The port registers every arch of the reference's registry (the
+    vision super-block and the encoder-decoder included), and an unknown
+    arch raises ``KeyError``."""
+    from repro.configs import REGISTRY as JAX_REGISTRY
+    from repro_torch.configs import REGISTRY
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY)
     for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    cfg = reduced(get_config("hymba-1.5b"))
-    for kind in ("vision_super", "enc", "dec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_model.block_specs(cfg, kind)
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_model.plan(dataclasses.replace(cfg, family=family,
-                                                hybrid=False))
 
 
 def test_dense_and_moe_archs_are_ported():

@@ -47,6 +47,8 @@ missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.configs.starcoder2_15b",
                   "repro_torch.configs.command_r_plus_104b",
                   "repro_torch.configs.deepseek_v3_671b",
+                  "repro_torch.configs.llama_3_2_vision_90b",
+                  "repro_torch.configs.seamless_m4t_medium",
                   "repro_torch.models.moe"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)

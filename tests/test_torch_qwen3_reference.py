@@ -61,6 +61,7 @@ import json
 import pathlib
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -75,6 +76,7 @@ PROMPT_LEN, DECODE_STEPS, TOPK = 1024, 16, 8
 SMALL_LEAF = 1 << 20         # leaves with fewer elements are digested whole
 HEAD = 4096                  # float32 values digested of every leaf
 LSE_TOL = 2 ** -8
+CTX_SEED = 1                 # the context of a model with context tokens
 MOE_FLIP_TOL = 1.0
 MOE_FLIP_SHARE = 0.25
 
@@ -119,13 +121,29 @@ def leaf_digests(spec, index: int) -> dict:
     return out
 
 
-def capture_golden(path, cfg, specs, layers: int, meta: dict) -> None:
+def context(n: int, d: int) -> np.ndarray:
+    """The golden's context (vision tokens, audio frames) of a model with
+    context tokens: ``[1, n, d]`` float32 standard normals from
+    ``np.random.default_rng(CTX_SEED)``, which each framework rounds to
+    bf16 (to nearest even), as the reference's stub frontend draws
+    them."""
+    return np.random.default_rng(CTX_SEED).standard_normal((1, n, d),
+                                                           dtype=np.float32)
+
+
+def capture_golden(path, cfg, specs, layers: int, meta: dict,
+                   group_cut: Optional[int] = None, ctx=None,
+                   edit=None) -> None:
     """Run the reference's ``cfg`` (its first ``layers`` layers) on the
     golden's prompt and write the golden to ``path``, ``meta`` added.
 
     The weights are the port's numpy draw of the whole model's ``specs``
     (leaf for leaf in the same order): each stacked leaf's first layers
-    as ``group_rows`` counts them, at the whole model's scales."""
+    as ``group_rows`` counts them (of ``group_cut`` rows of the groups
+    where a row is not a layer: a vision super-block), at the whole model's
+    scales.  ``ctx`` (float32 numpy) is the context, rounded to bf16;
+    ``edit(params)`` returns the parameter tree the run takes (the gates
+    a golden sets)."""
     import resource
 
     import jax
@@ -140,7 +158,7 @@ def capture_golden(path, cfg, specs, layers: int, meta: dict) -> None:
                                            leaf_blocks_np)
 
     t_start = time.time()
-    keep = group_rows(specs, layers)
+    keep = group_rows(specs, layers if group_cut is None else group_cut)
     port_leaves = flatten_specs(specs)
     leaves, treedef = jax.tree.flatten(jax_build_specs(cfg), is_leaf=is_spec)
     assert len(leaves) == len(port_leaves)
@@ -162,17 +180,22 @@ def capture_golden(path, cfg, specs, layers: int, meta: dict) -> None:
         del host, flat
     params = jax.tree.unflatten(treedef, arrays)
     del arrays
+    if edit is not None:
+        params = edit(params)
     print(f"weights: {n_bytes} bytes in {time.time() - t_start:.1f} s",
           flush=True)
 
     mesh = make_test_mesh()
     sh = Sharder(mesh)
     toks = prompt(cfg.vocab)
+    batch = {"tokens": jnp.asarray(toks)}
+    if ctx is not None:
+        batch["ctx"] = jnp.asarray(ctx).astype(jnp.bfloat16)
     steps, tokens = [], []
     with jax.set_mesh(mesh):
         t0 = time.time()
         logits, cache = jax.jit(lambda p, b: prefill(p, b, cfg, sh))(
-            params, {"tokens": jnp.asarray(toks)})
+            params, batch)
         rec = step_record(np.asarray(logits[0, -1], np.float32), cfg.vocab)
         print(f"prefill: {time.time() - t0:.1f} s", flush=True)
         steps.append(rec)
@@ -211,10 +234,14 @@ def capture(arch: str) -> None:
                    build_specs(get_config(arch)), layers, {"arch": arch})
 
 
-def port_against(golden: dict, full, layers: int) -> None:
+def port_against(golden: dict, full, layers: int,
+                 group_cut: Optional[int] = None, ctx=None,
+                 edit=None) -> None:
     """The port's ``full`` config cut to its first ``layers`` layers on the
-    CPU (the same numpy draw), teacher-forced on the golden's prompt and
-    tokens; prints each position's errors against the golden."""
+    CPU (the same numpy draw; ``group_cut``, ``ctx`` and ``edit`` as
+    :func:`capture_golden` takes them), teacher-forced on the golden's
+    prompt and tokens; prints each position's errors against the
+    golden."""
     import torch
 
     from repro_torch.models.common import init_params
@@ -222,7 +249,11 @@ def port_against(golden: dict, full, layers: int) -> None:
     cfg = dataclasses.replace(full, n_layers=layers)
     t0 = time.time()
     params = init_params(build_specs(full), SEED, "cpu", threads=4,
-                         layers=layers)
+                         layers=layers if group_cut is None else group_cut)
+    if edit is not None:
+        params = edit(params)
+    if ctx is not None:
+        ctx = torch.from_numpy(ctx).to(torch.bfloat16)
     print(f"weights: {time.time() - t0:.1f} s", flush=True)
     tol, worst, beyond = logit_tol(golden), [0.0, 0.0], []
 
@@ -240,7 +271,7 @@ def port_against(golden: dict, full, layers: int) -> None:
               flush=True)
     toks = torch.as_tensor(prompt(golden["vocab"]))
     with torch.inference_mode():
-        logits, cache = prefill(params, toks, cfg)
+        logits, cache = prefill(params, toks, cfg, ctx)
         check("prefill", logits[0, -1], golden["steps"][0])
         for i, tok in enumerate(golden["tokens"][:-1]):
             logits, cache = decode_step(params, cache, torch.tensor([[tok]]),

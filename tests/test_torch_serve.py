@@ -63,11 +63,25 @@ def test_cli_needs_a_card_by_default():
     assert "device='cpu'" in proc.stderr
 
 
-def test_cli_names_the_roadmap_item_for_an_unported_arch():
-    proc = _cli("--arch", "llama-3.2-vision-90b", "--reduced", "--device",
-                "cpu")
-    assert proc.returncode != 0
-    assert "ROADMAP" in proc.stderr
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_cli_serves_the_reduced_context_models_on_the_cpu(arch):
+    """A model with context tokens: the CLI draws the context (16 tokens
+    at reduced size) after the prompts from the same generator, as the
+    reference's CLI does, and gives ``ServeSession.generate``'s tokens
+    over it."""
+    proc = _cli("--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "12", "--max-new", "3")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["arch"] == f"{arch}-smoke" and out["generated"] == [2, 3]
+    cfg = reduced(get_config(arch))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, 12), dtype=np.int32)
+    ctx = rng.normal(size=(2, cfg.n_ctx_tokens, cfg.d_model))
+    assert ctx.shape == (2, 16, 128)
+    want = ServeSession(cfg, device="cpu").generate(prompts, 3, ctx)
+    assert out["sample"] == want[0].tolist()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-moe-235b-a22b"])
