@@ -276,6 +276,31 @@ Phases, in order; any failure ends the script with a non-zero exit:
    requests of 4,096 tokens + 32 with 28 ``flash_attention`` launches a
    prefill and none a decode step; prefill seconds, decode ms a step,
    peak device bytes, and the profiler's breakdown;
+27. training — run right after phase 22, on its qwen3-1.7b weights:
+   (a) two steps of ``launch.steps.grads_and_loss`` + ``adamw_update``
+   (``AdamWConfig(lr=3e-4)``, float32 moments, ``remat="full"``) on
+   ``SyntheticLM(DataConfig(151936, 512, 1)).batch_at(0)`` and ``(1)``,
+   held to ``tests/golden/torch_qwen3_1_7b_train_s512.json`` (each
+   step's loss, ``grad_norm``, ``lr`` and 13 leaves' gradient and
+   update norms) within ``TRAIN_TOLS``, with 56 ``flash_attention``
+   launches a step (a forward and a recompute a layer); (b)
+   ``build_training``'s step at 2 x 4,096 (the ``train_4k`` cell's
+   sequence, its global batch of 256 cut to 2 for one card): 1 warm-up
+   and 4 timed steps, seconds a step, tokens/s, peak device bytes,
+   launches a step, one profiled step's device time by kind and idle
+   share, and the model-FLOPs share of the bf16 peak; the attention
+   kernel timed at that shape beside its plain version, SDPA and its
+   bound; (c) ``examples/train_lm.py``'s ``demo-100m`` (12 layers, d
+   768) for 150 steps at 4 x 128 through ``build_training`` with
+   checkpoints every 50 steps and one fault injected at step 60: one
+   restart, and the loss's change within ``DEMO_BAND`` of the
+   reference's own (the driver's ``drop > 0.15`` fails on the reference
+   too); and the reference's convergence case (reduced qwen3-1.7b, 50
+   steps, ``tests/test_system.py``): a drop above 0.3; (d)
+   ``FlashAttentionFn``'s gradients on the card against autograd through
+   the plain version at qwen3's (128, 128), Hymba's (64, 64) with a
+   window, MLA's (192, 128) and a non-causal (64, 64) over a ragged key
+   length, and ``selective_scan`` refusing a gradient on the card;
 23. qwen3-moe-235b-a22b — the MoE at full width (d 4,096, 64 query heads
    on 4 KV heads of 128, 128 experts, top 8, ``d_expert`` 1,536) cut to
    its first 2 of 94 layers (drawn at the 94-layer scales), the same
@@ -321,8 +346,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 Each phase prints its wall seconds, and the script its total.  The
 kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 20,
-16, 17, 18 (its in-process runs), 19, 11, 21, 22, 23, 24, 25 and 26 are
-summed.
+16, 17, 18 (its in-process runs), 19, 11, 21, 22, 27 (a, b and c), 23,
+24, 25 and 26 are summed.
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -3611,13 +3636,14 @@ def moe_costs(cfg, params, prompts) -> None:
           "989 TFLOP/s bf16")
 
 
-def run_qwen3(arch: str, weights: HostWeights) -> dict:
+def run_qwen3(arch: str, weights: HostWeights, keep: bool = False) -> dict:
     """A Qwen3 model at full width on the card: the background synthesis's
     weights, the golden teacher-forced, ``ServeSession.generate`` with one
     ``flash_attention`` launch a layer a prefill and none a decode step,
     the MoE's capacity, drops, determinism and steps (phase 23), and the
     profiler.  Returns the main path's launches and the attention
-    kernel's device ms a launch there."""
+    kernel's device ms a launch there, and with ``keep`` the parameters
+    on the card (``"params"``) for phase 27."""
     import dataclasses
     import numpy as np
     import torch
@@ -3636,10 +3662,498 @@ def run_qwen3(arch: str, weights: HostWeights) -> dict:
     if cfg.moe is not None:
         moe_costs(cfg, params, prompts)
     per_launch = profile_paths(cfg, params, prompts)
+    out = {"launches": out["launches"],
+           "flash_ms": per_launch.get("flash_attention")}
+    if keep:
+        out["params"] = params
     del params
     torch.cuda.empty_cache()
-    return {"launches": out["launches"],
-            "flash_ms": per_launch.get("flash_attention")}
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# phase 27: training
+# ---------------------------------------------------------------------- #
+# (a) the reference's two steps of qwen3-1.7b at full width on the CPU
+# (tests/test_torch_train_reference.py, which states the reasons and the
+# port's gaps on a CPU host beside these tolerances)
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_qwen3_1_7b_train_s512.json"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 512, 1, 2, 3e-4
+TRAIN_GRAD_LEAVES = ("embed", "unembed", "final_norm") + tuple(
+    f"groups/d/{leaf}[{i}]" for i in (0, 27)
+    for leaf in ("attn/wq", "attn/wo", "mlp/wi", "mlp/wo", "ln1"))
+# at the first step and after it: the loss (nats), grad_norm, and each
+# leaf's gradient and update norms (relative)
+TRAIN_TOLS = ({"loss": 0.005, "grad_norm": 0.005, "leaf": 0.01,
+               "update": 0.01},
+              {"loss": 0.02, "grad_norm": 0.08, "leaf": 0.10,
+               "update": 0.02})
+# (b) the train_4k cell's sequence, its global batch of 256 cut to 2
+TIMED_BATCH, TIMED_SEQ, TIMED_WARMUP, TIMED_STEPS = 2, 4096, 1, 4
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 (NVIDIA data sheet)
+# (c) examples/train_lm.py's demo-100m (a copy of its CFG_100M, in the
+# port's ModelConfig) and its driver's settings
+DEMO_STEPS, DEMO_SEQ, DEMO_BATCH, DEMO_LR, DEMO_WARMUP = 150, 128, 4, 1e-3, 10
+DEMO_CKPT_EVERY, DEMO_FAULT_AT = 50, 60
+# the driver asserts a loss drop above 0.15 over its 150 steps, which the
+# reference itself misses: on an 8-core CPU host its own run went from
+# 10.589 to 10.589 (the mean of the last 10; ln V = 10.397), the 32,768
+# successor pairs of the stream's Markov half being about 5 examples each
+# in 150 steps.  So the port is held to the reference's change, within
+# DEMO_BAND, and its losses to stay finite and below ln V + 0.5
+DEMO_REF_DROP, DEMO_BAND = 0.0, 0.15
+# (c') the reference's own convergence case, which it passes
+# (tests/test_system.py::test_train_loss_decreases): reduced qwen3-1.7b,
+# 4 x 64, AdamW lr 1e-3 with warmup_cosine(5, 50), 50 steps; the mean of
+# the last 5 losses below the first 5's by CONVERGE_DROP.  At head dim 64:
+# the kernel has no instantiation at the reduced config's 32 (the
+# reference on an 8-core CPU host: 6.241 -> 5.443 at 64, 6.240 -> 5.426
+# at 32)
+CONVERGE_STEPS, CONVERGE_SEQ, CONVERGE_BATCH, CONVERGE_DROP = 50, 64, 4, 0.3
+CONVERGE_HEAD_DIM = 64
+# (d) the gradient on the card: (B, Sq, Skv, H, Hkv, Dqk, Dv, window,
+# causal) at qwen3's, Hymba's, DeepSeek's and seamless's dims
+GRAD_CASES = {"qwen3 (128, 128)": (1, 1024, 1024, 16, 8, 128, 128, None,
+                                   True),
+              "hymba (64, 64) window": (1, 1024, 1024, 25, 5, 64, 64, 256,
+                                        True),
+              "mla (192, 128)": (1, 512, 512, 16, 16, 192, 128, None, True),
+              "(64, 64) not causal": (2, 300, 1001, 16, 16, 64, 64, None,
+                                      False)}
+GRAD_TOL = 2 ** -6              # tests/test_torch_flash_grad.py's
+
+
+def demo_100m():
+    from repro_torch.models.model import ModelConfig
+    return ModelConfig(
+        name="demo-100m", family="dense", n_layers=12, d_model=768,
+        n_heads=12, n_kv_heads=4, head_dim=64, d_ff=2048, vocab=32768,
+        act="swiglu", rope_theta=10_000.0)
+
+
+def _tree_leaf(tree, name: str):
+    """``TRAIN_GRAD_LEAVES`` entry ``name``: a path, ``[i]`` a layer."""
+    path, _, layer = name.partition("[")
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree[int(layer[:-1])] if layer else tree
+
+
+def train_golden(cfg, params) -> int:
+    """(a): the golden's two steps on the card; returns the launches."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import grads_and_loss
+    from repro_torch.models.model import build_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt
+    golden = json.loads(TRAIN_GOLDEN.read_text())
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
+                       device="cuda")
+    opt = AdamWConfig(lr=TRAIN_LR)
+    state = init_opt(build_specs(cfg), opt, "cuda")
+
+    def norm(t) -> float:
+        return float(torch.linalg.vector_norm(t.double()))
+    ok = True
+    reset_counts()
+    for step, want in enumerate(golden["steps"]):
+        loss, grads = grads_and_loss(params, data.batch_at(step), cfg)
+        grad_norms = {k: norm(_tree_leaf(grads, k))
+                      for k in TRAIN_GRAD_LEAVES}
+        before = params
+        params, state, m = adamw_update(params, grads, state, opt)
+        del grads
+        moved = {k: norm(_tree_leaf(params, k).float()
+                         - _tree_leaf(before, k).float())
+                 for k in TRAIN_GRAD_LEAVES}
+        del before
+        got = {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"])}
+        errs = {"loss": abs(got["loss"] - want["loss"]),
+                "grad_norm": abs(got["grad_norm"] / want["grad_norm"] - 1),
+                "leaf": max(abs(grad_norms[k] / v - 1) for k, v in
+                            want["leaf_grad_norms"].items()),
+                "update": max(abs(moved[k] / v - 1) for k, v in
+                              want["leaf_update_norms"].items())}
+        tol = TRAIN_TOLS[min(step, 1)]
+        step_ok = all(errs[k] <= tol[k] for k in tol) and \
+            float(torch.tensor(got["lr"], dtype=torch.float32)) == \
+            float(torch.tensor(want["lr"], dtype=torch.float32))
+        ok &= step_ok
+        print(f"step {step}: loss {got['loss']!r} (golden {want['loss']!r}), "
+              f"grad_norm {got['grad_norm']!r} (golden "
+              f"{want['grad_norm']!r}), lr {got['lr']!r}; errors {errs}, "
+              f"tolerances {tol}: {'within' if step_ok else 'BEYOND'}")
+    counts = read_counts()
+    check_counts(counts, dict(NO_LAUNCHES, flash_attention=2 * cfg.n_layers
+                              * len(golden["steps"])), "the training golden")
+    if not ok:
+        raise AssertionError("training differs from its golden beyond the "
+                             "tolerances")
+    del params, state
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+TRAIN_RANGES = ("train.attention_backward", "train.optimizer")
+
+
+@contextlib.contextmanager
+def _train_ranges():
+    """``attention_backward`` and ``adamw_update`` inside profiler ranges
+    named ``train.attention_backward`` and ``train.optimizer``."""
+    from torch.profiler import record_function
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import steps
+    bwd, upd = ops.attention_backward, steps.adamw_update
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+    ops.attention_backward = ranged(TRAIN_RANGES[0], bwd)
+    steps.adamw_update = ranged(TRAIN_RANGES[1], upd)
+    try:
+        yield
+    finally:
+        ops.attention_backward, steps.adamw_update = bwd, upd
+
+
+def _range_kinds(events, name: str) -> dict:
+    """Device us by kernel kind under every CPU range ``name`` (its own
+    kernels and its descendants')."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+
+    def walk(ev):
+        for k in ev.kernels:
+            out[_kind(k.name)] = out.get(_kind(k.name), 0.0) + k.duration
+        for c in ev.cpu_children:
+            walk(c)
+    for ev in events:
+        if ev.name == name and ev.device_type == DeviceType.CPU:
+            walk(ev)
+    return out
+
+
+def profile_train_step(step_fn, state, batch) -> dict:
+    """One training step under the profiler: device seconds by kind and
+    the idle share; returns ``{"flash_ms": ms a forward-kernel launch}``
+    (empty when the profiler saw no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with _train_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the ranges' own device-side spans cover their kernels: not counted
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.key not in TRAIN_RANGES]
+    rows = [r for r in rows if r[0] > 0]
+    if not rows:
+        print("profiler: device time not measured (no device events)")
+        return {}
+    busy = sum(r[0] for r in rows) / 1e6
+    total = {}
+    for us, _, key in rows:
+        total[_kind(key)] = total.get(_kind(key), 0.0) + us
+    events = prof.events()
+    bwd = _range_kinds(events, TRAIN_RANGES[0])
+    opt = _range_kinds(events, TRAIN_RANGES[1])
+    split = {"flash_attention forward kernel":
+             total.get("flash_attention", 0.0),
+             "attention backward (torch ops)": sum(bwd.values()),
+             "optimizer (AdamW)": sum(opt.values())}
+    for kind in ("gemm", "copy/cast", "other elementwise/reduction"):
+        split[f"{kind} outside those"] = total.get(kind, 0.0) - \
+            bwd.get(kind, 0.0) - opt.get(kind, 0.0)
+    n_fa = sum(c for _, c, k in rows if _kind(k) == "flash_attention")
+    print(f"profiler, one training step: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s in {sum(r[1] for r in rows)} device operations, "
+          f"idle share {100 * (1 - busy / wall):.1f}%")
+    print("  longest kernels: " + "; ".join(
+        f"{key[:60]} {us / 1e3:.3f} ms ({n})" for us, n, key in
+        sorted(rows, reverse=True)[:8]))
+    print("training step device time by kind: " + ", ".join(
+        f"{k} {v / 1e6:.4f} s ({100 * v / 1e6 / busy:.1f}%)"
+        for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    if not bwd or not opt:
+        print("  (the ranges' kernels were not linked: attention backward "
+              "and optimizer device time not measured; their kernels are "
+              "counted by kind)")
+    return {"flash_ms": total["flash_attention"] / n_fa / 1e3} if n_fa \
+        else {}
+
+
+def train_timed(cfg, params) -> dict:
+    """(b): ``build_training``'s step at TIMED_BATCH x TIMED_SEQ."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import bench as fa_bench
+    from repro_torch.launch.train import build_training
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import FTConfig
+    data = SyntheticLM(DataConfig(cfg.vocab, TIMED_SEQ, TIMED_BATCH),
+                       device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile_dir("timed") as ckpt_dir:
+        state, runner, _ = build_training(
+            cfg, AdamWConfig(lr=TRAIN_LR), ckpt_dir, data,
+            ft=FTConfig(ckpt_every=10 ** 9), device="cuda", params=params)
+        del params
+        step_fn = runner.step_fn
+        times, losses = [], []
+        reset_counts()
+        for i in range(TIMED_WARMUP + TIMED_STEPS):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite training losses {losses}")
+        n_steps = TIMED_WARMUP + TIMED_STEPS
+        per_step = counts["flash_attention"] / n_steps
+        check_counts(counts, dict(NO_LAUNCHES, flash_attention=int(
+            2 * cfg.n_layers * n_steps)), "the timed training steps")
+        sec = sum(times[TIMED_WARMUP:]) / TIMED_STEPS
+        tokens = TIMED_BATCH * TIMED_SEQ
+        n = cfg.param_count()
+        attn = 6 * TIMED_BATCH * cfg.n_heads * cfg.head_dim * \
+            cfg.n_layers * TIMED_SEQ * (TIMED_SEQ + 1) // 2 * 2
+        model_ops = 6 * n * tokens + attn
+        print(f"timed steps at {TIMED_BATCH} x {TIMED_SEQ}: warm-up "
+              f"{times[0]:.4f} s, then {[round(t, 4) for t in times[1:]]} s; "
+              f"{sec:.4f} s a step, {tokens / sec:.1f} tokens/s; losses "
+              f"{losses}; peak device memory {peak} bytes; flash_attention "
+              f"{per_step:.0f} launches a step")
+        print(f"model operations a step: 6 N tokens = {6 * n * tokens:.4e} "
+              f"(N = {n}) + causal attention {attn:.4e} = {model_ops:.4e}; "
+              f"{model_ops / sec / 1e12:.1f} TFLOP/s, "
+              f"{100 * model_ops / sec / BF16_OPS_PER_S:.2f}% of the bf16 "
+              f"peak (989 TFLOP/s)")
+        prof = profile_train_step(step_fn, state, data.batch_at(n_steps))
+        launches = read_counts()["flash_attention"]   # and the profiled's
+        del state, step_fn, runner
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rec = fa_bench.run_cases(cfg, gen, n_timed=1, case_list=[(
+        TIMED_BATCH, TIMED_SEQ, TIMED_SEQ, cfg.n_heads, cfg.n_kv_heads,
+        cfg.head_dim, None)])
+    timed = rec["timed"][0]
+    return {"launches": launches,
+            "flash_ms": prof.get("flash_ms", timed["ms"]),
+            "flash": timed, "sec": sec, "peak": peak}
+
+
+@contextlib.contextmanager
+def tempfile_dir(label: str):
+    """A fresh directory under ``build/`` for one run's checkpoints,
+    removed afterwards."""
+    path = ROOT / "build" / f"chip_smoke_train_{label}"
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    try:
+        yield str(path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def train_demo() -> int:
+    """(c): demo-100m through build_training with one fault; returns the
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import build_training
+    from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
+    from repro_torch.runtime.fault_tolerance import FTConfig
+    cfg = demo_100m()
+    data = SyntheticLM(DataConfig(cfg.vocab, DEMO_SEQ, DEMO_BATCH),
+                       device="cuda")
+    opt = AdamWConfig(lr=DEMO_LR, schedule=warmup_cosine(DEMO_WARMUP,
+                                                         DEMO_STEPS))
+    crashed = []
+
+    def fault_hook(step):
+        if step == DEMO_FAULT_AT and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected fault")
+
+    saves = []
+    with tempfile_dir("demo") as ckpt_dir:
+        state, runner, ckpt = build_training(
+            cfg, opt, ckpt_dir, data,
+            ft=FTConfig(ckpt_every=DEMO_CKPT_EVERY, max_retries=2),
+            fault_hook=fault_hook, device="cuda")
+        save = ckpt.save_async
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            save(*a, **kw)
+            saves.append(time.perf_counter() - t0)
+        ckpt.save_async = timed_save
+        reset_counts()
+        t0 = time.perf_counter()
+        state, step, hist = runner.run(state, 0, DEMO_STEPS)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        kept = ckpt.all_steps()
+        n_bytes = sum(f.stat().st_size for f in
+                      Path(ckpt_dir, f"step_{kept[-1]:010d}").iterdir())
+        del state
+    losses = [h["loss"] for h in hist]
+    drop = losses[0] - float(np.mean(losses[-10:]))
+    n_run = len(hist)
+    print("demo-100m loss every 10 steps run: "
+          + ", ".join(f"{x:.4f}" for x in losses[::10]))
+    print(f"demo-100m ({cfg.param_count()} parameters): {step} steps, "
+          f"{n_run} run ({runner.restarts} restart at step "
+          f"{crashed[0] if crashed else None}, resumed from step "
+          f"{DEMO_FAULT_AT - DEMO_FAULT_AT % DEMO_CKPT_EVERY}) in "
+          f"{wall:.3f} s, "
+          f"{wall / n_run:.4f} s a step run; loss {losses[0]:.4f} -> "
+          f"{np.mean(losses[-10:]):.4f} (drop {drop:.4f}, ln V = "
+          f"{np.log(cfg.vocab):.3f}); checkpoints kept {kept}, "
+          f"{n_bytes} bytes each, {len(saves)} saves taking "
+          f"{[round(t, 3) for t in saves]} s on the step's clock")
+    check_counts(counts, dict(NO_LAUNCHES, flash_attention=2 * cfg.n_layers
+                              * n_run), "demo-100m's training")
+    if step != DEMO_STEPS or runner.restarts != 1:
+        raise AssertionError(f"demo-100m: {step} steps, {runner.restarts} "
+                             "restarts (expected 1)")
+    if not abs(drop - DEMO_REF_DROP) <= DEMO_BAND or \
+            not max(losses) < np.log(cfg.vocab) + 0.5:
+        raise AssertionError(f"demo-100m's loss moved {drop} (the "
+                             f"reference's {DEMO_REF_DROP}) or left the "
+                             f"band: {max(losses)}")
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def train_converge() -> int:
+    """(c'): the reference's convergence case through build_training on
+    the card; returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import build_training
+    from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
+    cfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)),
+                              head_dim=CONVERGE_HEAD_DIM)
+    data = SyntheticLM(DataConfig(cfg.vocab, CONVERGE_SEQ, CONVERGE_BATCH),
+                       device="cuda")
+    opt = AdamWConfig(lr=1e-3, schedule=warmup_cosine(5, CONVERGE_STEPS))
+    with tempfile_dir("converge") as ckpt_dir:
+        state, runner, _ = build_training(cfg, opt, ckpt_dir, data,
+                                          device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        state, step, hist = runner.run(state, 0, CONVERGE_STEPS)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    first = float(np.mean([h["loss"] for h in hist[:5]]))
+    last = float(np.mean([h["loss"] for h in hist[-5:]]))
+    print(f"{cfg.name}, {CONVERGE_BATCH} x {CONVERGE_SEQ}: {step} steps in "
+          f"{wall:.3f} s; loss {first:.4f} -> {last:.4f} (the mean of the "
+          f"first and last 5; the reference asks a drop above "
+          f"{CONVERGE_DROP})")
+    check_counts(counts, dict(NO_LAUNCHES, flash_attention=2 * cfg.n_layers
+                              * CONVERGE_STEPS), "the convergence case")
+    if not (step == CONVERGE_STEPS and last < first - CONVERGE_DROP):
+        raise AssertionError(f"{cfg.name} did not converge: {first} -> "
+                             f"{last}")
+    return counts["flash_attention"]
+
+
+def train_grads() -> None:
+    """(d): the attention gradient on the card against autograd through
+    the plain version, and the scan's refusal; launches not counted."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_op,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.selective_scan import selective_scan_op
+    from repro_torch.kernels.selective_scan.ops import NO_CARD_BACKWARD
+    gen = torch.Generator(device="cuda").manual_seed(2727)
+    for label, (b, sq, skv, h, hkv, d, dv, win, causal) in \
+            GRAD_CASES.items():
+        q, k, v, do = [torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for shape in
+                       ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                        (b, sq, h, dv))]
+        grads = []
+        for fn in (flash_attention_op, flash_attention_ref):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, win, causal)
+            grads.append(torch.autograd.grad(o, leaves, do))
+        errs = []
+        for g, w in zip(*grads):
+            scale = float(w.float().abs().max())
+            errs.append(float((g.float() - w.float()).abs().max()) / scale)
+        print(f"gradient {label} [{b},{sq},{skv},{h},{hkv}]: max error "
+              f"of dq, dk, dv over their largest value {errs} (tolerance "
+              f"{GRAD_TOL})")
+        if max(errs) > GRAD_TOL:
+            raise AssertionError(f"flash_attention's gradient differs from "
+                                 f"the plain version's at {label}")
+    u = torch.zeros((1, 8, 64), device="cuda", requires_grad=True)
+    args = (u, torch.zeros((1, 8, 64), device="cuda"),
+            -torch.ones((64, 16), device="cuda"),
+            torch.zeros((1, 8, 16), device="cuda"),
+            torch.zeros((1, 8, 16), device="cuda"),
+            torch.zeros((1, 64, 16), device="cuda"))
+    try:
+        selective_scan_op(*args)
+    except RuntimeError as e:
+        if str(e) != NO_CARD_BACKWARD:
+            raise
+        print(f"selective_scan under autograd on the card raises: {e}")
+    else:
+        raise AssertionError("selective_scan returned under autograd on "
+                             "the card")
+
+
+def run_training(params) -> dict:
+    """Phase 27 on qwen3-1.7b's card weights of phase 22; returns the
+    main path's launches and the attention kernel's record at the
+    training shape."""
+    from repro_torch.configs import get_config
+    phase("27. training: qwen3-1.7b at full width (golden, 2 x 4,096 "
+          "steps), demo-100m with a fault, gradients on the card")
+    cfg = get_config(TRAIN_ARCH)
+    assert cfg.remat == "full"
+    launches = train_golden(cfg, params)
+    timed = train_timed(cfg, params)
+    del params
+    launches += timed["launches"] + train_demo() + train_converge()
+    train_grads()
+    print(f"phase 27's flash_attention launches on the main path: "
+          f"{launches} ({timed['launches']} at {TIMED_BATCH} x {TIMED_SEQ})")
+    return {"launches": launches, "timed_launches": timed["launches"],
+            "flash_ms": timed["flash_ms"], "flash": timed["flash"]}
+
+
+def run_phase27_alone() -> dict:
+    """Phase 27 by itself (after ``run_device(); run_build()``): draws
+    qwen3-1.7b's weights on the host first (about 22 s)."""
+    from repro_torch.configs import get_config
+    return run_training(to_card(get_config(TRAIN_ARCH),
+                                HostWeights(TRAIN_ARCH)))
 
 
 # deepseek-v3-671b (phase 24): its first 4 of 61 layers at full width,
@@ -3818,15 +4332,18 @@ def _to_card(tree):
 
 
 def flash_paths(fa: dict, serving: dict, qwen3: dict, deepseek: dict,
-                cross: dict) -> float:
-    """``flash_attention`` runs on six paths, Hymba's (phase 11), the two
-    Qwen3 models' (phases 22, 23), DeepSeek's (phase 24), seamless-m4t's
-    (25) and llama-3.2-vision's (26): its record ``fa`` (phase 9's,
-    updated in place) becomes the launch-weighted mean of the paths',
-    each path's plain, SDPA and bound times from phase 9 at its shapes (a
-    path of several shapes, their launch-weighted mean); returns the
-    launch-weighted device ms a launch, each path's from its profiler
-    (phase 9's time where the profiler saw none)."""
+                cross: dict, training: dict) -> float:
+    """``flash_attention`` runs on seven paths, Hymba's (phase 11), the
+    two Qwen3 models' (phases 22, 23), DeepSeek's (phase 24),
+    seamless-m4t's (25), llama-3.2-vision's (26) and training's (27,
+    weighted by its launches at 2 x 4,096 only: its other launches, at
+    512 tokens and at demo-100m's and the convergence case's small
+    shapes, are counted but not timed): its record ``fa``
+    (phase 9's, updated in place) becomes the launch-weighted mean of the
+    paths', each path's plain, SDPA and bound times from phase 9 (27) at
+    its shapes (a path of several shapes, their launch-weighted mean);
+    returns the launch-weighted device ms a launch, each path's from its
+    profiler (phase 9's or 27's time where the profiler saw none)."""
     paths = [(serving["launches"]["flash_attention"],
               serving["per_launch"].get("flash_attention"), dict(fa))]
     d128, mla, timed = fa.pop("d128"), fa.pop("mla"), fa.pop("cross")
@@ -3840,6 +4357,8 @@ def flash_paths(fa: dict, serving: dict, qwen3: dict, deepseek: dict,
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         paths.append((cross[arch]["launches"]["flash_attention"],
                       cross[arch]["flash_ms"], mix))
+    paths.append((training["timed_launches"], training["flash_ms"],
+                  training["flash"]))
     n_fa = sum(n for n, _, _ in paths)
     for key in ("plain_ms", "library_ms", "bound_ms"):
         fa[key] = sum(n * rec[key] for n, _, rec in paths) / n_fa
@@ -3847,7 +4366,7 @@ def flash_paths(fa: dict, serving: dict, qwen3: dict, deepseek: dict,
           "; ".join(f"{label} {n}, {rec['ms'] if ms is None else ms:.6f}, "
                     f"{rec['bound_ms']:.6f}" for label, (n, ms, rec) in
                     zip(("hymba-1.5b", *QWEN3, DEEPSEEK["arch"],
-                         *CROSS_MODELS), paths)))
+                         *CROSS_MODELS, "training"), paths)))
     return sum(n * (rec["ms"] if ms is None else ms)
                for n, ms, rec in paths) / n_fa
 
@@ -3949,25 +4468,32 @@ def main() -> int:
     del params                   # Hymba's parameters leave the card
     torch.cuda.empty_cache()
     falcon = run_falcon(weights["falcon-mamba-7b"])
-    qwen3 = {arch: run_qwen3(arch, weights[arch]) for arch in QWEN3}
+    qwen3 = {}
+    for arch in QWEN3:
+        qwen3[arch] = run_qwen3(arch, weights[arch], keep=arch == TRAIN_ARCH)
+        if arch == TRAIN_ARCH:          # phase 27 on phase 22's weights
+            training = run_training(qwen3[arch].pop("params"))
     deepseek = run_deepseek(weights[DEEPSEEK["arch"]])
     cross = {arch: run_cross(arch, weights[arch]) for arch in CROSS_MODELS}
     phase()
     for run in (serving, falcon, *qwen3.values(), deepseek, *cross.values()):
         for k in ("flash_attention", "selective_scan"):
             launches[k] += run["launches"][k]
+    launches["flash_attention"] += training["launches"]
     per_launch.update(selective_scan=serving["per_launch"].get(
         "selective_scan", records["selective_scan"]["ms"]))
     per_launch["flash_attention"] = flash_paths(
-        records["flash_attention"], serving, qwen3, deepseek, cross)
+        records["flash_attention"], serving, qwen3, deepseek, cross,
+        training)
 
     # a kernel's time is its device time per launch on the main path where
     # the profiler saw it, else the back-to-back launch time of phase 3 or
     # 9 (an upper bound: Python launches no faster than a few
     # microseconds).  Launches are summed over the main-path runs of
     # phases 8, 12, 13, 14, 15, 20, 16, 17, 18 (in process), 19, 11, 21,
-    # 22, 23, 24, 25 and 26; selective_scan's time is its time at Hymba's
-    # shape (phase 11), falcon-mamba's is printed in phases 9 and 21.
+    # 22, 27, 23, 24, 25 and 26; selective_scan's time is its time at
+    # Hymba's shape (phase 11), falcon-mamba's is printed in phases 9 and
+    # 21.
     for k in records:
         records[k]["launches"] = launches[k]
         records[k]["ms"] = per_launch.get(k, records[k]["ms"])

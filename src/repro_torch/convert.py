@@ -16,7 +16,10 @@ both packages build them from the same numpy code.
 :func:`params_from_jax` turns the reference model's parameter tree, as
 numpy arrays (each group stacked over its layers; a vision super-block's
 ``self`` leaves stacked twice, its float32 gates one scalar a layer; an
-encoder-decoder's ``enc_final_norm``), into the port's, and
+encoder-decoder's ``enc_final_norm``), into the port's;
+:func:`opt_state_from_jax` does the same for the reference's AdamW state
+(``m`` and ``v`` in the parameters' layout, of its state dtype, and the
+int32 ``step``), so that both packages start a step from one state; and
 :func:`cache_to_numpy` gives a decode cache back as numpy arrays (the
 cross layers' ``ck`` / ``cv`` beside the ``k`` / ``v`` entries).
 """
@@ -27,10 +30,11 @@ import torch
 
 from .models.common import flatten_specs
 from .models.model import build_specs
+from .optim.adamw import AdamWConfig, opt_specs
 from .simulator.engine import KEY_KEYS, MASK_KEYS, POOL_KEYS
 
 __all__ = ["state_from_jax", "state_to_numpy", "params_from_jax",
-           "cache_to_numpy"]
+           "opt_state_from_jax", "cache_to_numpy"]
 
 
 def state_from_jax(np_state: dict, device) -> dict:
@@ -74,9 +78,26 @@ def params_from_jax(np_params: dict, cfg, device) -> dict:
     """The port's parameters from the reference's parameter tree as numpy
     arrays (``jax.device_get`` of ``init_params``' tree).  Every leaf of
     ``build_specs(cfg)`` must be there with its shape and dtype."""
+    return _tree_from_jax(np_params, build_specs(cfg), device)
+
+
+def opt_state_from_jax(np_opt: dict, cfg, device) -> dict:
+    """The port's AdamW state from the reference's (``{"m", "v",
+    "step"}`` as numpy arrays): every leaf of the parameters' specs in
+    ``m`` and ``v``, all of one state dtype (float32 or bfloat16), and
+    ``step`` an int32 scalar."""
+    sd = np.asarray(flatten_specs(np_opt["m"])[0][1]).dtype.name
+    return _tree_from_jax(np_opt, opt_specs(build_specs(cfg),
+                                            AdamWConfig(state_dtype=sd)),
+                          device)
+
+
+def _tree_from_jax(np_tree: dict, specs: dict, device) -> dict:
+    """Each leaf of ``specs`` taken from ``np_tree``, checked against the
+    spec's shape and dtype."""
     out: dict = {}
-    for path, spec in flatten_specs(build_specs(cfg)):
-        node, src = out, np_params
+    for path, spec in flatten_specs(specs):
+        node, src = out, np_tree
         *parents, leaf = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})

@@ -31,9 +31,10 @@ __all__ = ["ParamSpec", "flatten_specs", "spec_leaf_np", "leaf_blocks_np",
            "param_shardings", "fdot", "proj", "rmsnorm", "rope_freqs",
            "apply_rope", "activation", "GATED_ACTS", "mlp_specs",
            "mlp_apply", "pad_vocab", "group_rows", "init_params",
-           "init_scale_out"]
+           "init_scale_out", "abstract_params", "trainable"]
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int32": torch.int32}
 # float32 elements in one block that leaf_blocks_np draws (256 MiB)
 _BLOCK_ELEMS = 1 << 26
 
@@ -215,6 +216,24 @@ def init_params(specs, seed: int, device, threads: int = 1,
     else:
         made = {i: one(i) for i in order}
     return _nest([p for p, _ in leaves], [made[i] for i in range(len(leaves))])
+
+
+def abstract_params(specs) -> dict:
+    """The parameter tree of ``specs`` as tensors on the ``meta`` device:
+    shapes and dtypes, no storage (the reference's ``ShapeDtypeStruct``
+    stand-ins)."""
+    if isinstance(specs, dict):
+        return {k: abstract_params(v) for k, v in specs.items()}
+    return torch.empty(tuple(specs.shape), dtype=_DTYPES[specs.dtype],
+                       device="meta")
+
+
+def trainable(tree) -> dict:
+    """A parameter tree whose leaves autograd tracks: each leaf detached
+    (sharing its storage) with ``requires_grad``."""
+    if isinstance(tree, dict):
+        return {k: trainable(v) for k, v in tree.items()}
+    return tree.detach().requires_grad_(True)
 
 
 def count_params(specs) -> int:

@@ -7,12 +7,15 @@ holds ``[n, ...]`` tensors), so parameter trees and caches have the
 reference's layout leaf for leaf.  The port walks each group's layers in
 a Python loop where the reference scans.
 
-Two entry points: :func:`prefill` builds the decode cache from a prompt
-(and, for a model with context tokens, a context: vision tokens, audio
-frames) and :func:`decode_step` runs one token against it, updating the
-cache in place (the reference returns a new cache).  The kinds, every one
-of the reference's: ``dense`` (GQA attention and an MLP: Qwen3,
-Nemotron, StarCoder2, Command R+), ``moe`` (GQA attention and the routed
+Three entry points: :func:`forward_train` gives the logits of every
+position for training (:func:`loss_fn` their masked cross-entropy), each
+block under the config's ``remat`` mode (:func:`maybe_remat`, torch's
+activation checkpointing); :func:`prefill` builds the decode cache from
+a prompt (and, for a model with context tokens, a context: vision
+tokens, audio frames) and :func:`decode_step` runs one token against it,
+updating the cache in place (the reference returns a new cache).  The
+kinds, every one of the reference's: ``dense`` (GQA attention and an
+MLP: Qwen3, Nemotron, StarCoder2, Command R+), ``moe`` (GQA attention and the routed
 experts of ``models.moe``: the Qwen3 MoE), ``mla_dense`` and ``mla_moe``
 (MLA attention and an MLP or the routed experts: DeepSeek-V3),
 ``hybrid`` and ``hybrid_full`` (Hymba), the attention-free ``mamba``
@@ -25,10 +28,13 @@ SeamlessM4T).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention import flash_attention_op
 from . import attention as attn
@@ -39,7 +45,8 @@ from .ssm import ssm_decode, ssm_prefill, ssm_specs
 
 __all__ = ["MLACfg", "ModelConfig", "Group", "plan", "block_specs",
            "build_specs", "embed", "logits_from", "block_apply",
-           "block_decode", "prefill", "decode_step"]
+           "block_decode", "prefill", "decode_step", "maybe_remat",
+           "DOT_OPS", "forward_train", "loss_fn"]
 
 _HYBRID = ("hybrid", "hybrid_full")
 _MLA = ("mla_dense", "mla_moe")
@@ -92,6 +99,8 @@ class ModelConfig:
     # encoder-decoder
     enc_dec: bool = False
     enc_layers: int = 0
+    # training: activation checkpointing of each block (full | dots | none)
+    remat: str = "full"
 
     @property
     def total_layers(self) -> int:
@@ -458,20 +467,94 @@ def logits_from(params: dict, x, cfg) -> torch.Tensor:
                 params["unembed"])
 
 
-def _encode(params: dict, ctx, cfg):
+def _encode(params: dict, ctx, cfg, remat: bool = False):
     """An encoder-decoder's encoder over the context (audio frames) [B,
     Sc, d]: its ``enc`` layers, not causal, RoPE over the frames'
-    positions, then ``enc_final_norm``: the memory the decoder's cross
-    layers attend."""
+    positions (each under the config's ``remat`` when ``remat``), then
+    ``enc_final_norm``: the memory the decoder's cross layers attend."""
     B, S = ctx.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=ctx.device).expand(B, S)
     g = plan(cfg)[0]
-    gp = params["groups"][g.name]
-    x = ctx
-    for i in range(g.n):
-        x, _ = block_apply(g.kind, _layer(gp, i), x, cfg, positions)
+    x = _run_group(g, params["groups"][g.name], ctx, cfg, positions, None,
+                   remat)
     return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+# the matrix products whose outputs ``remat="dots"`` keeps (the
+# reference's ``checkpoint_dots``): einsum and matmul reach these
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn, cfg):
+    """``fn`` under the config's activation checkpointing, the
+    reference's ``_maybe_remat``: ``full`` keeps only the inputs and
+    recomputes the whole block in the backward, ``dots`` keeps the
+    outputs of the matrix products (``DOT_OPS``) and recomputes the rest,
+    ``none`` keeps what autograd keeps."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    if cfg.remat == "none":
+        return fn
+    raise ValueError(f"unknown remat mode {cfg.remat!r}")
+
+
+def _run_group(g, gp, x, cfg, positions, ctx, remat: bool):
+    """One group's layers in turn, each block under the config's
+    ``remat`` when ``remat``; the blocks' caches are dropped."""
+    def body(y, p):
+        return block_apply(g.kind, p, y, cfg, positions, ctx)[0]
+    if remat:
+        body = maybe_remat(body, cfg)
+    for i in range(g.n):
+        x = body(x, _layer(gp, i))
+    return x
+
+
+def forward_train(params: dict, batch: dict, cfg: ModelConfig):
+    """batch: ``{"tokens": [B,S] int}`` (and ``"ctx"`` [B,Sc,d] bf16 for
+    a model with context tokens; ``"labels"`` is not read).  Returns the
+    bf16 logits of every position, [B,S,V] over the padded vocabulary.
+    An encoder-decoder runs its encoder on ``ctx`` first, then its
+    decoder groups."""
+    tokens = batch["tokens"]
+    ctx = batch.get("ctx")
+    _check_ctx(ctx, tokens, cfg)
+    B, S = tokens.shape
+    x = embed(params, tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    if cfg.enc_dec:
+        ctx = _encode(params, ctx, cfg, remat=True)
+    for g in _decoder_groups(cfg):
+        x = _run_group(g, params["groups"][g.name], x, cfg, positions, ctx,
+                       remat=True)
+    return logits_from(params, x, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy over the positions whose label is
+    ``>= 0``: float32 ``logsumexp`` of the logits less the gold logit,
+    summed and divided by ``max(count, 1)``."""
+    logits = forward_train(params, batch, cfg)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = labels >= 0
+    nll = torch.where(mask, lse - gold, torch.zeros_like(lse))
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 def _decoder_groups(cfg) -> list:

@@ -49,7 +49,11 @@ missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.configs.deepseek_v3_671b",
                   "repro_torch.configs.llama_3_2_vision_90b",
                   "repro_torch.configs.seamless_m4t_medium",
-                  "repro_torch.models.moe"} - set(names))
+                  "repro_torch.models.moe",
+                  "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                  "repro_torch.optim.compression",
+                  "repro_torch.launch.steps",
+                  "repro_torch.launch.train"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -201,3 +205,35 @@ def test_placement_entry_points_refuse_to_run_on_the_cpu_by_default():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_test_mesh()
     assert make_sim_mesh(2, device="cpu").devices == (torch.device("cpu"),) * 2
+
+
+def test_training_entry_points_refuse_to_run_on_the_cpu_by_default(
+        tmp_path):
+    """The training path's entry points need the card unless asked for
+    the CPU: the data pipeline, the optimizer state, ``build_training``
+    and ``python -m repro_torch.launch.train``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import build_training
+    from repro_torch.models.model import build_specs
+    from repro_torch.optim.adamw import AdamWConfig, init_opt
+    cfg = reduced(get_config("qwen3-1.7b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLM(DataConfig(cfg.vocab, 8, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_opt(build_specs(cfg), AdamWConfig())
+    data = SyntheticLM(DataConfig(cfg.vocab, 8, 1), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_training(cfg, AdamWConfig(), str(tmp_path), data)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-1.7b", "--reduced", "--steps", "1", "--seq", "8",
+         "--global-batch", "1", "--ckpt-dir", str(tmp_path / "ckpt")],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                       "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr and proc.stdout == ""
+    assert not (tmp_path / "ckpt").exists()
