@@ -147,10 +147,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``examples/specs/serve_1k.json`` through one ``SimulatorCache`` —
    ``mrls(56, 18, 18, seed=1)`` under Polarized and ``fat_tree(16, 2)``
    under minimal_adaptive: ``serve_sweep`` of the MRLS poisson spec
-   (loads 0.6 and 0.8, 100 + 200 slots, the ``qwen3-1.7b`` decode
-   request over 8 ranks), Fat-Tree poisson at 0.8 with 4 replicas (100
-   + 300) through ``repro_torch.api.run``, MRLS pareto (alpha 1.5, cap
-   32) and diurnal (amplitude 0.5, period 64) at 0.6 (64 + 192), each
+   (loads 0.6 and 0.8, 50 + 100 slots, the ``qwen3-1.7b`` decode
+   request over 8 ranks), Fat-Tree poisson at 0.8 with 4 replicas (50
+   + 100) through ``repro_torch.api.run``, MRLS pareto (alpha 1.5, cap
+   32) at 0.6 (64 + 192) and diurnal (amplitude 0.5, period 64) at 0.6
+   (64 + 64), each
    record against its ``tests/golden/torch_serve_*.json`` field for
    field, with its launches (``vc_prearb`` 3 and
    ``switch_arbitrate_rows`` 2 a step), run seconds, slots/s, peak
@@ -300,7 +301,26 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``FlashAttentionFn``'s gradients on the card against autograd through
    the plain version at qwen3's (128, 128), Hymba's (64, 64) with a
    window, MLA's (192, 128) and a non-causal (64, 64) over a ragged key
-   length, and ``selective_scan`` refusing a gradient on the card;
+   length;
+28. training the hybrid and mamba kinds — (a) run right after phase
+   20's reshard of Hymba's parameters: the scan's backward kernel
+   ``selective_scan_bwd`` against ``selective_scan_bwd_ref`` on the card
+   at Hymba's and falcon-mamba's training shapes ``[2, 4096, 3200]`` and
+   ``[2, 4096, 8192]`` and at ``[1, 1000, 4100]`` with ``h0`` and
+   ``dh_T`` non-zero (all six gradients bit for bit; two runs the same
+   bits), its time, bound and share, and the plain backward's time; (b)
+   Hymba-1.5B's two-step golden
+   ``tests/golden/torch_hymba_1p5b_train_s512.json`` on phase 10's card
+   weights within its ``SSM_TRAIN`` tolerances, with 64
+   ``flash_attention``, 64 ``selective_scan`` and 32
+   ``selective_scan_bwd`` launches a step; (c) Hymba at the
+   ``train_4k`` cell's sequence, 2 x 4,096 (its global batch of 256 cut
+   to 2): 1 warm-up, 3 timed steps and a profiled fourth, as phase 27
+   (b) reports them, the scan backward its own profiler range; (d) at the
+   end of phase 21, falcon-mamba-7b's first 4 layers (views of phase
+   21's card weights) held to
+   ``tests/golden/torch_falcon_mamba_7b_l4_train_s512.json``, then 1 + 2
+   timed steps at 2 x 4,096;
 23. qwen3-moe-235b-a22b — the MoE at full width (d 4,096, 64 query heads
    on 4 KV heads of 128, 128 experts, top 8, ``d_expert`` 1,536) cut to
    its first 2 of 94 layers (drawn at the 94-layer scales), the same
@@ -346,8 +366,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 Each phase prints its wall seconds, and the script its total.  The
 kernels' launches on the main paths of phases 8, 12, 13, 14, 15, 20,
-16, 17, 18 (its in-process runs), 19, 11, 21, 22, 27 (a, b and c), 23,
-24, 25 and 26 are summed.
+16, 17, 18 (its in-process runs), 19, 11, 28, 21, 22, 27 (a, b and c),
+23, 24, 25 and 26 are summed.
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -460,6 +480,11 @@ KERNELS = {
     "selective_scan": (
         "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
         "src/repro/kernels/selective_scan/kernel.py:39"),
+    # the reference has no Pallas backward: XLA differentiates its chunk
+    # scan
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/selective_scan/csrc/selective_scan_bwd.cu",
+        "src/repro/models/ssm.py:93-115"),
 }
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -3184,6 +3209,8 @@ def _kind(key: str) -> str:
     low = key.lower()
     if "flash_attention_kernel" in key:
         return "flash_attention"
+    if "selective_scan_bwd" in key:
+        return "selective_scan_bwd"
     if "selective_scan_kernel" in key:
         return "selective_scan"
     if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
@@ -3533,10 +3560,11 @@ def run_falcon(weights: HostWeights) -> dict:
         0, cfg.vocab, (FALCON_BATCH, FALCON_PROMPT), dtype=np.int32)
     out = serve_counted(cfg, params, prompts, FALCON_NEW)
     per_launch = profile_paths(cfg, params, prompts)
+    train = train_falcon_cut(cfg, params)
     del params
     torch.cuda.empty_cache()
     return {"launches": out["launches"],
-            "scan_ms": per_launch.get("selective_scan")}
+            "scan_ms": per_launch.get("selective_scan"), "train": train}
 
 
 # the Qwen3 models (phases 22 and 23): each golden's layers, and the
@@ -3740,14 +3768,27 @@ def _tree_leaf(tree, name: str):
     return tree[int(layer[:-1])] if layer else tree
 
 
-def train_golden(cfg, params) -> int:
-    """(a): the golden's two steps on the card; returns the launches."""
+def train_launches(cfg, steps: int) -> dict:
+    """Every kernel's launches in ``steps`` training steps under
+    ``remat="full"``: each layer's forward kernels twice (the forward and
+    its recompute), the scan's backward kernel once."""
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return dict(NO_LAUNCHES, flash_attention=2 * attn * steps,
+                selective_scan=2 * ssm * steps,
+                selective_scan_bwd=ssm * steps)
+
+
+def train_golden(cfg, params, golden_path=TRAIN_GOLDEN,
+                 leaves=TRAIN_GRAD_LEAVES, tols=TRAIN_TOLS) -> dict:
+    """The golden's two steps on the card, held to it within ``tols``;
+    returns the launches."""
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.steps import grads_and_loss
     from repro_torch.models.model import build_specs
     from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt
-    golden = json.loads(TRAIN_GOLDEN.read_text())
+    golden = json.loads(golden_path.read_text())
     data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
                        device="cuda")
     opt = AdamWConfig(lr=TRAIN_LR)
@@ -3759,24 +3800,25 @@ def train_golden(cfg, params) -> int:
     reset_counts()
     for step, want in enumerate(golden["steps"]):
         loss, grads = grads_and_loss(params, data.batch_at(step), cfg)
-        grad_norms = {k: norm(_tree_leaf(grads, k))
-                      for k in TRAIN_GRAD_LEAVES}
+        grad_norms = {k: norm(_tree_leaf(grads, k)) for k in leaves}
         before = params
         params, state, m = adamw_update(params, grads, state, opt)
         del grads
         moved = {k: norm(_tree_leaf(params, k).float()
                          - _tree_leaf(before, k).float())
-                 for k in TRAIN_GRAD_LEAVES}
+                 for k in leaves}
         del before
         got = {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
                "lr": float(m["lr"])}
+        rel = {k: grad_norms[k] / v - 1 for k, v in
+               want["leaf_grad_norms"].items()}
+        rel_up = {k: moved[k] / v - 1 for k, v in
+                  want["leaf_update_norms"].items()}
         errs = {"loss": abs(got["loss"] - want["loss"]),
                 "grad_norm": abs(got["grad_norm"] / want["grad_norm"] - 1),
-                "leaf": max(abs(grad_norms[k] / v - 1) for k, v in
-                            want["leaf_grad_norms"].items()),
-                "update": max(abs(moved[k] / v - 1) for k, v in
-                              want["leaf_update_norms"].items())}
-        tol = TRAIN_TOLS[min(step, 1)]
+                "leaf": max(abs(v) for v in rel.values()),
+                "update": max(abs(v) for v in rel_up.values())}
+        tol = tols[min(step, 1)]
         step_ok = all(errs[k] <= tol[k] for k in tol) and \
             float(torch.tensor(got["lr"], dtype=torch.float32)) == \
             float(torch.tensor(want["lr"], dtype=torch.float32))
@@ -3785,28 +3827,36 @@ def train_golden(cfg, params) -> int:
               f"grad_norm {got['grad_norm']!r} (golden "
               f"{want['grad_norm']!r}), lr {got['lr']!r}; errors {errs}, "
               f"tolerances {tol}: {'within' if step_ok else 'BEYOND'}")
+        print("  leaves' relative gradient / update norm errors: " + "; ".join(
+            f"{k} {rel[k]:+.3e} / {rel_up[k]:+.3e}" for k in rel))
     counts = read_counts()
-    check_counts(counts, dict(NO_LAUNCHES, flash_attention=2 * cfg.n_layers
-                              * len(golden["steps"])), "the training golden")
+    check_counts(counts, train_launches(cfg, len(golden["steps"])),
+                 f"the training golden {golden_path.name}")
     if not ok:
-        raise AssertionError("training differs from its golden beyond the "
-                             "tolerances")
+        raise AssertionError(f"training differs from {golden_path.name} "
+                             "beyond the tolerances")
     del params, state
     torch.cuda.empty_cache()
-    return counts["flash_attention"]
+    return counts
 
 
-TRAIN_RANGES = ("train.attention_backward", "train.optimizer")
+TRAIN_RANGES = ("train.attention_backward", "train.optimizer",
+                "train.scan_backward")
 
 
 @contextlib.contextmanager
 def _train_ranges():
-    """``attention_backward`` and ``adamw_update`` inside profiler ranges
-    named ``train.attention_backward`` and ``train.optimizer``."""
+    """``attention_backward``, ``adamw_update`` and the scan's backward
+    kernel wrapper inside profiler ranges named
+    ``train.attention_backward``, ``train.optimizer`` and
+    ``train.scan_backward`` (the last's kernels, launched through ctypes,
+    are not linked to it: their device time is read by kind)."""
     from torch.profiler import record_function
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.selective_scan import kernel as ss
     from repro_torch.launch import steps
-    bwd, upd = ops.attention_backward, steps.adamw_update
+    bwd, upd, sbwd = (ops.attention_backward, steps.adamw_update,
+                      ss.selective_scan_bwd)
 
     def ranged(name, fn):
         def wrapped(*a, **kw):
@@ -3815,10 +3865,12 @@ def _train_ranges():
         return wrapped
     ops.attention_backward = ranged(TRAIN_RANGES[0], bwd)
     steps.adamw_update = ranged(TRAIN_RANGES[1], upd)
+    ss.selective_scan_bwd = ranged(TRAIN_RANGES[2], sbwd)
     try:
         yield
     finally:
         ops.attention_backward, steps.adamw_update = bwd, upd
+        ss.selective_scan_bwd = sbwd
 
 
 def _range_kinds(events, name: str) -> dict:
@@ -3865,16 +3917,23 @@ def profile_train_step(step_fn, state, batch) -> dict:
     for us, _, key in rows:
         total[_kind(key)] = total.get(_kind(key), 0.0) + us
     events = prof.events()
-    bwd = _range_kinds(events, TRAIN_RANGES[0])
-    opt = _range_kinds(events, TRAIN_RANGES[1])
+    ranges = {name: _range_kinds(events, name) for name in TRAIN_RANGES}
     split = {"flash_attention forward kernel":
              total.get("flash_attention", 0.0),
-             "attention backward (torch ops)": sum(bwd.values()),
-             "optimizer (AdamW)": sum(opt.values())}
+             "selective_scan forward kernel":
+             total.get("selective_scan", 0.0),
+             "attention backward (torch ops)":
+             sum(ranges[TRAIN_RANGES[0]].values()),
+             "optimizer (AdamW)": sum(ranges[TRAIN_RANGES[1]].values()),
+             "scan backward kernel (selective_scan_bwd)":
+             total.get("selective_scan_bwd", 0.0)}
     for kind in ("gemm", "copy/cast", "other elementwise/reduction"):
-        split[f"{kind} outside those"] = total.get(kind, 0.0) - \
-            bwd.get(kind, 0.0) - opt.get(kind, 0.0)
+        split[f"{kind} outside those"] = total.get(kind, 0.0) - sum(
+            r.get(kind, 0.0) for r in ranges.values())
+    split = {k: v for k, v in split.items() if v}
     n_fa = sum(c for _, c, k in rows if _kind(k) == "flash_attention")
+    n_ss = sum(c for _, c, k in rows if _kind(k) == "selective_scan")
+    n_bwd = sum(c for _, c, k in rows if "selective_scan_bwd_kernel" in k)
     print(f"profiler, one training step: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s in {sum(r[1] for r in rows)} device operations, "
           f"idle share {100 * (1 - busy / wall):.1f}%")
@@ -3884,16 +3943,49 @@ def profile_train_step(step_fn, state, batch) -> dict:
     print("training step device time by kind: " + ", ".join(
         f"{k} {v / 1e6:.4f} s ({100 * v / 1e6 / busy:.1f}%)"
         for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
-    if not bwd or not opt:
+    if n_bwd:
+        # a ctypes launch is not linked to the range around it, so the
+        # kernel's device time is its kind's; the range gives host time
+        host = sum(e.cpu_time_total for e in prof.key_averages()
+                   if e.key == TRAIN_RANGES[2])
+        print(f"  selective_scan: {n_ss} forward launches (forward and "
+              f"recompute), {n_bwd} backward launches; the backward "
+              f"(kernel and its sums) "
+              f"{total['selective_scan_bwd'] / n_bwd / 1e3:.6f} ms a launch "
+              f"on the device; its range {TRAIN_RANGES[2]} "
+              f"{host / 1e3:.3f} ms on the host")
+    if not ranges[TRAIN_RANGES[1]]:
         print("  (the ranges' kernels were not linked: attention backward "
               "and optimizer device time not measured; their kernels are "
               "counted by kind)")
-    return {"flash_ms": total["flash_attention"] / n_fa / 1e3} if n_fa \
-        else {}
+    out = {}
+    if n_fa:
+        out["flash_ms"] = total["flash_attention"] / n_fa / 1e3
+    if n_bwd:
+        out["scan_bwd_ms"] = total["selective_scan_bwd"] / n_bwd / 1e3
+    return out
 
 
-def train_timed(cfg, params) -> dict:
-    """(b): ``build_training``'s step at TIMED_BATCH x TIMED_SEQ."""
+def attention_pairs(cfg, seq: int) -> int:
+    """The (query, key) pairs of one sequence's causal attention over all
+    layers: ``seq (seq + 1) / 2`` a full layer, fewer in a sliding
+    window's (a hybrid's full-attention layers full)."""
+    if cfg.family == "ssm":
+        return 0
+    full = seq * (seq + 1) // 2
+    w = cfg.sliding_window
+    if w is None or w >= seq:
+        return cfg.n_layers * full
+    n_full = len(cfg.full_attn_layers) if cfg.hybrid else 0
+    windowed = w * (w + 1) // 2 + (seq - w) * w
+    return n_full * full + (cfg.n_layers - n_full) * windowed
+
+
+def train_timed(cfg, params, warmup: int = TIMED_WARMUP,
+                steps: int = TIMED_STEPS, time_flash: bool = True) -> dict:
+    """(b): ``build_training``'s step at TIMED_BATCH x TIMED_SEQ, ``warmup``
+    then ``steps`` timed and one profiled; with ``time_flash``, the
+    attention kernel timed at that shape too."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -3913,7 +4005,8 @@ def train_timed(cfg, params) -> dict:
         step_fn = runner.step_fn
         times, losses = [], []
         reset_counts()
-        for i in range(TIMED_WARMUP + TIMED_STEPS):
+        n_steps = warmup + steps
+        for i in range(n_steps):
             batch = data.batch_at(i)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3925,38 +4018,38 @@ def train_timed(cfg, params) -> dict:
         peak = torch.cuda.max_memory_allocated()
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite training losses {losses}")
-        n_steps = TIMED_WARMUP + TIMED_STEPS
-        per_step = counts["flash_attention"] / n_steps
-        check_counts(counts, dict(NO_LAUNCHES, flash_attention=int(
-            2 * cfg.n_layers * n_steps)), "the timed training steps")
-        sec = sum(times[TIMED_WARMUP:]) / TIMED_STEPS
+        check_counts(counts, train_launches(cfg, n_steps),
+                     "the timed training steps")
+        sec = sum(times[warmup:]) / steps
         tokens = TIMED_BATCH * TIMED_SEQ
         n = cfg.param_count()
-        attn = 6 * TIMED_BATCH * cfg.n_heads * cfg.head_dim * \
-            cfg.n_layers * TIMED_SEQ * (TIMED_SEQ + 1) // 2 * 2
+        attn = 12 * TIMED_BATCH * cfg.n_heads * cfg.head_dim * \
+            attention_pairs(cfg, TIMED_SEQ)
         model_ops = 6 * n * tokens + attn
         print(f"timed steps at {TIMED_BATCH} x {TIMED_SEQ}: warm-up "
-              f"{times[0]:.4f} s, then {[round(t, 4) for t in times[1:]]} s; "
-              f"{sec:.4f} s a step, {tokens / sec:.1f} tokens/s; losses "
-              f"{losses}; peak device memory {peak} bytes; flash_attention "
-              f"{per_step:.0f} launches a step")
+              f"{times[:warmup]} s, then "
+              f"{[round(t, 4) for t in times[warmup:]]} s; {sec:.4f} s a "
+              f"step, {tokens / sec:.1f} tokens/s; losses {losses}; peak "
+              f"device memory {peak} bytes; launches a step "
+              f"{ {k: v / n_steps for k, v in counts.items() if v} }")
         print(f"model operations a step: 6 N tokens = {6 * n * tokens:.4e} "
               f"(N = {n}) + causal attention {attn:.4e} = {model_ops:.4e}; "
               f"{model_ops / sec / 1e12:.1f} TFLOP/s, "
               f"{100 * model_ops / sec / BF16_OPS_PER_S:.2f}% of the bf16 "
               f"peak (989 TFLOP/s)")
         prof = profile_train_step(step_fn, state, data.batch_at(n_steps))
-        launches = read_counts()["flash_attention"]   # and the profiled's
+        counts = read_counts()                      # and the profiled's
         del state, step_fn, runner
     torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda").manual_seed(27)
-    rec = fa_bench.run_cases(cfg, gen, n_timed=1, case_list=[(
-        TIMED_BATCH, TIMED_SEQ, TIMED_SEQ, cfg.n_heads, cfg.n_kv_heads,
-        cfg.head_dim, None)])
-    timed = rec["timed"][0]
-    return {"launches": launches,
-            "flash_ms": prof.get("flash_ms", timed["ms"]),
-            "flash": timed, "sec": sec, "peak": peak}
+    out = {"counts": counts, "sec": sec, "peak": peak, **prof}
+    if time_flash:
+        gen = torch.Generator(device="cuda").manual_seed(27)
+        rec = fa_bench.run_cases(cfg, gen, n_timed=1, case_list=[(
+            TIMED_BATCH, TIMED_SEQ, TIMED_SEQ, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, None)])
+        out["flash"] = rec["timed"][0]
+        out.setdefault("flash_ms", out["flash"]["ms"])
+    return out
 
 
 @contextlib.contextmanager
@@ -4083,12 +4176,11 @@ def train_converge() -> int:
 
 def train_grads() -> None:
     """(d): the attention gradient on the card against autograd through
-    the plain version, and the scan's refusal; launches not counted."""
+    the plain version; launches not counted (the scan's gradient is phase
+    28 (a)'s)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_op,
                                                      flash_attention_ref)
-    from repro_torch.kernels.selective_scan import selective_scan_op
-    from repro_torch.kernels.selective_scan.ops import NO_CARD_BACKWARD
     gen = torch.Generator(device="cuda").manual_seed(2727)
     for label, (b, sq, skv, h, hkv, d, dv, win, causal) in \
             GRAD_CASES.items():
@@ -4111,21 +4203,6 @@ def train_grads() -> None:
         if max(errs) > GRAD_TOL:
             raise AssertionError(f"flash_attention's gradient differs from "
                                  f"the plain version's at {label}")
-    u = torch.zeros((1, 8, 64), device="cuda", requires_grad=True)
-    args = (u, torch.zeros((1, 8, 64), device="cuda"),
-            -torch.ones((64, 16), device="cuda"),
-            torch.zeros((1, 8, 16), device="cuda"),
-            torch.zeros((1, 8, 16), device="cuda"),
-            torch.zeros((1, 64, 16), device="cuda"))
-    try:
-        selective_scan_op(*args)
-    except RuntimeError as e:
-        if str(e) != NO_CARD_BACKWARD:
-            raise
-        print(f"selective_scan under autograd on the card raises: {e}")
-    else:
-        raise AssertionError("selective_scan returned under autograd on "
-                             "the card")
 
 
 def run_training(params) -> dict:
@@ -4137,14 +4214,15 @@ def run_training(params) -> dict:
           "steps), demo-100m with a fault, gradients on the card")
     cfg = get_config(TRAIN_ARCH)
     assert cfg.remat == "full"
-    launches = train_golden(cfg, params)
+    launches = train_golden(cfg, params)["flash_attention"]
     timed = train_timed(cfg, params)
     del params
-    launches += timed["launches"] + train_demo() + train_converge()
+    timed_launches = timed["counts"]["flash_attention"]
+    launches += timed_launches + train_demo() + train_converge()
     train_grads()
     print(f"phase 27's flash_attention launches on the main path: "
-          f"{launches} ({timed['launches']} at {TIMED_BATCH} x {TIMED_SEQ})")
-    return {"launches": launches, "timed_launches": timed["launches"],
+          f"{launches} ({timed_launches} at {TIMED_BATCH} x {TIMED_SEQ})")
+    return {"launches": launches, "timed_launches": timed_launches,
             "flash_ms": timed["flash_ms"], "flash": timed["flash"]}
 
 
@@ -4154,6 +4232,126 @@ def run_phase27_alone() -> dict:
     from repro_torch.configs import get_config
     return run_training(to_card(get_config(TRAIN_ARCH),
                                 HostWeights(TRAIN_ARCH)))
+
+
+# ---------------------------------------------------------------------- #
+# training the hybrid and mamba kinds (phase 28): the goldens of
+# tests/test_torch_train_ssm_reference.py, which states the reasons and
+# the port's gaps on a CPU host beside these tolerances
+# ---------------------------------------------------------------------- #
+def _ssm_grad_leaves(layers, extra=()) -> tuple:
+    return ("embed", "unembed", "final_norm") + tuple(
+        f"groups/{g}/{leaf}[{i}]" for g, i in layers
+        for leaf in ("ssm/A_log", "ssm/x_proj", "ssm/dt_w", "ssm/dt_b",
+                     "ssm/in_proj", "ssm/conv_w", "ln1") + tuple(extra))
+
+
+SSM_TRAIN = {
+    "hymba-1.5b": {
+        "golden": (ROOT / "tests" / "golden"
+                   / "torch_hymba_1p5b_train_s512.json"),
+        "layers": None,
+        "grad_leaves": _ssm_grad_leaves((("hf0", 0), ("hf4", 0)),
+                                        ("attn/wq",)),
+        "tols": ({"loss": 0.005, "grad_norm": 0.005, "leaf": 0.02,
+                  "update": 0.03},
+                 {"loss": 0.02, "grad_norm": 0.08, "leaf": 0.15,
+                  "update": 0.05}),
+        "timed": (1, 3)},               # warm-up and timed steps
+    "falcon-mamba-7b": {
+        "golden": (ROOT / "tests" / "golden"
+                   / "torch_falcon_mamba_7b_l4_train_s512.json"),
+        "layers": 4,
+        "grad_leaves": _ssm_grad_leaves((("m", 0), ("m", 3))),
+        "tols": ({"loss": 0.002, "grad_norm": 0.0005, "leaf": 0.005,
+                  "update": 0.01},
+                 {"loss": 0.003, "grad_norm": 0.001, "leaf": 0.01,
+                  "update": 0.01}),
+        "timed": (1, 2)},
+}
+
+
+def scan_bwd_check() -> dict:
+    """(a): ``selective_scan_bwd`` against ``selective_scan_bwd_ref`` on
+    the card at the bench's first three ``BWD_CASES``: Hymba's and
+    falcon-mamba's training shapes and an odd shape with h0 and dh_T
+    (every gradient bit for bit, the same bits twice), timed at the
+    training shapes; returns the kernel's record at Hymba's shape."""
+    import torch
+    from repro_torch.kernels.selective_scan import bench as ss_bench
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    results = ss_bench.run_bwd_cases(gen, ss_bench.BWD_CASES[:3])
+    timed = [ss_bench.time_bwd(r) for r in results if r["args"]]
+    err = max(r["max_abs_err"] for r in results)
+    del results
+    torch.cuda.empty_cache()
+    rec = timed[0]
+    return dict(max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                library_ms=None, bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], falcon=timed[1])
+
+
+def ssm_train(cfg, params, arch: str) -> dict:
+    """The golden's two steps of ``arch`` (its cut config ``cfg``), then
+    its warm-up, timed and profiled steps at 2 x 4,096; returns the
+    launches of both and the timed run's record."""
+    spec = SSM_TRAIN[arch]
+    counts = train_golden(cfg, params, spec["golden"], spec["grad_leaves"],
+                          spec["tols"])
+    timed = train_timed(cfg, params, *spec["timed"], time_flash=False)
+    for k, v in timed["counts"].items():
+        counts[k] += v
+    return {"launches": counts, "timed": timed}
+
+
+def run_ssm_training(cfg, params) -> dict:
+    """Phase 28 (a)-(c) on Hymba-1.5B's card weights of phases 10 and 11:
+    the scan's backward kernel against its plain version, Hymba's
+    training golden, and its steps at 2 x 4,096."""
+    phase("28. training the hybrid and mamba kinds on the card: the scan's "
+          "backward kernel, Hymba-1.5B (golden, 2 x 4,096 steps)")
+    rec = scan_bwd_check()
+    out = ssm_train(cfg, params, "hymba-1.5b")
+    out["scan_bwd"] = rec
+    return out
+
+
+def _first_layers(tree, n: int):
+    """Each stacked leaf of a group tree cut to its first ``n`` layers
+    (views)."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def train_falcon_cut(cfg, params) -> dict:
+    """Phase 28 (d): falcon-mamba-7b's first 4 layers, views of phase
+    21's card weights (no second synthesis), trained: the golden's two
+    steps, then 1 + 2 steps at 2 x 4,096."""
+    import dataclasses
+    phase("28 (cont.). training falcon-mamba-7b's first 4 layers on the "
+          "card (golden, 2 x 4,096 steps)")
+    layers = SSM_TRAIN["falcon-mamba-7b"]["layers"]
+    cut = dict(params, groups=_first_layers(params["groups"], layers))
+    return ssm_train(dataclasses.replace(cfg, n_layers=layers), cut,
+                     "falcon-mamba-7b")
+
+
+def run_phase28_alone() -> dict:
+    """Phase 28 by itself (after ``run_device(); run_build()``): draws
+    Hymba-1.5B's weights and falcon-mamba-7b's first 4 layers on the host
+    first."""
+    from repro_torch.configs import get_config
+    hymba = HostWeights("hymba-1.5b")
+    falcon = HostWeights("falcon-mamba-7b",
+                         SSM_TRAIN["falcon-mamba-7b"]["layers"], after=hymba)
+    cfg = get_config("hymba-1.5b")
+    params = to_card(cfg, hymba)
+    out = run_ssm_training(cfg, params)
+    del params
+    cfg = get_config("falcon-mamba-7b")
+    out["falcon"] = train_falcon_cut(cfg, to_card(cfg, falcon))
+    return out
 
 
 # deepseek-v3-671b (phase 24): its first 4 of 61 layers at full width,
@@ -4465,6 +4663,7 @@ def main() -> int:
     run_hymba_golden(cfg, params)
     serving = run_serving(cfg, params)
     reshard_hymba(cfg, params)
+    ssm_training = run_ssm_training(cfg, params)
     del params                   # Hymba's parameters leave the card
     torch.cuda.empty_cache()
     falcon = run_falcon(weights["falcon-mamba-7b"])
@@ -4480,6 +4679,15 @@ def main() -> int:
         for k in ("flash_attention", "selective_scan"):
             launches[k] += run["launches"][k]
     launches["flash_attention"] += training["launches"]
+    for run in (ssm_training, falcon["train"]):
+        for k, n in run["launches"].items():
+            launches[k] += n
+    # the scan's backward: its device time a launch in Hymba's profiled
+    # step at 2 x 4,096 (phase 28 (c)), else its back-to-back time there
+    records["selective_scan_bwd"] = dict(ssm_training["scan_bwd"])
+    records["selective_scan_bwd"].pop("falcon")
+    per_launch["selective_scan_bwd"] = ssm_training["timed"].get(
+        "scan_bwd_ms", records["selective_scan_bwd"]["ms"])
     per_launch.update(selective_scan=serving["per_launch"].get(
         "selective_scan", records["selective_scan"]["ms"]))
     per_launch["flash_attention"] = flash_paths(

@@ -26,6 +26,17 @@ It builds only this kernel (``_build.build_all(["selective_scan"])``, with
 It exits with 1 if any variant differs from the plain version in any
 bit.  ``chip_smoke.py`` phase 9 calls :func:`cases`, :func:`run_cases`
 and :func:`scan_bound_ms`, so the cases and the bound live here.
+
+With ``--backward`` it builds only the backward kernel
+(``selective_scan_bwd``) and instead holds it to
+``selective_scan_bwd_ref`` on the card at :data:`BWD_CASES` (Hymba's and
+falcon-mamba's training shapes, an odd shape with ``h0`` and ``dh_T``
+non-zero, and small ragged ones): all six gradients bit for bit (the
+kernel sums in the plain version's fixed orders, with no atomics), and
+two runs of the kernel with the same bits; then times it at each training shape beside the plain backward's
+time and :func:`scan_bwd_bound_ms`.  ``chip_smoke.py`` phase
+28 calls :func:`run_bwd_cases` and :func:`time_bwd`, so those live here
+too.
 """
 from __future__ import annotations
 
@@ -45,10 +56,11 @@ from .. import _build
 from ..flash_attention.bench import EX2_PER_S, HBM_BYTES_PER_S, cuda_ms
 from ..minplus.bench import FP32_OPS_PER_S, _sass
 from . import kernel
-from .ref import selective_scan_ref
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 __all__ = ["scan_bound_ms", "cases", "inputs", "run_cases", "sass_counts",
-           "time_variants", "variants", "main"]
+           "time_variants", "variants", "scan_bwd_bound_ms", "BWD_CASES",
+           "bwd_inputs", "run_bwd_cases", "main"]
 
 SERVE = (4, 4096, 3200)          # Hymba-1.5B's prefill: batch, tokens, Di
 # falcon-mamba-7b's prefill (Di 8,192) at one request and at the serving
@@ -75,6 +87,111 @@ def scan_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
             "ex2_ms": terms["MUFU ex2"], "bound_ms": terms[limit],
             "bound_by": "bytes" if limit == "bytes" else "operations",
             "limit": limit}
+
+
+# the backward's cases, (B, T, Di, h0 and dh_T non-zero): Hymba-1.5B's
+# and falcon-mamba-7b's training shapes (chip_smoke.py phase 28, 2 x
+# 4,096), an odd shape, then T % CHUNK_STEPS != 0 with short tails, one
+# sub-chunk, T = 1 and a block with one channel
+BWD_TRAIN = ((2, 4096, 3200), (2, 4096, 8192))
+BWD_CASES = [(*s, False) for s in BWD_TRAIN] + [
+    (1, 1000, 4100, True), (2, 65, 52, True), (3, 9, 17, True),
+    (1, 1, 6, True), (2, 130, 33, False)]
+
+
+def scan_bwd_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
+    """The least ms of one scan backward, the largest of three times: u,
+    dt, dy, A, B, C, h0, dh_T read once and du, ddt, dA, dB, dC, dh0
+    written once over the memory rate; 18 float32 operations per (b, t,
+    channel, state) at 67 TFLOP/s (4 to rebuild the state, 14 to walk
+    back: g, its products with B, a and h_{t-1}, dA's product and sum,
+    A q, the terms of dB and dC, and their shares of the four sums); and
+    two MUFU ``ex2`` per (b, t, channel, state) at 16 an SM a clock (one
+    to find the states at chunk starts, one to rebuild them).  Returns
+    :func:`scan_bound_ms`'s keys."""
+    elems = b * t * di * n
+    n_bytes = 4 * (5 * b * t * di + 2 * di * n + 4 * b * t * n
+                   + 3 * b * di * n)
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "float32": 18 * elems / FP32_OPS_PER_S * 1e3,
+             "MUFU ex2": 2 * elems / EX2_PER_S * 1e3}
+    limit = max(terms, key=terms.get)
+    return {"bytes_ms": terms["bytes"], "fp32_ms": terms["float32"],
+            "ex2_ms": terms["MUFU ex2"], "bound_ms": terms[limit],
+            "bound_by": "bytes" if limit == "bytes" else "operations",
+            "limit": limit}
+
+
+def bwd_inputs(gen: torch.Generator, b: int, t: int, di: int,
+               nonzero: bool):
+    """Seeded (u, dt, A, Bc, Cc, h0, dy, dh_T) on ``gen``'s device:
+    :func:`inputs`, then dy a standard normal and dh_T one too or None;
+    h0 non-zero with ``nonzero``."""
+    dev = gen.device
+    args = inputs(gen, b, t, di, not nonzero)
+    dy = torch.randn((b, t, di), generator=gen, device=dev)
+    dh_T = torch.randn((b, di, STATE), generator=gen, device=dev) \
+        if nonzero else None
+    return (*args, dy, dh_T)
+
+
+_BWD_NAMES = ("du", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def run_bwd_cases(gen: torch.Generator, case_list=None) -> list:
+    """Each case of ``case_list`` (default :data:`BWD_CASES`) through
+    ``kernel.selective_scan_bwd`` twice and ``selective_scan_bwd_ref``
+    once on ``gen``'s device.  Raises unless all six gradients equal the
+    plain version's bit for bit and the two kernel runs have the same
+    bits.  Returns ``[{"label", "max_abs_err", "plain_ms": the plain
+    backward's one call by CUDA events, "args": the inputs at the
+    training shapes of ``BWD_TRAIN``, else None}]``."""
+    out = []
+    for b, t, di, nonzero in BWD_CASES if case_list is None else case_list:
+        args = bwd_inputs(gen, b, t, di, nonzero)
+        label = f"[{b},{t},{di},{STATE}]" + (" h0, dh_T" if nonzero else "")
+        got = kernel.selective_scan_bwd(*args)
+        again = kernel.selective_scan_bwd(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = selective_scan_bwd_ref(*args)
+        end.record()
+        torch.cuda.synchronize()
+        worst = max((float((g - w).abs().max()) for g, w in zip(got, want)
+                     if w.numel()), default=0.0)
+        bad = [n for n, g, w in zip(_BWD_NAMES, got, want)
+               if not torch.equal(g.view(torch.int32), w.view(torch.int32))]
+        same = all(torch.equal(g.view(torch.int32), h.view(torch.int32))
+                   for g, h in zip(got, again))
+        print(f"selective_scan_bwd {label}: max abs error {worst}; not bit "
+              f"for bit {bad}; two runs the same bits: {same}", flush=True)
+        if bad or not same:
+            raise AssertionError(f"selective_scan_bwd differs from its "
+                                 f"plain version at {label}: {bad}, "
+                                 f"repeatable {same}")
+        out.append({"label": label, "max_abs_err": worst,
+                    "plain_ms": start.elapsed_time(end),
+                    "args": args if (b, t, di) in BWD_TRAIN else None})
+        del got, again, want
+    return out
+
+
+def time_bwd(rec: dict) -> dict:
+    """The kernel's ms a call on a case of :func:`run_bwd_cases` by CUDA
+    events, beside that case's plain ms and :func:`scan_bwd_bound_ms`."""
+    args = rec["args"]
+    b, t, di = args[0].shape
+    ms = cuda_ms(lambda: kernel.selective_scan_bwd(*args), iters=10,
+                 warmup=2)
+    bnd = scan_bwd_bound_ms(b, t, di)
+    print(f"selective_scan_bwd {rec['label']}: kernel {ms:.6f} ms a call, "
+          f"bound {bnd['bound_ms']:.6f} ms ({bnd['limit']}; bytes "
+          f"{bnd['bytes_ms']:.6f}, float32 {bnd['fp32_ms']:.6f}, MUFU ex2 "
+          f"{bnd['ex2_ms']:.6f}), {100 * bnd['bound_ms'] / ms:.2f}% of the "
+          f"bound; plain {rec['plain_ms']:.3f} ms; no PyTorch call "
+          "computes this scan", flush=True)
+    return dict(ms=ms, plain_ms=rec["plain_ms"], library_ms=None, **bnd)
 
 
 def cases() -> list:
@@ -235,6 +352,9 @@ def main(argv=None) -> int:
     ap.add_argument("--watchdog", type=float, default=600.0,
                     help="seconds after which the bench dumps its stack "
                          "and exits (a kernel that hangs)")
+    ap.add_argument("--backward", action="store_true",
+                    help="build, check and time the backward kernel "
+                         "instead")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("selective_scan bench: no CUDA device", file=sys.stderr)
@@ -245,6 +365,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     print(f"nvidia-smi: {smi.stdout.strip() or 'not available'}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
+    if opts.backward:
+        return _main_backward(opts)
     t0 = time.perf_counter()
     rec = _build.build_all(["selective_scan"])["selective_scan"]
     print(f"built {rec['path'].name} in {time.perf_counter() - t0:.2f} s")
@@ -271,6 +393,25 @@ def main(argv=None) -> int:
     print(json.dumps({"sass": counts, "bound": bound, "main_k": main_k,
                       "timed": timed,
                       "max_abs_err": max(r["max_abs_err"] for r in results)}))
+    return 0
+
+
+def _main_backward(opts) -> int:
+    """``--backward``: build, check and time ``selective_scan_bwd``."""
+    t0 = time.perf_counter()
+    rec = _build.build_all(["selective_scan_bwd"])["selective_scan_bwd"]
+    print(f"built {rec['path'].name} in {time.perf_counter() - t0:.2f} s")
+    print(rec["log"].strip())
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    try:
+        results = run_bwd_cases(gen)
+    except AssertionError as e:
+        print(f"FAILED: {e}")
+        return 1
+    timed = {r["label"]: time_bwd(r) for r in results if r["args"]}
+    faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({"timed": timed, "max_abs_err": {
+        r["label"]: r["max_abs_err"] for r in results}}))
     return 0
 
 

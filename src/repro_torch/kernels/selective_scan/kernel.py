@@ -1,11 +1,14 @@
-"""ctypes wrapper of the CUDA kernel in ``csrc/selective_scan.cu``.
+"""ctypes wrappers of the CUDA kernels in ``csrc/selective_scan.cu`` (the
+scan) and ``csrc/selective_scan_bwd.cu`` (its gradient).
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-outputs with ``torch.empty``, launches on the current CUDA stream of the
-inputs' device and raises if the launch was refused.  It does not
-synchronise.  It adds one to its launch count where it launches, and
-nowhere else.  The kernel plans its own grid (channels a block, by the
-occupancy API); :func:`plan` reads that plan.
+Each wrapper checks device, dtype, shape and contiguity, allocates the
+outputs (and the backward's scratch) with ``torch.empty``, launches on
+the current CUDA stream of the inputs' device and raises if the launch
+was refused.  It does not synchronise.  It adds one to its kernel's
+launch count where it launches, and nowhere else.  The forward kernel
+plans its own grid (channels a block, by the occupancy API); :func:`plan`
+reads that plan.  The backward's grid is fixed: ``BWD_CHANNELS``
+channels a block, one block per (batch row, channel run).
 """
 from __future__ import annotations
 
@@ -14,16 +17,17 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import check_shapes
+from .ref import BWD_CHANNELS, CHUNK_STEPS, check_shapes
 
-__all__ = ["selective_scan", "selective_scan_variant", "plan",
-           "launch_counts", "reset_launch_counts", "STATE", "CHUNK_STEPS",
-           "VARIANTS"]
+__all__ = ["selective_scan", "selective_scan_variant", "selective_scan_bwd",
+           "plan", "launch_counts", "reset_launch_counts", "STATE",
+           "CHUNK_STEPS", "VARIANTS", "BWD_CHANNELS"]
 
-_launches = {"selective_scan": 0}
+_launches = {"selective_scan": 0, "selective_scan_bwd": 0}
 
-STATE = 16             # the state size N the kernel is written for
-CHUNK_STEPS = 64       # steps a staged run holds (csrc kSteps)
+STATE = 16             # the state size N the kernels are written for
+# CHUNK_STEPS: steps a staged run of the forward holds (csrc kSteps), and
+# steps between the states the backward keeps (csrc kChunk)
 VARIANTS = (2, 4, 8)   # states a thread the kernel is built for
 _MAX_CHANNELS = 128    # channels a block at most (csrc kCols)
 
@@ -55,6 +59,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("selective_scan_bwd")
+    if lib.selective_scan_bwd_launch.argtypes is None:
+        lib.selective_scan_bwd_launch.argtypes = [_P] * 18 + [_I] * 3 + [_P]
+        lib.selective_scan_bwd_launch.restype = _I
+    return lib
+
+
 def _check_variant(k: int, channels: int) -> None:
     if k not in (0, *VARIANTS):
         raise ValueError(f"k={k}: the kernel is built for {VARIANTS} states "
@@ -79,27 +91,35 @@ def plan(k: int, b: int, di: int, channels: int = 0) -> dict:
     return dict(zip(_PLAN_KEYS, out))
 
 
+def _check(name: str, args) -> None:
+    """The checks of every launch: CUDA, one device, float32, contiguous,
+    the scan's shapes, N = 16.  ``args``: ``(name, tensor)`` pairs, the
+    scan's six inputs first."""
+    u = args[0][1]
+    if u.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got "
+                         f"{u.device}")
+    for label, t in args:
+        if t.device != u.device:
+            raise ValueError(f"{label} is on {t.device}, expected "
+                             f"{u.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{label} has dtype {t.dtype}, expected "
+                            "torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{label} is not contiguous")
+    check_shapes(*(t for _, t in args[:6]))
+    if args[2][1].shape[1] != STATE:
+        raise ValueError(f"state size {args[2][1].shape[1]}: the kernel "
+                         f"takes N = {STATE}")
+
+
 def _launch(u, dt, A, Bc, Cc, h0, variant=None):
     """Check, allocate and launch: the main path's entry point, or the
     variant entry point with ``variant = (k, channels)``."""
-    if u.device.type != "cuda":
-        raise ValueError(f"selective_scan kernel needs CUDA tensors, got "
-                         f"{u.device}")
-    args = (("u", u), ("dt", dt), ("A", A), ("Bc", Bc), ("Cc", Cc),
-            ("h0", h0))
-    for name, t in args:
-        if t.device != u.device:
-            raise ValueError(f"{name} is on {t.device}, expected {u.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected "
-                            "torch.float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-    check_shapes(u, dt, A, Bc, Cc, h0)
+    _check("selective_scan", (("u", u), ("dt", dt), ("A", A), ("Bc", Bc),
+                              ("Cc", Cc), ("h0", h0)))
     B, T, Di = u.shape
-    if A.shape[1] != STATE:
-        raise ValueError(f"state size {A.shape[1]}: the kernel takes "
-                         f"N = {STATE}")
     y = torch.empty((B, T, Di), dtype=torch.float32, device=u.device)
     h_t = torch.empty((B, Di, STATE), dtype=torch.float32, device=u.device)
     if B * Di == 0:
@@ -131,3 +151,52 @@ def selective_scan_variant(u, dt, A, Bc, Cc, h0, k: int, channels: int = 0):
     the variants the bench holds to the plain version and times."""
     _check_variant(k, channels)
     return _launch(u, dt, A, Bc, Cc, h0, (k, channels))
+
+
+def selective_scan_bwd(u, dt, A, Bc, Cc, h0, dy, dh_T=None):
+    """CUDA backward of :func:`selective_scan`: float32 inputs as there,
+    ``dy`` [B,T,Di] and ``dh_T`` [B,Di,16] (None: zeros) -> ``(du, ddt,
+    dA, dB, dC, dh0)``, float32, equal to ``ref.selective_scan_bwd_ref``
+    bit for bit.  Two launches on the current stream (the scan backward,
+    then the sums over channel blocks and batch rows), counted as one.
+    Scratch: the states every ``CHUNK_STEPS`` steps ``[B, ceil(T/64), Di,
+    16]``, the per-block terms of dB and dC (two ``[B, T, ceil(Di/32),
+    16]``) and dA's rows ``[B, Di, 16]``, float32."""
+    args = [("u", u), ("dt", dt), ("A", A), ("Bc", Bc), ("Cc", Cc),
+            ("h0", h0), ("dy", dy)]
+    if dh_T is not None:
+        args.append(("dh_T", dh_T))
+    _check("selective_scan_bwd", args)
+    if dy.shape != u.shape:
+        raise ValueError(f"dy has shape {tuple(dy.shape)}, expected "
+                         f"{tuple(u.shape)}")
+    if dh_T is not None and dh_T.shape != h0.shape:
+        raise ValueError(f"dh_T has shape {tuple(dh_T.shape)}, expected "
+                         f"{tuple(h0.shape)}")
+    B, T, Di = u.shape
+    dev = u.device
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
+    if B * Di == 0 or T == 0:
+        dh0 = torch.zeros_like(h0) if dh_T is None else dh_T.clone()
+        return du, ddt, torch.zeros_like(A), dB.zero_(), dC.zero_(), dh0
+    dA = torch.empty_like(A)
+    dh0 = torch.empty_like(h0)
+    nblk = -(-Di // BWD_CHANNELS)
+    ws = torch.empty((B, -(-T // CHUNK_STEPS), Di, STATE),
+                     dtype=torch.float32, device=dev)
+    pdb = torch.empty((B, T, nblk, STATE), dtype=torch.float32, device=dev)
+    pdc = torch.empty_like(pdb)
+    pda = torch.empty_like(h0)
+    lib = _lib_bwd()
+    ptrs = [t.data_ptr() for t in (u, dt, A, Bc, Cc, h0, dy)]
+    ptrs.append(None if dh_T is None else dh_T.data_ptr())
+    ptrs += [t.data_ptr() for t in (du, ddt, dA, dB, dC, dh0, ws, pdb, pdc,
+                                    pda)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.selective_scan_bwd_launch(*ptrs, B, T, Di, stream)
+    if err:
+        raise RuntimeError(f"selective_scan_bwd launch failed with CUDA "
+                           f"error {err}")
+    _launches["selective_scan_bwd"] += 1
+    return du, ddt, dA, dB, dC, dh0

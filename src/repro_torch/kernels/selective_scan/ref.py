@@ -12,12 +12,22 @@ until one value is left: the order of the kernel's warp shuffles.  So
 the kernel can match this version bit for bit.  The reference's Pallas
 kernel (``repro/kernels/selective_scan/kernel.py``) computes the same
 recurrence with a sequential sum over the state.
+
+``selective_scan_bwd_ref`` is the plain version of the backward kernel
+in ``csrc/selective_scan_bwd.cu``, in its order: the states rebuilt from
+the ones at chunk starts, the walk back one step at a time, and the sums
+over channels and batch rows in the kernel's fixed order.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["check_shapes", "selective_scan_ref", "state_sum"]
+__all__ = ["check_shapes", "selective_scan_ref", "selective_scan_bwd_ref",
+           "state_sum", "chunk_starts", "rebuild_states", "CHUNK_STEPS",
+           "BWD_CHANNELS"]
+
+CHUNK_STEPS = 64       # steps between the states the backward keeps
+BWD_CHANNELS = 32      # channels a block of the backward kernel
 
 
 def check_shapes(u, dt, A, Bc, Cc, h0) -> None:
@@ -61,3 +71,111 @@ def selective_scan_ref(u, dt, A, Bc, Cc, h0):
         h = da * h + dbu * Bc[:, t, None, :]
         y[:, t] = state_sum(h * Cc[:, t, None, :])
     return y, h
+
+
+def _chunk_sum(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Sum over axis -2 of ``x`` [..., C, N] as the backward kernel sums
+    over channels: left to right within each block of ``width`` channels
+    (zeros past C), then the blocks' sums left to right."""
+    c = x.shape[-2]
+    blocks = -(-c // width)
+    x = torch.nn.functional.pad(x, (0, 0, 0, blocks * width - c))
+    x = x.reshape(*x.shape[:-2], blocks, width, x.shape[-1])
+    part = x[..., 0, :]
+    for i in range(1, width):
+        part = part + x[..., i, :]
+    out = part[..., 0, :]
+    for k in range(1, blocks):
+        out = out + part[..., k, :]
+    return out
+
+
+def _step(u, dt, A, Bc, h, t):
+    """(a_t, h_t) from h_{t-1}: the forward's operations."""
+    da = torch.exp(dt[:, t, :, None] * A)
+    return da, da * h + (dt[:, t] * u[:, t])[..., None] * Bc[:, t, None, :]
+
+
+def chunk_starts(u, dt, A, Bc, h0) -> list:
+    """The state before every ``CHUNK_STEPS``-th step (``h0`` first), as
+    the backward kernel's first pass keeps them."""
+    h, out = h0.float(), []
+    for t in range(u.shape[1]):
+        if t % CHUNK_STEPS == 0:
+            out.append(h)
+        h = _step(u, dt, A, Bc, h, t)[1]
+    return out
+
+
+def rebuild_states(u, dt, A, Bc, h, t0: int, t1: int) -> tuple:
+    """(``[h_{t0-1}, ..., h_{t1-1}]``, ``[a_{t0}, ..., a_{t1-1}]``): the
+    states and decay factors of steps ``t0 .. t1-1`` rebuilt from the
+    state ``h`` before step ``t0``, bit for bit the forward's."""
+    hs, das = [h], []
+    for t in range(t0, t1):
+        da, h = _step(u, dt, A, Bc, h, t)
+        hs.append(h)
+        das.append(da)
+    return hs, das
+
+
+def selective_scan_bwd_ref(u, dt, A, Bc, Cc, h0, dy, dh_T=None):
+    """The gradient of :func:`selective_scan_ref`'s ``(y, h_T)`` for the
+    cotangents ``dy`` [B,T,Di] and ``dh_T`` [B,Di,N] (None: zeros).
+
+    Returns ``(du, ddt, dA, dB, dC, dh0)``, float32, shaped as the
+    inputs.  With ``g_t = dL/dh_t`` (``g_t = dy_t C_t + a_{t+1} g_{t+1}``,
+    ``a_t = exp(dt_t A)``, ``g_T`` taking ``dh_T``) and
+    ``q_t = (a_t g_t) h_{t-1}``, each step back computes, one float32
+    rounding an operation::
+
+        s = state_sum(g B)        du  = dt s      ddt = u s + state_sum(A q)
+        dA += dt q (over t from the last step, then over batch rows)
+        dB += g (dt u),  dC += dy h_t  (over channels, ``_chunk_sum``)
+
+    and ``dh0 = a_1 g_1``.  The states ``h_{t-1}`` are rebuilt from the
+    ones at every ``CHUNK_STEPS``-th step by the forward's own operations,
+    so they are the forward's bit for bit.
+    """
+    check_shapes(u, dt, A, Bc, Cc, h0)
+    if dy.shape != u.shape:
+        raise ValueError(f"dy has shape {tuple(dy.shape)}, expected "
+                         f"{tuple(u.shape)}")
+    if dh_T is not None and dh_T.shape != h0.shape:
+        raise ValueError(f"dh_T has shape {tuple(dh_T.shape)}, expected "
+                         f"{tuple(h0.shape)}")
+    u, dt, A, Bc, Cc, dy = (t.float() for t in (u, dt, A, Bc, Cc, dy))
+    T = u.shape[1]
+    carry = torch.zeros_like(h0, dtype=torch.float32) if dh_T is None \
+        else dh_T.float()
+    starts = chunk_starts(u, dt, A, Bc, h0)
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB_terms = torch.empty(u.shape + (A.shape[-1],), dtype=torch.float32,
+                           device=u.device) if T else None
+    dC_terms = torch.empty_like(dB_terms) if T else None
+    acc = torch.zeros_like(carry)     # dA of each batch row
+    for k in reversed(range(len(starts))):
+        t0 = k * CHUNK_STEPS
+        hs, das = rebuild_states(u, dt, A, Bc, starts[k], t0,
+                                 min(t0 + CHUNK_STEPS, T))
+        for i in reversed(range(len(das))):
+            t = t0 + i
+            dt_t, u_t, dy_t = dt[:, t, :, None], u[:, t], dy[:, t, :, None]
+            g = dy_t * Cc[:, t, None, :] + carry
+            s = state_sum(g * Bc[:, t, None, :])
+            carry = das[i] * g
+            q = carry * hs[i]
+            acc = acc + dt_t * q
+            du[:, t] = dt[:, t] * s
+            ddt[:, t] = u_t * s + state_sum(A * q)
+            dB_terms[:, t] = g * (dt[:, t] * u_t)[..., None]
+            dC_terms[:, t] = dy_t * hs[i + 1]
+    dA = acc[0]
+    for b in range(1, acc.shape[0]):
+        dA = dA + acc[b]
+    if T:
+        dB = _chunk_sum(dB_terms, BWD_CHANNELS)
+        dC = _chunk_sum(dC_terms, BWD_CHANNELS)
+    else:
+        dB, dC = torch.zeros_like(Bc), torch.zeros_like(Cc)
+    return du, ddt, dA, dB, dC, carry

@@ -51,7 +51,7 @@ def test_flags_defines_and_compiler_rename_the_target(tmp_path,
 def test_flash_attention_header_is_part_of_its_build():
     srcs = _build.sources()
     assert sorted(srcs) == ["flash_attention", "minplus", "selective_scan",
-                            "switch_arb"]
+                            "selective_scan_bwd", "switch_arb"]
     csrc = srcs["flash_attention"].parent
     assert (csrc / "sm90.cuh").is_file()
     assert b'#include "sm90.cuh"' in srcs["flash_attention"].read_bytes()

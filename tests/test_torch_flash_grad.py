@@ -23,10 +23,10 @@ share of the largest value: at most 2^-7.1 against the plain version's
 autograd, 2^-6.7 against the reference's gradient, and 2^-8.0 against
 float64 autograd of the plain version.
 
-Two ``gpu``-marked tests skip without a card: the card's gradients (the
+A ``gpu``-marked test skips without a card: the card's gradients (the
 CUDA forward kernel, the same backward) against autograd through the
-plain version on the card, and ``selective_scan`` refusing a gradient on
-the card.  This file imports JAX only inside the tests that use it, so
+plain version on the card (the scan's gradient on the card is
+``tests/test_torch_scan_grad.py``'s).  This file imports JAX only inside the tests that use it, so
 that the card's tests run where JAX is not installed (``python -m pytest
 --noconftest -m gpu tests/test_torch_flash_grad.py``).
 """
@@ -197,24 +197,3 @@ def test_card_gradient_is_autograd_of_the_plain_version():
         for g, w, label in zip(got, want, "qkv"):
             _close(g.cpu(), w.cpu(), f"{name} d{label}")
 
-
-
-@pytest.mark.gpu
-def test_card_scan_refuses_a_gradient():
-    """The scan kernel has no backward: on the card a call under autograd
-    raises (ROADMAP queue 1 item 17), and one without runs the kernel."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device")
-    from repro_torch.kernels.selective_scan import selective_scan_op
-    from repro_torch.kernels.selective_scan.ops import NO_CARD_BACKWARD
-    args = [torch.zeros(shape, device="cuda") for shape in
-            ((1, 8, 64), (1, 8, 64), (64, 16), (1, 8, 16), (1, 8, 16),
-             (1, 64, 16))]
-    y, _ = selective_scan_op(*args)
-    assert y.shape == (1, 8, 64)
-    args[0].requires_grad_()
-    with pytest.raises(RuntimeError) as e:
-        selective_scan_op(*args)
-    assert str(e.value) == NO_CARD_BACKWARD
-    with torch.no_grad():
-        selective_scan_op(*args)
