@@ -28,15 +28,20 @@ bit.  ``chip_smoke.py`` phase 9 calls :func:`cases`, :func:`run_cases`
 and :func:`scan_bound_ms`, so the cases and the bound live here.
 
 With ``--backward`` it builds only the backward kernel
-(``selective_scan_bwd``) and instead holds it to
-``selective_scan_bwd_ref`` on the card at :data:`BWD_CASES` (Hymba's and
-falcon-mamba's training shapes, an odd shape with ``h0`` and ``dh_T``
-non-zero, and small ragged ones): all six gradients bit for bit (the
-kernel sums in the plain version's fixed orders, with no atomics), and
-two runs of the kernel with the same bits; then times it at each training shape beside the plain backward's
-time and :func:`scan_bwd_bound_ms`.  ``chip_smoke.py`` phase
-28 calls :func:`run_bwd_cases` and :func:`time_bwd`, so those live here
-too.
+(``selective_scan_bwd``, with ``-Xptxas -v``'s registers) and instead
+counts the same opcodes and ``BAR`` in its two kernels (and the
+``MUFU.EX2`` a state-step), prints its launch plan at both training
+shapes (:func:`bwd_plans`: channels, warps and shared bytes a block,
+registers, resident blocks an SM, grid, waves, the busiest SM's warps
+beside the mean), holds it to ``selective_scan_bwd_ref`` on the card at
+:data:`BWD_CASES` (Hymba's and falcon-mamba's training shapes, an odd
+shape with ``h0`` and ``dh_T`` non-zero, small ragged ones, and shapes
+one channel past a multiple of the block width): all six gradients bit
+for bit (the kernel sums in the plain version's fixed orders, with no
+atomics), and two runs of the kernel with the same bits; then times it
+at each training shape beside the plain backward's time and
+:func:`scan_bwd_bound_ms`.  ``chip_smoke.py`` phase 28 calls
+:func:`run_bwd_cases` and :func:`time_bwd`, so those live here too.
 """
 from __future__ import annotations
 
@@ -56,11 +61,11 @@ from .. import _build
 from ..flash_attention.bench import EX2_PER_S, HBM_BYTES_PER_S, cuda_ms
 from ..minplus.bench import FP32_OPS_PER_S, _sass
 from . import kernel
-from .ref import selective_scan_bwd_ref, selective_scan_ref
+from .ref import SUB_STEPS, selective_scan_bwd_ref, selective_scan_ref
 
 __all__ = ["scan_bound_ms", "cases", "inputs", "run_cases", "sass_counts",
            "time_variants", "variants", "scan_bwd_bound_ms", "BWD_CASES",
-           "bwd_inputs", "run_bwd_cases", "main"]
+           "bwd_inputs", "bwd_plans", "run_bwd_cases", "main"]
 
 SERVE = (4, 4096, 3200)          # Hymba-1.5B's prefill: batch, tokens, Di
 # falcon-mamba-7b's prefill (Di 8,192) at one request and at the serving
@@ -92,11 +97,12 @@ def scan_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
 # the backward's cases, (B, T, Di, h0 and dh_T non-zero): Hymba-1.5B's
 # and falcon-mamba-7b's training shapes (chip_smoke.py phase 28, 2 x
 # 4,096), an odd shape, then T % CHUNK_STEPS != 0 with short tails, one
-# sub-chunk, T = 1 and a block with one channel
+# sub-chunk, T = 1, Di below one block, and Di one past a multiple of the
+# block width with Di % 4 != 0
 BWD_TRAIN = ((2, 4096, 3200), (2, 4096, 8192))
 BWD_CASES = [(*s, False) for s in BWD_TRAIN] + [
     (1, 1000, 4100, True), (2, 65, 52, True), (3, 9, 17, True),
-    (1, 1, 6, True), (2, 130, 33, False)]
+    (1, 1, 6, True), (2, 130, 33, False), (2, 130, 2113, True)]
 
 
 def scan_bwd_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
@@ -136,6 +142,27 @@ def bwd_inputs(gen: torch.Generator, b: int, t: int, di: int,
 
 
 _BWD_NAMES = ("du", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def bwd_plans() -> dict:
+    """The backward's launch plan at each training shape of
+    :data:`BWD_TRAIN` (``kernel.bwd_plan``) with its warps a block, its
+    waves and the warps its busiest SM holds over the launch beside the
+    mean over the SMs; printed and returned by label."""
+    out = {}
+    for b, t, di in BWD_TRAIN:
+        p = kernel.bwd_plan(b, di)
+        warps = p["threads"] // 32
+        slots = p["sms"] * p["blocks_per_sm"]
+        busiest = (-(-p["grid"] // p["sms"]) if p["grid"] <= slots else
+                   -(-p["grid"] // slots) * p["blocks_per_sm"]) * warps
+        rec = dict(p, warps=warps, waves=p["grid"] / slots,
+                   busiest_sm_warps=busiest,
+                   mean_sm_warps=p["grid"] * warps / p["sms"])
+        label = f"[{b},{t},{di},{STATE}]"
+        print(f"selective_scan_bwd plan {label}: {rec}", flush=True)
+        out[label] = rec
+    return out
 
 
 def run_bwd_cases(gen: torch.Generator, case_list=None) -> list:
@@ -280,34 +307,49 @@ def run_cases(gen: torch.Generator, variant_list=(None,),
 # its modifiers
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
-_COUNTED = ("MUFU.EX2", "SHFL", "LDG", "LDGSTS", "LDS", "STS", "STG")
+_COUNTED = ("MUFU.EX2", "SHFL", "LDG", "LDGSTS", "UBLKCP", "UTMALDG",
+            "LDS", "STS", "STG", "BAR")
+_KERNEL = re.compile(r"(selective_scan_(?:bwd_(?:sum_)?)?kernel)"
+                     r"(?:ILi(\d+)E)?")
+_BWD_K = 4             # states a lane of the backward kernel (csrc kK)
 
 
 def sass_counts(path) -> Optional[dict]:
-    """``{"selective_scan_kernel<K>": {"MUFU.EX2": n, "SHFL": n, "LDG": n,
-    "LDGSTS": n, "LDS": n, "STS": n, "STG": n, "total": n,
-    "shfl_per_channel_step": x}}`` over the library at ``path``
-    (``cuobjdump -sass``; static counts, each opcode by its name before
-    the first dot, ``MUFU.EX2`` whole); None without ``cuobjdump``."""
+    """``{label: {"MUFU.EX2": n, "SHFL": n, "LDG": n, "LDGSTS": n,
+    "UBLKCP": n, "UTMALDG": n, "LDS": n, "STS": n, "STG": n, "BAR": n,
+    "total": n, ...}}`` over the library at ``path`` (``cuobjdump
+    -sass``; static counts, each opcode by its name before the first
+    dot, ``MUFU.EX2`` whole), for each ``selective_scan_kernel<K>`` (with
+    ``shfl_per_channel_step``: each step of a thread takes K
+    ``MUFU.EX2``, so a channel's 16 states take 16 × SHFL / MUFU.EX2),
+    the backward's ``selective_scan_bwd_kernel`` (with
+    ``ex2_per_state_step``: each of its two walks is one unrolled
+    sub-chunk of ``SUB_STEPS`` steps of 4 states, so MUFU.EX2 / (8 × 4))
+    and ``selective_scan_bwd_sum_kernel``; None without ``cuobjdump``."""
     sass = _sass(path)
     if sass is None:
         return None
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         head = func.split("\n", 1)[0]
-        if "selective_scan_kernel" not in head:
+        m = _KERNEL.search(head)
+        if m is None:
             continue
-        k = re.search(r"selective_scan_kernelILi(\d+)E", head)
-        label = f"selective_scan_kernel<{k.group(1) if k else '?'}>"
+        name = m.group(1)
+        label = f"{name}<{m.group(2)}>" if m.group(2) else name
         ops = _INSN.findall(func)
         base = collections.Counter(op.split(".")[0] for op in ops)
-        rec = {name: (sum(op.startswith("MUFU.EX2") for op in ops)
-                      if name == "MUFU.EX2" else base.get(name, 0))
-               for name in _COUNTED}
+        rec = {op: (sum(o.startswith("MUFU.EX2") for o in ops)
+                    if op == "MUFU.EX2" else base.get(op, 0))
+               for op in _COUNTED}
         rec["total"] = len(ops)
-        rec["shfl_per_channel_step"] = (
-            STATE * rec["SHFL"] / rec["MUFU.EX2"] if rec["MUFU.EX2"]
-            else None)
+        if name == "selective_scan_kernel":
+            rec["shfl_per_channel_step"] = (
+                STATE * rec["SHFL"] / rec["MUFU.EX2"] if rec["MUFU.EX2"]
+                else None)
+        elif name == "selective_scan_bwd_kernel":
+            rec["ex2_per_state_step"] = rec["MUFU.EX2"] / (SUB_STEPS
+                                                           * _BWD_K)
         out[label] = rec
     return out
 
@@ -402,6 +444,9 @@ def _main_backward(opts) -> int:
     rec = _build.build_all(["selective_scan_bwd"])["selective_scan_bwd"]
     print(f"built {rec['path'].name} in {time.perf_counter() - t0:.2f} s")
     print(rec["log"].strip())
+    counts = sass_counts(rec["path"])
+    print(f"SASS: {json.dumps(counts)}", flush=True)
+    plans = bwd_plans()
     gen = torch.Generator(device="cuda").manual_seed(28)
     try:
         results = run_bwd_cases(gen)
@@ -410,8 +455,9 @@ def _main_backward(opts) -> int:
         return 1
     timed = {r["label"]: time_bwd(r) for r in results if r["args"]}
     faulthandler.cancel_dump_traceback_later()
-    print(json.dumps({"timed": timed, "max_abs_err": {
-        r["label"]: r["max_abs_err"] for r in results}}))
+    print(json.dumps({"sass": counts, "plans": plans, "timed": timed,
+                      "max_abs_err": {r["label"]: r["max_abs_err"]
+                                      for r in results}}))
     return 0
 
 

@@ -8,7 +8,8 @@ was refused.  It does not synchronise.  It adds one to its kernel's
 launch count where it launches, and nowhere else.  The forward kernel
 plans its own grid (channels a block, by the occupancy API); :func:`plan`
 reads that plan.  The backward's grid is fixed: ``BWD_CHANNELS``
-channels a block, one block per (batch row, channel run).
+channels a block, one block per (batch row, channel run);
+:func:`bwd_plan` reads its launch plan.
 """
 from __future__ import annotations
 
@@ -17,23 +18,25 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import BWD_CHANNELS, CHUNK_STEPS, check_shapes
+from .ref import BWD_CHANNELS, CHUNK_STEPS, SUB_STEPS, check_shapes
 
 __all__ = ["selective_scan", "selective_scan_variant", "selective_scan_bwd",
-           "plan", "launch_counts", "reset_launch_counts", "STATE",
-           "CHUNK_STEPS", "VARIANTS", "BWD_CHANNELS"]
+           "plan", "bwd_plan", "launch_counts", "reset_launch_counts",
+           "STATE", "CHUNK_STEPS", "VARIANTS", "BWD_CHANNELS"]
 
 _launches = {"selective_scan": 0, "selective_scan_bwd": 0}
 
 STATE = 16             # the state size N the kernels are written for
-# CHUNK_STEPS: steps a staged run of the forward holds (csrc kSteps), and
-# steps between the states the backward keeps (csrc kChunk)
+# CHUNK_STEPS: steps a staged run of either kernel holds (csrc kSteps,
+# kRun); SUB_STEPS: steps between the states the backward keeps (kSub)
 VARIANTS = (2, 4, 8)   # states a thread the kernel is built for
 _MAX_CHANNELS = 128    # channels a block at most (csrc kCols)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PLAN_KEYS = ("k", "channels", "threads", "smem_bytes", "blocks_per_sm",
               "grid", "sms", "steps_per_run")
+_BWD_PLAN_KEYS = ("channels", "threads", "smem_bytes", "blocks_per_sm",
+                  "grid", "sms", "registers", "local_bytes")
 
 
 def launch_counts() -> dict:
@@ -64,6 +67,9 @@ def _lib_bwd() -> ctypes.CDLL:
     if lib.selective_scan_bwd_launch.argtypes is None:
         lib.selective_scan_bwd_launch.argtypes = [_P] * 18 + [_I] * 3 + [_P]
         lib.selective_scan_bwd_launch.restype = _I
+        lib.selective_scan_bwd_plan.argtypes = [_I] * 2 + [
+            ctypes.POINTER(_I)]
+        lib.selective_scan_bwd_plan.restype = _I
     return lib
 
 
@@ -89,6 +95,19 @@ def plan(k: int, b: int, di: int, channels: int = 0) -> dict:
         raise RuntimeError(f"selective_scan plan failed with CUDA error "
                            f"{err}")
     return dict(zip(_PLAN_KEYS, out))
+
+
+def bwd_plan(b: int, di: int) -> dict:
+    """The backward's launch plan for ``b`` batch rows of ``di`` channels
+    on the current device: ``channels``, ``threads``, ``smem_bytes``,
+    ``blocks_per_sm`` (occupancy API), ``grid``, ``sms``, ``registers``
+    and ``local_bytes`` (a thread's, from the built kernel)."""
+    out = (ctypes.c_int * len(_BWD_PLAN_KEYS))()
+    err = _lib_bwd().selective_scan_bwd_plan(b, di, out)
+    if err:
+        raise RuntimeError(f"selective_scan_bwd plan failed with CUDA error "
+                           f"{err}")
+    return dict(zip(_BWD_PLAN_KEYS, out))
 
 
 def _check(name: str, args) -> None:
@@ -159,9 +178,13 @@ def selective_scan_bwd(u, dt, A, Bc, Cc, h0, dy, dh_T=None):
     dA, dB, dC, dh0)``, float32, equal to ``ref.selective_scan_bwd_ref``
     bit for bit.  Two launches on the current stream (the scan backward,
     then the sums over channel blocks and batch rows), counted as one.
-    Scratch: the states every ``CHUNK_STEPS`` steps ``[B, ceil(T/64), Di,
-    16]``, the per-block terms of dB and dC (two ``[B, T, ceil(Di/32),
-    16]``) and dA's rows ``[B, Di, 16]``, float32."""
+    Scratch: the states every ``SUB_STEPS`` steps ``[B, ceil(T/8), Di,
+    16]`` (210 MB at Hymba's training shape ``[2, 4096, 3200]``), the
+    per-block sums of dB and dC (two ``[B, T, ceil(Di/64), 16]``) and
+    dA's rows ``[B, Di, 16]``, float32.  Bound: two MUFU ``ex2`` a (b, t,
+    channel, state), 0.2006 ms at Hymba's shape
+    (``bench.scan_bwd_bound_ms``); the design is in the header of
+    ``csrc/selective_scan_bwd.cu``."""
     args = [("u", u), ("dt", dt), ("A", A), ("Bc", Bc), ("Cc", Cc),
             ("h0", h0), ("dy", dy)]
     if dh_T is not None:
@@ -183,7 +206,7 @@ def selective_scan_bwd(u, dt, A, Bc, Cc, h0, dy, dh_T=None):
     dA = torch.empty_like(A)
     dh0 = torch.empty_like(h0)
     nblk = -(-Di // BWD_CHANNELS)
-    ws = torch.empty((B, -(-T // CHUNK_STEPS), Di, STATE),
+    ws = torch.empty((B, -(-T // SUB_STEPS), Di, STATE),
                      dtype=torch.float32, device=dev)
     pdb = torch.empty((B, T, nblk, STATE), dtype=torch.float32, device=dev)
     pdc = torch.empty_like(pdb)

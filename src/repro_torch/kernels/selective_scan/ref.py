@@ -15,8 +15,9 @@ recurrence with a sequential sum over the state.
 
 ``selective_scan_bwd_ref`` is the plain version of the backward kernel
 in ``csrc/selective_scan_bwd.cu``, in its order: the states rebuilt from
-the ones at chunk starts, the walk back one step at a time, and the sums
-over channels and batch rows in the kernel's fixed order.
+the ones at sub-chunk starts, the walk back one step at a time, and the
+sums over channels and batch rows in the kernel's fixed order, which
+depends on its block width ``BWD_CHANNELS``.
 """
 from __future__ import annotations
 
@@ -24,10 +25,12 @@ import torch
 
 __all__ = ["check_shapes", "selective_scan_ref", "selective_scan_bwd_ref",
            "state_sum", "chunk_starts", "rebuild_states", "CHUNK_STEPS",
-           "BWD_CHANNELS"]
+           "SUB_STEPS", "BWD_CHANNELS", "WARP_CHANNELS"]
 
-CHUNK_STEPS = 64       # steps between the states the backward keeps
-BWD_CHANNELS = 32      # channels a block of the backward kernel
+CHUNK_STEPS = 64       # steps a staged run of either kernel holds
+SUB_STEPS = 8          # steps between the states the backward keeps
+BWD_CHANNELS = 64      # channels a block of the backward kernel
+WARP_CHANNELS = 8      # channels a warp of it (4 states a lane)
 
 
 def check_shapes(u, dt, A, Bc, Cc, h0) -> None:
@@ -75,15 +78,21 @@ def selective_scan_ref(u, dt, A, Bc, Cc, h0):
 
 def _chunk_sum(x: torch.Tensor, width: int) -> torch.Tensor:
     """Sum over axis -2 of ``x`` [..., C, N] as the backward kernel sums
-    over channels: left to right within each block of ``width`` channels
-    (zeros past C), then the blocks' sums left to right."""
-    c = x.shape[-2]
+    over channels (zeros past C): each warp's 8 channels as a balanced
+    tree, ``((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7))``, then the
+    warps of each block of ``width`` channels left to right, then the
+    blocks left to right."""
+    c, n = x.shape[-2:]
     blocks = -(-c // width)
     x = torch.nn.functional.pad(x, (0, 0, 0, blocks * width - c))
-    x = x.reshape(*x.shape[:-2], blocks, width, x.shape[-1])
+    x = x.reshape(*x.shape[:-2], blocks, width // WARP_CHANNELS,
+                  WARP_CHANNELS, n)
+    while x.shape[-2] > 1:
+        x = x[..., 0::2, :] + x[..., 1::2, :]
+    x = x[..., 0, :]                              # [..., blocks, warps, N]
     part = x[..., 0, :]
-    for i in range(1, width):
-        part = part + x[..., i, :]
+    for w in range(1, x.shape[-2]):
+        part = part + x[..., w, :]
     out = part[..., 0, :]
     for k in range(1, blocks):
         out = out + part[..., k, :]
@@ -97,11 +106,11 @@ def _step(u, dt, A, Bc, h, t):
 
 
 def chunk_starts(u, dt, A, Bc, h0) -> list:
-    """The state before every ``CHUNK_STEPS``-th step (``h0`` first), as
+    """The state before every ``SUB_STEPS``-th step (``h0`` first), as
     the backward kernel's first pass keeps them."""
     h, out = h0.float(), []
     for t in range(u.shape[1]):
-        if t % CHUNK_STEPS == 0:
+        if t % SUB_STEPS == 0:
             out.append(h)
         h = _step(u, dt, A, Bc, h, t)[1]
     return out
@@ -134,7 +143,7 @@ def selective_scan_bwd_ref(u, dt, A, Bc, Cc, h0, dy, dh_T=None):
         dB += g (dt u),  dC += dy h_t  (over channels, ``_chunk_sum``)
 
     and ``dh0 = a_1 g_1``.  The states ``h_{t-1}`` are rebuilt from the
-    ones at every ``CHUNK_STEPS``-th step by the forward's own operations,
+    ones at every ``SUB_STEPS``-th step by the forward's own operations,
     so they are the forward's bit for bit.
     """
     check_shapes(u, dt, A, Bc, Cc, h0)
@@ -155,9 +164,9 @@ def selective_scan_bwd_ref(u, dt, A, Bc, Cc, h0, dy, dh_T=None):
     dC_terms = torch.empty_like(dB_terms) if T else None
     acc = torch.zeros_like(carry)     # dA of each batch row
     for k in reversed(range(len(starts))):
-        t0 = k * CHUNK_STEPS
+        t0 = k * SUB_STEPS
         hs, das = rebuild_states(u, dt, A, Bc, starts[k], t0,
-                                 min(t0 + CHUNK_STEPS, T))
+                                 min(t0 + SUB_STEPS, T))
         for i in reversed(range(len(das))):
             t = t0 + i
             dt_t, u_t, dy_t = dt[:, t, :, None], u[:, t], dy[:, t, :, None]

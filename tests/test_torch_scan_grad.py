@@ -15,9 +15,10 @@ Tolerance: ``TOL`` = 1e-5 of each gradient's largest magnitude (the
 forward's test holds the scan to 1e-5): all float32, the same formula,
 with sums over time, channels and states in other orders.
 
-Also: the states rebuilt from the chunk starts are the forward's bit for
-bit; the reference's ``ssm_prefill`` gradients (every parameter and the
-input, through ``jax.grad``) against the port's at the ``reduced``
+Also: the states rebuilt from the sub-chunk starts are the forward's
+bit for bit; the plain backward's sums in the kernel's written-out
+orders; the reference's ``ssm_prefill`` gradients (every parameter and
+the input, through ``jax.grad``) against the port's at the ``reduced``
 Hymba config, to ``GRAD_RTOL`` = 2^-5 in relative L2 norm
 (``tests/test_torch_train.py``'s tolerance: bf16 projections that round
 an ulp apart); ``SelectiveScanFn``'s handling of absent cotangents,
@@ -40,7 +41,9 @@ from repro_torch.kernels.selective_scan import (bench, kernel,
                                                 selective_scan_op,
                                                 selective_scan_ref)
 from repro_torch.kernels.selective_scan.ops import SelectiveScanFn
-from repro_torch.kernels.selective_scan.ref import (CHUNK_STEPS,
+from repro_torch.kernels.selective_scan.ref import (BWD_CHANNELS,
+                                                    CHUNK_STEPS, SUB_STEPS,
+                                                    WARP_CHANNELS,
                                                     chunk_starts,
                                                     rebuild_states,
                                                     selective_scan_bwd_ref)
@@ -131,34 +134,44 @@ def test_plain_backward_matches_autograd_of_the_forward(case):
 
 
 def test_rebuilt_states_replay_the_forward_bitwise():
-    """Every state rebuilt from the chunk starts equals the forward's
-    ``h_T`` of that prefix bit for bit, and so does every chunk start."""
+    """Every state rebuilt from the sub-chunk starts (the state before
+    every ``SUB_STEPS``-th step) equals the forward's ``h_T`` of that
+    prefix bit for bit, and so does every sub-chunk start."""
     B, T, Di, N = 2, 2 * CHUNK_STEPS + 5, 5, 16
     u, dt, A, Bc, Cc, h0 = _torch(_inputs(3, B, T, Di, N))[:6]
     states = [h0] + [selective_scan_ref(u[:, :t], dt[:, :t], A, Bc[:, :t],
                                         Cc[:, :t], h0)[1]
                      for t in range(1, T + 1)]
     starts = chunk_starts(u, dt, A, Bc, h0)
-    assert len(starts) == -(-T // CHUNK_STEPS)
+    assert len(starts) == -(-T // SUB_STEPS)
     for k, h in enumerate(starts):
-        t0 = k * CHUNK_STEPS
+        t0 = k * SUB_STEPS
         assert torch.equal(h.view(torch.int32),
                            states[t0].view(torch.int32)), k
         hs, das = rebuild_states(u, dt, A, Bc, h, t0,
-                                 min(t0 + CHUNK_STEPS, T))
+                                 min(t0 + SUB_STEPS, T))
         assert len(hs) == len(das) + 1
         for i, s in enumerate(hs):
             assert torch.equal(s.view(torch.int32),
                                states[t0 + i].view(torch.int32)), (k, i)
 
 
-def test_plain_backward_sums_in_the_kernels_order():
-    """dB and dC sum each 32-channel block left to right, then the blocks
-    left to right; dA sums over time from the last step, then over batch
-    rows: the same bits as those orders written out, and not the bits of
-    a plain left-to-right sum over all channels (the inputs tell the
-    orders apart)."""
-    B, T, Di, N = 2, 3, 70, 16
+# (B, T, Di): a whole block and part of one, and Di one past a multiple
+# of the block width with T % CHUNK_STEPS != 0
+ORDER_CASES = {"two-blocks": (2, 3, 70),
+               "width-boundary": (2, CHUNK_STEPS + 3, 33 * BWD_CHANNELS + 1)}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+def test_plain_backward_sums_in_the_kernels_order(case):
+    """dB and dC sum each warp's 8 channels as a balanced tree, then the
+    warps of each ``BWD_CHANNELS``-wide block left to right, then the
+    blocks left to right (zeros past Di); dA sums over time from the
+    last step, then over batch rows: the same bits as those orders
+    written out, and not the bits of a plain left-to-right sum over all
+    channels (the inputs tell the orders apart)."""
+    B, T, Di = ORDER_CASES[case]
+    N = 16
     *args, dy, _ = _torch(_inputs(5, B, T, Di, N))
     u, dt, A, Bc, Cc, h0 = args
     _, _, dA, dB, dC, _ = selective_scan_bwd_ref(*args, dy)
@@ -174,11 +187,18 @@ def test_plain_backward_sums_in_the_kernels_order():
         terms_c[t] = dy[:, t, :, None] * hs[t + 1]
     for terms, got in ((terms_b, dB), (terms_c, dC)):
         x = torch.stack(terms, 1)                     # [B, T, Di, N]
+        zero = torch.zeros_like(x[:, :, 0])
         blocks = []
-        for lo in range(0, Di, 32):
-            part = x[:, :, lo]
-            for d in range(lo + 1, min(lo + 32, Di)):
-                part = part + x[:, :, d]
+        for lo in range(0, Di, BWD_CHANNELS):
+            warps = []
+            for w in range(lo, lo + BWD_CHANNELS, WARP_CHANNELS):
+                c = [x[:, :, d] if d < Di else zero
+                     for d in range(w, w + WARP_CHANNELS)]
+                warps.append(((c[0] + c[1]) + (c[2] + c[3]))
+                             + ((c[4] + c[5]) + (c[6] + c[7])))
+            part = warps[0]
+            for p in warps[1:]:
+                part = part + p
             blocks.append(part)
         want = blocks[0]
         for p in blocks[1:]:
@@ -299,8 +319,9 @@ def test_backward_wrapper_refuses_cpu_tensors():
 
 def test_backward_bound_and_cases():
     """The bound's terms at Hymba's training shape, and the bench's
-    cases: both training shapes, T % 64 != 0, Di % 32 != 0 and Di % 4 !=
-    0, h0 and dh_T non-zero, T = 1."""
+    cases: both training shapes, T % 64 != 0, Di not a multiple of the
+    block width and Di % 4 != 0, h0 and dh_T non-zero, T = 1, and Di one
+    past a multiple of the block width."""
     b, t, di, n = 2, 4096, 3200, 16
     got = bench.scan_bwd_bound_ms(b, t, di, n)
     elems = b * t * di * n
@@ -316,9 +337,11 @@ def test_backward_bound_and_cases():
     cases = bench.BWD_CASES
     assert [c[:3] for c in cases[:2]] == list(bench.BWD_TRAIN)
     assert cases[2] == (1, 1000, 4100, True)     # chip_smoke.py's third
-    assert any(c[1] % CHUNK_STEPS and c[2] % 32 and c[2] % 4 and c[3]
-               for c in cases)
+    assert any(c[1] % CHUNK_STEPS and c[2] % BWD_CHANNELS and c[2] % 4
+               and c[3] for c in cases)
     assert any(c[1] == 1 for c in cases)
+    assert any(c[2] % BWD_CHANNELS == 1 and c[2] > BWD_CHANNELS
+               for c in cases)
 
 
 @pytest.mark.gpu

@@ -260,6 +260,38 @@ def test_sass_counts_reads_opcodes_with_modifiers(monkeypatch):
     assert rec["shfl_per_channel_step"] == 8.0
 
 
+def test_sass_counts_reads_the_backward_kernels(monkeypatch):
+    """The backward's two kernels by name, ``BAR`` and the copy opcodes
+    counted, and ``MUFU.EX2`` over the 8 × 4 state-steps of a walk's
+    unrolled body."""
+    body = "".join(f"        /*{i:04x}*/                   MUFU.EX2 R4, R4 ;\n"
+                   for i in range(64))
+    sass = f"""
+        Function : _ZN12_GLOBAL__N_125selective_scan_bwd_kernelEPKfS1_
+{body}        /*1000*/                   LDGSTS.E.128 [R5], desc[UR4][R6.64] ;
+        /*1010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*1020*/                   SHFL.BFLY PT, R3, R2, 0x4, 0x1f ;
+        /*1030*/                   LDG.E.128.STRONG.GPU R8, desc[UR4][R2.64] ;
+        /*1040*/              @P0 STS [R1], R3 ;
+        Function : _ZN12_GLOBAL__N_129selective_scan_bwd_sum_kernelEPKfS1_
+        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0010*/                   STG.E desc[UR4][R2.64], R3 ;
+"""
+    monkeypatch.setattr(bench, "_sass", lambda path: sass)
+    got = bench.sass_counts("unused")
+    assert list(got) == ["selective_scan_bwd_kernel",
+                         "selective_scan_bwd_sum_kernel"]
+    rec = got["selective_scan_bwd_kernel"]
+    assert {op: rec[op] for op in ("MUFU.EX2", "LDGSTS", "BAR", "SHFL",
+                                   "LDG", "STS", "STG", "UTMALDG")} == {
+        "MUFU.EX2": 64, "LDGSTS": 1, "BAR": 1, "SHFL": 1, "LDG": 1,
+        "STS": 1, "STG": 0, "UTMALDG": 0}
+    assert rec["ex2_per_state_step"] == 2.0
+    assert rec["total"] == 69
+    assert got["selective_scan_bwd_sum_kernel"]["LDG"] == 1
+    assert "ex2_per_state_step" not in got["selective_scan_bwd_sum_kernel"]
+
+
 def test_variant_wrapper_refuses_cpu_tensors_and_unknown_variants():
     args = [torch.from_numpy(a) for a in _inputs(0, 1, 8, 16, 16)]
     before = kernel.launch_counts()["selective_scan"]
