@@ -321,6 +321,21 @@ Phases, in order; any failure ends the script with a non-zero exit:
    21's card weights) held to
    ``tests/golden/torch_falcon_mamba_7b_l4_train_s512.json``, then 1 + 2
    timed steps at 2 x 4,096;
+29. the dry run against the card — right after phase 27: the dry run
+   (``repro_torch.launch.dryrun.run_cell``, on the host, ``meta``
+   tensors, a one-rank mesh) of qwen3-1.7b's and Hymba-1.5B's training
+   cells at 2 x 4,096, traced by a thread while phase 2 builds the
+   kernels, held against phase 27's and phase 28 (c)'s
+   profiled steps: per-device GEMM FLOPs against the profiler's
+   ``with_flops`` sum over ``aten::mm`` / ``bmm`` / ``addmm`` (within
+   0.1 %), each hand kernel's launches against the wrappers' counts of
+   the step (equal) and the profiler's (equal or one fewer), and, printed,
+   each cell's ``bound_s`` beside the measured step and the predicted
+   peak (arguments and live bytes) beside ``max_memory_allocated``; the
+   phase prints its seconds, the dry runs' wait after the build and the
+   profiled steps' wall over their timed steps' (the ``with_flops``
+   recorder's host time, which also stretches those steps' idle share:
+   each is printed of the profiled wall and of the timed step);
 23. qwen3-moe-235b-a22b — the MoE at full width (d 4,096, 64 query heads
    on 4 KV heads of 128, 128 experts, top 8, ``d_expert`` 1,536) cut to
    its first 2 of 94 layers (drawn at the 94-layer scales), the same
@@ -3890,28 +3905,75 @@ def _range_kinds(events, name: str) -> dict:
     return out
 
 
-def profile_train_step(step_fn, state, batch) -> dict:
-    """One training step under the profiler: device seconds by kind and
-    the idle share; returns ``{"flash_ms": ms a forward-kernel launch}``
-    (empty when the profiler saw no device time)."""
+GEMM_EVENTS = ("aten::mm", "aten::bmm", "aten::addmm")
+
+
+def _device_us(e) -> float:
+    """A profiler event's device time, its children's included."""
+    return e.device_time_total if hasattr(e, "device_time_total") \
+        else e.cuda_time_total
+
+
+def _launched(e) -> bool:
+    """Whether a CUDA launch call (``cudaLaunchKernel``,
+    ``cuLaunchKernelEx``, ...) ran under a profiler event."""
+    return any("Launch" in c.name or _launched(c) for c in e.cpu_children)
+
+
+def profile_train_step(step_fn, state, batch, step_s: float) -> dict:
+    """One training step under the profiler (``with_flops``): device
+    seconds by kind and the idle share, of the profiled step's wall and
+    of ``step_s``, the timed steps' mean (the FLOP recorder's host time
+    per operation stretches the profiled step's wall, so its idle share
+    overstates an unprofiled step's); returns ``{"gemm_flops": the
+    profiler's FLOPs of aten::mm / bmm / addmm, "prof_wall": the profiled
+    step's wall seconds, "flash_ms": ms a forward-kernel launch,
+    "prof_launches": each hand kernel's launches the profiler saw}``
+    (only the first two when it saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with _train_ranges(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+                                              ProfilerActivity.CUDA],
+                                  with_flops=True) as prof:
         t0 = time.perf_counter()
         step_fn(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # a product that launched nothing never ran: activation
+    # checkpointing stops a block's recompute once the tensors it needs
+    # are rebuilt, raising inside the autograd wrapper of the product
+    # after it (where the profiler has opened the event), so that event
+    # is left out of the FLOPs the card did.  A product ran if the
+    # profiler saw its kernel or its launch call (it may lose a kernel's
+    # record, PERF.md section 7)
+    gemms = [e for e in prof.events() if e.name in GEMM_EVENTS]
+    seen = [e for e in gemms if _device_us(e) > 0]
+    ran = [e for e in gemms if _device_us(e) > 0 or _launched(e)]
+    gemm = sum(e.flops for e in ran)
+    print(f"profiler: {len(gemms)} GEMM events (aten::mm / bmm / addmm): "
+          f"{len(seen)} with a kernel, {len(ran) - len(seen)} with a launch "
+          f"call but no kernel record, {len(gemms) - len(ran)} that launched "
+          f"nothing (left out); {gemm:.6e} FLOPs")
+    for label, evs in (("launch call, no kernel record",
+                         [e for e in ran if _device_us(e) <= 0]),
+                        ("left out", [e for e in gemms if not (
+                            _device_us(e) > 0 or _launched(e))])):
+        by_flops = {}
+        for e in evs:
+            by_flops[e.flops] = by_flops.get(e.flops, 0) + 1
+        if by_flops:
+            print(f"  {label}, by FLOPs: {by_flops}")
     # the ranges' own device-side spans cover their kernels: not counted
+    averages = prof.key_averages()
     rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            for e in averages if e.device_type == DeviceType.CUDA
             and e.key not in TRAIN_RANGES]
     rows = [r for r in rows if r[0] > 0]
     if not rows:
         print("profiler: device time not measured (no device events)")
-        return {}
+        return {"gemm_flops": gemm, "prof_wall": wall}
     busy = sum(r[0] for r in rows) / 1e6
     total = {}
     for us, _, key in rows:
@@ -3936,7 +3998,10 @@ def profile_train_step(step_fn, state, batch) -> dict:
     n_bwd = sum(c for _, c, k in rows if "selective_scan_bwd_kernel" in k)
     print(f"profiler, one training step: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s in {sum(r[1] for r in rows)} device operations, "
-          f"idle share {100 * (1 - busy / wall):.1f}%")
+          f"idle share {100 * (1 - busy / wall):.1f}% of the profiled step "
+          f"(its wall holds the FLOP recorder's host time), "
+          f"{100 * (1 - busy / step_s):.1f}% of a timed step's "
+          f"{step_s:.4f} s")
     print("  longest kernels: " + "; ".join(
         f"{key[:60]} {us / 1e3:.3f} ms ({n})" for us, n, key in
         sorted(rows, reverse=True)[:8]))
@@ -3946,7 +4011,7 @@ def profile_train_step(step_fn, state, batch) -> dict:
     if n_bwd:
         # a ctypes launch is not linked to the range around it, so the
         # kernel's device time is its kind's; the range gives host time
-        host = sum(e.cpu_time_total for e in prof.key_averages()
+        host = sum(e.cpu_time_total for e in averages
                    if e.key == TRAIN_RANGES[2])
         print(f"  selective_scan: {n_ss} forward launches (forward and "
               f"recompute), {n_bwd} backward launches; the backward "
@@ -3958,7 +4023,9 @@ def profile_train_step(step_fn, state, batch) -> dict:
         print("  (the ranges' kernels were not linked: attention backward "
               "and optimizer device time not measured; their kernels are "
               "counted by kind)")
-    out = {}
+    out = {"gemm_flops": gemm, "prof_wall": wall, "prof_launches": {
+        "flash_attention": n_fa, "selective_scan": n_ss,
+        "selective_scan_bwd": n_bwd}}
     if n_fa:
         out["flash_ms"] = total["flash_attention"] / n_fa / 1e3
     if n_bwd:
@@ -4037,8 +4104,11 @@ def train_timed(cfg, params, warmup: int = TIMED_WARMUP,
               f"{model_ops / sec / 1e12:.1f} TFLOP/s, "
               f"{100 * model_ops / sec / BF16_OPS_PER_S:.2f}% of the bf16 "
               f"peak (989 TFLOP/s)")
-        prof = profile_train_step(step_fn, state, data.batch_at(n_steps))
-        counts = read_counts()                      # and the profiled's
+        reset_counts()
+        prof = profile_train_step(step_fn, state, data.batch_at(n_steps),
+                                  sec)
+        prof["step_launches"] = read_counts()       # the profiled step's
+        counts = {k: counts[k] + prof["step_launches"][k] for k in counts}
         del state, step_fn, runner
     torch.cuda.empty_cache()
     out = {"counts": counts, "sec": sec, "peak": peak, **prof}
@@ -4223,7 +4293,8 @@ def run_training(params) -> dict:
     print(f"phase 27's flash_attention launches on the main path: "
           f"{launches} ({timed_launches} at {TIMED_BATCH} x {TIMED_SEQ})")
     return {"launches": launches, "timed_launches": timed_launches,
-            "flash_ms": timed["flash_ms"], "flash": timed["flash"]}
+            "flash_ms": timed["flash_ms"], "flash": timed["flash"],
+            "timed": timed}
 
 
 def run_phase27_alone() -> dict:
@@ -4232,6 +4303,117 @@ def run_phase27_alone() -> dict:
     from repro_torch.configs import get_config
     return run_training(to_card(get_config(TRAIN_ARCH),
                                 HostWeights(TRAIN_ARCH)))
+
+
+# ---------------------------------------------------------------------- #
+# phase 29: the dry run (repro_torch.launch.dryrun) held against the card
+# ---------------------------------------------------------------------- #
+DRYRUN_GEMM_TOL = 1e-3          # the dry run and the profiler share formulas
+# kernels whose launches the profiler may see one fewer of than the
+# wrappers count (PERF.md section 7)
+DRYRUN_KERNELS = ("flash_attention", "selective_scan", "selective_scan_bwd")
+
+
+class DryRuns:
+    """Phase 29's dry runs (``repro_torch.launch.dryrun.run_cell``: on the
+    host, ``meta`` tensors, a one-rank mesh) of each arch's training cell
+    at TIMED_BATCH x TIMED_SEQ, traced by a background thread started
+    before the kernels build: the build waits on ``nvcc``, so the trace
+    takes no wall time of its own unless it outlasts the build.  The
+    accountant is a dispatch mode, which is thread-local, and the thread
+    is joined before the first phase on the card, so nothing of the card's
+    phases is counted or slowed.  Its seconds are printed apart."""
+
+    def __init__(self, archs):
+        self.archs, self.records, self.error = archs, {}, None
+        self.seconds, self.waited = None, 0.0
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._trace, daemon=True,
+                                       name="dry-runs")
+        self.thread.start()
+
+    def _trace(self) -> None:
+        try:
+            from repro_torch.configs import ShapeCell
+            from repro_torch.launch.dryrun import run_cell
+            cell = ShapeCell("train_4k", TIMED_SEQ, TIMED_BATCH, "train")
+            for arch in self.archs:
+                self.records[arch] = run_cell(arch, "train_4k", False,
+                                              mesh=(1, 1, 1), cell=cell)
+            self.seconds = time.perf_counter() - self.t0
+        except BaseException as e:      # re-raised by join()
+            self.error = e
+
+    def join(self) -> None:
+        """Wait for the trace to end (its seconds waited: ``waited``)."""
+        t0 = time.perf_counter()
+        self.thread.join()
+        self.waited = time.perf_counter() - t0
+        if self.error is not None:
+            raise RuntimeError("phase 29's dry runs failed") from self.error
+        print(f"phase 29's dry runs of {list(self.archs)}: "
+              f"{self.seconds:.3f} s on the host beside the build, "
+              f"{self.waited:.3f} s waited after it", flush=True)
+
+
+def run_phase29(timed: dict, dry: DryRuns) -> None:
+    """Each arch's dry run (``dry``), against that arch's profiled step
+    on the card (``timed[arch]``, from :func:`train_timed`): per-device
+    GEMM FLOPs against the profiler's ``with_flops`` sum over aten::mm /
+    bmm / addmm (within DRYRUN_GEMM_TOL), each hand kernel's launches
+    against the wrappers' counts of that step (equal) and the profiler's
+    (equal or one fewer), then ``bound_s`` beside the measured step and
+    the predicted peak (arguments and the live peak) beside
+    ``max_memory_allocated``.  The phase's cost to the script is its own
+    seconds, the dry runs' seconds waited after the build, and the
+    profiled steps' wall over their timed steps' (the FLOP recorder's
+    host time, the profiler's own included): all three are printed."""
+    phase("29. the dry run against the card: GEMM FLOPs, launches, bound "
+          "and peak of the profiled training steps")
+    t0 = time.perf_counter()
+    for arch, rec in timed.items():
+        dry_rec = dry.records[arch]
+        if dry_rec["status"] != "ok":
+            raise AssertionError(f"dry run of {arch}: {dry_rec}")
+        pd = dry_rec["per_device"]
+        pred, got = pd["gemm_flops"], rec["gemm_flops"]
+        rel = abs(pred - got) / max(got, 1.0)
+        print(f"{arch} at {TIMED_BATCH} x {TIMED_SEQ}: GEMM FLOPs dry run "
+              f"{pred:.6e}, profiler {got:.6e} (relative difference "
+              f"{rel:.3e}); all FLOPs {pd['flops']:.6e} "
+              f"({ {k: f'{v:.4e}' for k, v in pd['flops_by_op'].items()} })")
+        if not got or rel > DRYRUN_GEMM_TOL:
+            raise AssertionError(f"{arch}: the dry run's GEMM FLOPs {pred} "
+                                 f"are not within {DRYRUN_GEMM_TOL} of the "
+                                 f"profiler's {got}")
+        for k in DRYRUN_KERNELS:
+            want = pd["kernel_launches"].get(k, 0)
+            counted = rec["step_launches"].get(k, 0)
+            seen = rec.get("prof_launches", {}).get(k)
+            print(f"  {k}: dry run {want}, wrappers {counted}, profiler "
+                  f"{seen}")
+            if counted != want or (seen is not None
+                                   and seen not in (want, want - 1)):
+                raise AssertionError(
+                    f"{arch}: {k} launches: dry run {want}, wrappers "
+                    f"{counted}, profiler {seen}")
+        mem = dry_rec["memory_analysis"]
+        peak = mem["argument_bytes"] + mem["temp_bytes"]
+        roof = dry_rec["roofline"]
+        print(f"  bound_s {roof['bound_s']:.6f} ({roof['dominant']}) "
+              f"against a measured step of {rec['sec']:.4f} s: "
+              f"{100 * roof['bound_s'] / rec['sec']:.2f}% "
+              f"of the step; predicted peak {peak} bytes (arguments "
+              f"{mem['argument_bytes']} + live {mem['temp_bytes']}) "
+              f"against max_memory_allocated {rec['peak']} "
+              f"({peak / rec['peak']:.4f}x)")
+    own = time.perf_counter() - t0
+    over = {a: r["prof_wall"] - r["sec"] for a, r in timed.items()}
+    print(f"phase 29: {own:.3f} s of its own, {dry.waited:.3f} s waited "
+          f"for the dry runs after the build, "
+          f"{sum(over.values()):.3f} s of profiled steps' wall over their "
+          f"timed steps' ({ {a: round(v, 4) for a, v in over.items()} }): "
+          f"{own + dry.waited + sum(over.values()):.3f} s in all")
 
 
 # ---------------------------------------------------------------------- #
@@ -4581,7 +4763,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     name, smi = run_device()
+    dry = DryRuns((TRAIN_ARCH, "hymba-1.5b"))        # phase 29's, beside
     run_build()
+    dry.join()
 
     from repro_torch.api import Experiment, build_network
     from repro_torch.core import build_tables
@@ -4672,6 +4856,8 @@ def main() -> int:
         qwen3[arch] = run_qwen3(arch, weights[arch], keep=arch == TRAIN_ARCH)
         if arch == TRAIN_ARCH:          # phase 27 on phase 22's weights
             training = run_training(qwen3[arch].pop("params"))
+            run_phase29({TRAIN_ARCH: training["timed"],
+                         "hymba-1.5b": ssm_training["timed"]}, dry)
     deepseek = run_deepseek(weights[DEEPSEEK["arch"]])
     cross = {arch: run_cross(arch, weights[arch]) for arch in CROSS_MODELS}
     phase()

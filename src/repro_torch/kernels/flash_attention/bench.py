@@ -44,7 +44,7 @@ import torch
 
 from .. import _build
 from . import kernel as fa
-from .ref import compare_bf16, flash_attention_ref, live_pairs
+from .ref import attention_work, compare_bf16, flash_attention_ref
 
 __all__ = ["cases", "CASES_D128", "CASES_MLA", "CASES_CROSS", "bound_ms",
            "run_cases", "sass_counts", "main"]
@@ -114,9 +114,7 @@ def bound_ms(b, sq, skv, h, hkv, d, window, dv=None, causal=True) -> tuple:
     written once over the memory rate, against 2 (d + dv) operations per
     live (query, key) pair (``q·k`` and ``p·v``; ``dv`` = d unless
     given) at the bf16 tensor-core rate."""
-    dv = d if dv is None else dv
-    n_bytes = 2 * (b * sq * h * (d + dv) + b * skv * hkv * (d + dv))
-    ops = 2 * (d + dv) * b * h * live_pairs(sq, skv, window, causal)
+    ops, n_bytes = attention_work(b, sq, skv, h, hkv, d, window, dv, causal)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -32,8 +32,8 @@ from typing import Optional
 import torch
 
 __all__ = ["NEG", "BLOCK_K", "MAX_DIFF_SHARE", "check_shapes",
-           "flash_attention_ref", "live_pairs", "max_weight",
-           "compare_bf16"]
+           "flash_attention_ref", "live_pairs", "attention_work",
+           "max_weight", "compare_bf16"]
 
 NEG = -1e30
 BLOCK_K = 64        # keys per tile (the CUDA kernel's)
@@ -117,14 +117,32 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def live_pairs(sq: int, skv: int, window: Optional[int] = None,
                causal: bool = True) -> int:
     """(query, key) pairs the mask keeps, per batch row and head: every
-    ``sq * skv`` of them when not causal."""
+    ``sq * skv`` of them when not causal, else query ``i``, at position
+    ``p = i + skv - sq``, sees ``min(p + 1, window + 1)`` keys and none
+    where ``p < 0``.  In closed form, in Python integers: no tensor
+    operation, so a dry run's accountant does not see it."""
     if not causal:
         return sq * skv
-    qpos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
-    hi = qpos + 1
-    lo = torch.clamp(qpos - window, min=0) if window is not None else \
-        torch.zeros_like(qpos)
-    return int(torch.clamp(hi - lo, min=0).sum())
+
+    def ramp(a: int, b: int) -> int:          # sum of p + 1 for p in [a, b]
+        return 0 if b < a else (b + 1) * (b + 2) // 2 - a * (a + 1) // 2
+    a, b = max(skv - sq, 0), skv - 1
+    if window is None:
+        return ramp(a, b)
+    return ramp(a, min(b, window)) + (window + 1) * max(
+        0, b - max(a, window + 1) + 1)
+
+
+def attention_work(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
+                   window: Optional[int] = None, dv: Optional[int] = None,
+                   causal: bool = True) -> tuple:
+    """(operations, bytes) of one launch of the forward kernel: 2 (d +
+    dv) operations per live (query, key) pair and head (``q·k`` and
+    ``p·v``), and bf16 q, k, v read once and o written once."""
+    dv = d if dv is None else dv
+    n_bytes = 2 * (b * sq * h * (d + dv) + b * skv * hkv * (d + dv))
+    ops = 2 * (d + dv) * b * h * live_pairs(sq, skv, window, causal)
+    return ops, n_bytes
 
 
 def max_weight(q: torch.Tensor, k: torch.Tensor,

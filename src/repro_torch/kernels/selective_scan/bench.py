@@ -61,7 +61,8 @@ from .. import _build
 from ..flash_attention.bench import EX2_PER_S, HBM_BYTES_PER_S, cuda_ms
 from ..minplus.bench import FP32_OPS_PER_S, _sass
 from . import kernel
-from .ref import SUB_STEPS, selective_scan_bwd_ref, selective_scan_ref
+from .ref import (SUB_STEPS, scan_bwd_work, scan_work, selective_scan_bwd_ref,
+                  selective_scan_ref)
 
 __all__ = ["scan_bound_ms", "cases", "inputs", "run_cases", "sass_counts",
            "time_variants", "variants", "scan_bwd_bound_ms", "BWD_CASES",
@@ -82,11 +83,10 @@ def scan_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
     clock.  Returns ``{"bytes_ms", "fp32_ms", "ex2_ms", "bound_ms",
     "bound_by", "limit"}``: ``bound_by`` is "bytes" or "operations",
     ``limit`` names the term."""
-    elems = b * t * di * n
-    n_bytes = 4 * (3 * b * t * di + di * n + 2 * b * t * n + 2 * b * di * n)
-    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-             "float32": 7 * elems / FP32_OPS_PER_S * 1e3,
-             "MUFU ex2": elems / EX2_PER_S * 1e3}
+    w = scan_work(b, t, di, n)
+    terms = {"bytes": w["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "float32": w["flops"] / FP32_OPS_PER_S * 1e3,
+             "MUFU ex2": w["ex2"] / EX2_PER_S * 1e3}
     limit = max(terms, key=terms.get)
     return {"bytes_ms": terms["bytes"], "fp32_ms": terms["float32"],
             "ex2_ms": terms["MUFU ex2"], "bound_ms": terms[limit],
@@ -115,12 +115,10 @@ def scan_bwd_bound_ms(b: int, t: int, di: int, n: int = STATE) -> dict:
     two MUFU ``ex2`` per (b, t, channel, state) at 16 an SM a clock (one
     to find the states at chunk starts, one to rebuild them).  Returns
     :func:`scan_bound_ms`'s keys."""
-    elems = b * t * di * n
-    n_bytes = 4 * (5 * b * t * di + 2 * di * n + 4 * b * t * n
-                   + 3 * b * di * n)
-    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-             "float32": 18 * elems / FP32_OPS_PER_S * 1e3,
-             "MUFU ex2": 2 * elems / EX2_PER_S * 1e3}
+    w = scan_bwd_work(b, t, di, n)
+    terms = {"bytes": w["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "float32": w["flops"] / FP32_OPS_PER_S * 1e3,
+             "MUFU ex2": w["ex2"] / EX2_PER_S * 1e3}
     limit = max(terms, key=terms.get)
     return {"bytes_ms": terms["bytes"], "fp32_ms": terms["float32"],
             "ex2_ms": terms["MUFU ex2"], "bound_ms": terms[limit],

@@ -25,7 +25,8 @@ import torch
 
 __all__ = ["check_shapes", "selective_scan_ref", "selective_scan_bwd_ref",
            "state_sum", "chunk_starts", "rebuild_states", "CHUNK_STEPS",
-           "SUB_STEPS", "BWD_CHANNELS", "WARP_CHANNELS"]
+           "SUB_STEPS", "BWD_CHANNELS", "WARP_CHANNELS", "scan_work",
+           "scan_bwd_work"]
 
 CHUNK_STEPS = 64       # steps a staged run of either kernel holds
 SUB_STEPS = 8          # steps between the states the backward keeps
@@ -45,6 +46,28 @@ def check_shapes(u, dt, A, Bc, Cc, h0) -> None:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{want[name]}")
+
+
+def scan_work(b: int, t: int, di: int, n: int) -> dict:
+    """The work of one launch of the scan kernel: ``{"flops": 7 float32
+    operations, "ex2": one exponential, a (b, t, channel, state);
+    "bytes": u, dt, A, B, C, h0 read once and y, h_T written once, all
+    float32}``."""
+    elems = b * t * di * n
+    return {"flops": 7 * elems, "ex2": elems,
+            "bytes": 4 * (3 * b * t * di + di * n + 2 * b * t * n
+                          + 2 * b * di * n)}
+
+
+def scan_bwd_work(b: int, t: int, di: int, n: int) -> dict:
+    """:func:`scan_work` of one launch of the backward kernel: 18 float32
+    operations (4 to rebuild the state, 14 to walk back) and two
+    exponentials a (b, t, channel, state); u, dt, dy, A, B, C, h0, dh_T
+    read once and du, ddt, dA, dB, dC, dh0 written once."""
+    elems = b * t * di * n
+    return {"flops": 18 * elems, "ex2": 2 * elems,
+            "bytes": 4 * (5 * b * t * di + 2 * di * n + 4 * b * t * n
+                          + 3 * b * di * n)}
 
 
 def state_sum(x: torch.Tensor) -> torch.Tensor:

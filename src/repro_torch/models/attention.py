@@ -21,10 +21,11 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import NEG
-from .common import (ParamSpec, apply_rope, fdot, init_scale_out, proj,
-                     rmsnorm, rope_freqs)
+from ..parallel.sharding import as_dtensor, is_dtensor
+from .common import (ParamSpec, apply_rope, device_of, fdot,
+                     init_scale_out, proj, rmsnorm, rope_freqs)
 
-__all__ = ["gqa_specs", "gqa_qkv", "gqa_out", "decode_attention",
+__all__ = ["gqa_specs", "gqa_qkv", "gqa_out", "write_at", "decode_attention",
            "mla_specs", "mla_latent", "mla_queries", "mla_qkv", "mla_out",
            "mla_decode"]
 
@@ -68,6 +69,29 @@ def gqa_out(p: dict, o: torch.Tensor) -> torch.Tensor:
     return proj("bshk,hkd->bsd", o, p["wo"])
 
 
+def write_at(cache: torch.Tensor, new: torch.Tensor, wpos: int) -> None:
+    """``cache[:, wpos] = new[:, 0]`` in place.  On a DTensor cache split
+    along its positions, only the rank whose part holds ``wpos`` writes,
+    into its own shard (the other dims of ``new`` split as the cache's)."""
+    if not is_dtensor(cache):
+        cache[:, wpos] = new[:, 0]
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    dm = cache.device_mesh
+    local = cache._local_tensor
+    start = 0
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            start = start * dm.size(i) + dm.get_local_rank(i)
+    start *= local.shape[1]
+    # every rank takes part in the redistribution, a collective
+    new = as_dtensor(new, dm).redistribute(dm, [
+        Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+        for p in cache.placements])
+    if start <= wpos < start + local.shape[1]:
+        local[:, wpos - start] = new._local_tensor[:, 0]
+
+
 def decode_attention(q, k_cache, v_cache, pos: int, *,
                      window: Optional[int] = None):
     """q: [B,1,H,D]; caches: [B,S,Hkv,D] (a ring when ``window`` is set).
@@ -82,7 +106,7 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
     kr = k_cache.repeat_interleave(g, dim=2)
     vr = v_cache.repeat_interleave(g, dim=2)
     s = fdot("bqhd,bkhd->bhk", q, kr) * (1.0 / math.sqrt(D))
-    idx = torch.arange(S, device=q.device)
+    idx = torch.arange(S, device=device_of(q))
     valid = idx <= pos
     if window is not None and pos >= S:
         valid = torch.ones_like(valid)
@@ -169,18 +193,19 @@ def mla_decode(p: dict, x: torch.Tensor, cfg, c_kv_cache: torch.Tensor,
     ``p·c_kv``, then ``wv_b`` and ``wo``."""
     m = cfg.mla
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = torch.full((B, 1), pos, dtype=torch.int32,
+                           device=device_of(x))
     c_kv_new, k_rope_new = mla_latent(p, x, cfg, positions)
     S = c_kv_cache.shape[1]
     wpos = min(pos, S - 1)
-    c_kv_cache[:, wpos] = c_kv_new[:, 0]
-    k_rope_cache[:, wpos] = k_rope_new[:, 0]
+    write_at(c_kv_cache, c_kv_new, wpos)
+    write_at(k_rope_cache, k_rope_new, wpos)
     q_nope, q_rope = mla_queries(p, x, cfg, positions)
     q_c = fdot("bshk,chk->bshc", q_nope, p["wk_b"])
     scale = 1.0 / math.sqrt(m.nope_dim + m.rope_dim)
     s = (fdot("bshc,btc->bhst", q_c.to(torch.bfloat16), c_kv_cache)
          + fdot("bshk,btk->bhst", q_rope, k_rope_cache)) * scale
-    valid = torch.arange(S, device=x.device) <= pos
+    valid = torch.arange(S, device=device_of(x)) <= pos
     s = torch.where(valid[None, None, None], s, torch.full_like(s, NEG))
     pattn = torch.softmax(s, dim=-1)
     ctx = fdot("bhst,btc->bshc", pattn.to(torch.bfloat16), c_kv_cache)

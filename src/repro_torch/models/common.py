@@ -13,7 +13,9 @@ them against a ``parallel.sharding.Sharder``.
 
 The numerics keep the reference model's cast points: the norm and RoPE
 compute in float32 and cast back to the input's dtype, projections give
-bf16 (``proj``), and :func:`fdot` accumulates in float32.
+bf16 (``proj``), and :func:`fdot` accumulates in float32.  On DTensors
+(a model laid out over ranks, ``launch.dryrun``) both products run on
+each rank's shards through :func:`split_einsum`.
 """
 from __future__ import annotations
 
@@ -26,12 +28,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import as_dtensor, is_dtensor, reduce_partial
+
 __all__ = ["ParamSpec", "flatten_specs", "spec_leaf_np", "leaf_blocks_np",
            "init_params_np", "params_to_torch", "count_params",
-           "param_shardings", "fdot", "proj", "rmsnorm", "rope_freqs",
-           "apply_rope", "activation", "GATED_ACTS", "mlp_specs",
+           "param_shardings", "fdot", "proj", "split_einsum", "rmsnorm",
+           "rope_freqs", "apply_rope", "activation", "GATED_ACTS", "mlp_specs",
            "mlp_apply", "pad_vocab", "group_rows", "init_params",
-           "init_scale_out", "abstract_params", "trainable"]
+           "init_scale_out", "abstract_params", "meta_tensor", "device_of",
+           "trainable"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int32": torch.int32}
@@ -218,14 +223,44 @@ def init_params(specs, seed: int, device, threads: int = 1,
     return _nest([p for p, _ in leaves], [made[i] for i in range(len(leaves))])
 
 
-def abstract_params(specs) -> dict:
+def abstract_params(specs, sh=None) -> dict:
     """The parameter tree of ``specs`` as tensors on the ``meta`` device:
     shapes and dtypes, no storage (the reference's ``ShapeDtypeStruct``
-    stand-ins)."""
+    stand-ins).  With a sharder that has a ``DeviceMesh``, each leaf is a
+    meta DTensor placed as :func:`param_shardings` places it: its local
+    tensor is this rank's shard."""
     if isinstance(specs, dict):
-        return {k: abstract_params(v) for k, v in specs.items()}
-    return torch.empty(tuple(specs.shape), dtype=_DTYPES[specs.dtype],
-                       device="meta")
+        return {k: abstract_params(v, sh) for k, v in specs.items()}
+    return meta_tensor(specs.shape, _DTYPES[specs.dtype],
+                       None if sh is None else
+                       sh.sharding(specs.axes, specs.shape), sh)
+
+
+def meta_tensor(shape, dtype, placement=None, sh=None) -> torch.Tensor:
+    """An empty ``meta`` tensor of ``shape``; with a :class:`Placement`
+    and a sharder that has a ``DeviceMesh``, a DTensor of that global
+    shape whose local tensor is a meta shard (every split divides its
+    dim, as ``Sharder.sharding`` with a shape leaves it)."""
+    shape = tuple(shape)
+    if placement is None or sh is None or sh.device_mesh is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    from torch.distributed.tensor import DTensor, Shard
+    dims = placement.dtensor_placements()
+    local = list(shape)
+    for p, n in zip(dims, sh.device_mesh.shape):
+        if isinstance(p, Shard):
+            local[p.dim] //= n
+    t = torch.empty(local, dtype=dtype, device="meta")
+    stride = torch.empty(shape, dtype=dtype, device="meta").stride()
+    return DTensor.from_local(t, sh.device_mesh, dims, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def device_of(t: torch.Tensor) -> torch.device:
+    """The device that holds ``t``'s data: a DTensor's local tensor's
+    (a DTensor's own ``device`` is its mesh's device type)."""
+    local = getattr(t, "_local_tensor", None)
+    return t.device if local is None else local.device
 
 
 def trainable(tree) -> dict:
@@ -253,14 +288,68 @@ def param_shardings(specs, sh) -> dict:
 # ---------------------------------------------------------------------- #
 def fdot(subscripts: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """einsum accumulated in float32 (products of bf16 inputs are exact)."""
+    if is_dtensor(a) or is_dtensor(b):
+        return split_einsum(subscripts, a, b, torch.float32)
     return torch.einsum(subscripts, a.float(), b.float())
 
 
 def proj(subscripts: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A bf16 projection: bf16 inputs, float32 accumulation inside the
     matrix product, bf16 out."""
+    if is_dtensor(a) or is_dtensor(b):
+        return split_einsum(subscripts, a, b, torch.bfloat16)
     return torch.einsum(subscripts, a.to(torch.bfloat16),
                         b.to(torch.bfloat16))
+
+
+def _split_letter(p, subs: str):
+    from torch.distributed.tensor import Shard
+    return subs[p.dim] if isinstance(p, Shard) else None
+
+
+def split_einsum(subscripts: str, a, b, dtype) -> torch.Tensor:
+    """``einsum(subscripts, a, b)`` in ``dtype`` on DTensors, each rank on
+    its own shards (``local_map``), partitioned as GSPMD partitions a dot
+    on each mesh dim: a letter split in one operand stays split (in the
+    output if it is there, else the output is a partial sum, the other
+    operand cut to match); two different letters split on one mesh dim
+    gather the smaller operand's.  A partial-sum output is reduced at
+    once (a row-parallel projection's all-reduce), so that each partial
+    sum is reduced once whatever reads it.  An operand's gradient is
+    split as the operand is, or a partial sum where only the other
+    operand is split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lhs, out = subscripts.replace(" ", "").split("->")
+    sa, sb = lhs.split(",")
+    dm = (a if is_dtensor(a) else b).device_mesh
+    a, b = (as_dtensor(reduce_partial(t), dm) for t in (a, b))
+    small_a = a._local_tensor.numel() <= b._local_tensor.numel()
+    pa, pb, po, ga, gb = [], [], [], [], []
+    for i in range(dm.ndim):
+        la = _split_letter(a.placements[i], sa)
+        lb = _split_letter(b.placements[i], sb)
+        if la and lb and la != lb:
+            la, lb = (None, lb) if small_a else (la, None)
+        ltr = la or lb
+        if ltr is None:
+            pa.append(Replicate())
+            pb.append(Replicate())
+            po.append(Replicate())
+            ga.append(Replicate())
+            gb.append(Replicate())
+            continue
+        pa.append(Shard(sa.index(ltr)) if ltr in sa else Replicate())
+        pb.append(Shard(sb.index(ltr)) if ltr in sb else Replicate())
+        po.append(Shard(out.index(ltr)) if ltr in out else Partial())
+        ga.append(pa[-1] if ltr in sa else Partial())
+        gb.append(pb[-1] if ltr in sb else Partial())
+    y = local_map(
+        lambda u, w: torch.einsum(subscripts, u.to(dtype), w.to(dtype)),
+        out_placements=po, in_placements=(pa, pb),
+        in_grad_placements=(ga, gb), device_mesh=dm,
+        redistribute_inputs=True)(a, b)
+    return reduce_partial(y)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):

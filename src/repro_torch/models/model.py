@@ -37,9 +37,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention import flash_attention_op
+from ..parallel.sharding import as_dtensor, is_dtensor, reduce_partial
 from . import attention as attn
-from .common import (ParamSpec, count_params, init_scale_out, mlp_apply,
-                     mlp_specs, pad_vocab, proj, rmsnorm)
+from .common import (ParamSpec, count_params, device_of, init_scale_out,
+                     mlp_apply, mlp_specs, pad_vocab, proj, rmsnorm)
 from .moe import MoECfg, moe_apply, moe_specs
 from .ssm import ssm_decode, ssm_prefill, ssm_specs
 
@@ -270,12 +271,13 @@ def _mix_and_mlp(p: dict, x, a_out, s_out, cfg):
     return _ffn("dense", p, x, cfg)
 
 
-def _ffn(kind: str, p: dict, x, cfg):
+def _ffn(kind: str, p: dict, x, cfg, sh=None):
     """The feed-forward sub-block and its residual: the routed experts
-    of a ``moe`` or ``mla_moe`` block, else the MLP."""
+    of a ``moe`` or ``mla_moe`` block (split over the sharder's mesh
+    where there is one), else the MLP."""
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind.endswith("moe"):
-        return x + moe_apply(p["moe"], h2, cfg)
+        return x + moe_apply(p["moe"], h2, cfg, sh)
     return x + mlp_apply(p["mlp"], h2, cfg.act)
 
 
@@ -324,10 +326,11 @@ def _gated_cross(pc: dict, x, attend, cfg):
     return x + _gate(pc["gate_mlp"], x) * mlp_apply(pc["mlp"], h2, cfg.act)
 
 
-def block_apply(kind: str, p: dict, x, cfg, positions, ctx=None):
+def block_apply(kind: str, p: dict, x, cfg, positions, ctx=None, sh=None):
     """Full-sequence (prefill) block; ``ctx`` [B, Sc, d] is the context a
     ``vision_super`` or ``dec`` block cross-attends (vision tokens, the
-    encoder's output).  Returns (x, cache entry)."""
+    encoder's output); ``sh`` the sharder of a model laid out over ranks
+    (its MoE splits the experts).  Returns (x, cache entry)."""
     if kind == "mamba":
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         y, (conv_s, ssm_s) = ssm_prefill(p["ssm"], h, cfg)
@@ -336,7 +339,7 @@ def block_apply(kind: str, p: dict, x, cfg, positions, ctx=None):
         # the encoder's attention is not causal and its layers keep no cache
         x, k, v = _self_attn(p, x, cfg, positions, kind != "enc",
                              cfg.sliding_window)
-        x = _ffn(kind, p, x, cfg)
+        x = _ffn(kind, p, x, cfg, sh)
         return x, ({} if kind == "enc" else {"k": k, "v": v})
     if kind == "dec":
         x, k, v = _self_attn(p, x, cfg, positions)
@@ -363,7 +366,7 @@ def block_apply(kind: str, p: dict, x, cfg, positions, ctx=None):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v, c_kv, k_rope = attn.mla_qkv(p["attn"], h, cfg, positions)
         o = flash_attention_op(q, k, v)
-        x = _ffn(kind, p, x + attn.mla_out(p["attn"], o), cfg)
+        x = _ffn(kind, p, x + attn.mla_out(p["attn"], o), cfg, sh)
         return x, {"ckv": c_kv, "kr": k_rope}
     if kind not in _HYBRID:
         raise ValueError(f"unknown block kind {kind!r}")
@@ -388,8 +391,8 @@ def _write_kv(cache_k, cache_v, k, v, pos: int, window: bool) -> None:
     overwrites its last slot."""
     W = cache_k.shape[1]
     wpos = pos % W if window else min(pos, W - 1)
-    cache_k[:, wpos] = k[:, 0]
-    cache_v[:, wpos] = v[:, 0]
+    attn.write_at(cache_k, k, wpos)
+    attn.write_at(cache_v, v, wpos)
 
 
 def _attn_decode(p: dict, h, cfg, k_cache, v_cache, pos: int,
@@ -397,7 +400,8 @@ def _attn_decode(p: dict, h, cfg, k_cache, v_cache, pos: int,
     """One token's self-attention output (before the residual) against
     its layer's cache, the token's key and value written in place."""
     B = h.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    positions = torch.full((B, 1), pos, dtype=torch.int32,
+                           device=device_of(h))
     q, k, v = attn.gqa_qkv(p["attn"], h, cfg, positions)
     _write_kv(k_cache, v_cache, k, v, pos, window is not None)
     o = attn.decode_attention(q, k_cache, v_cache, pos, window=window)
@@ -410,7 +414,8 @@ def _context_attention(q, ck, cv):
     return attn.decode_attention(q, ck, cv, ck.shape[1] - 1)
 
 
-def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
+def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int,
+                 sh=None):
     """x: [B,1,d]; updates the layer's ``cache`` in place, returns x."""
     if kind == "mamba":
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -423,7 +428,7 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         a_out = attn.mla_decode(p["attn"], h, cfg, cache["ckv"], cache["kr"],
                                 pos)
-        return _ffn(kind, p, x + a_out, cfg)
+        return _ffn(kind, p, x + a_out, cfg, sh)
     if kind == "vision_super":
         for i in range(cfg.cross_every - 1):
             pi = _layer(p["self"], i)
@@ -446,7 +451,7 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     a_out = _attn_decode(p, h, cfg, cache["k"], cache["v"], pos, window)
     if kind in ("dense", "moe"):
-        return _ffn(kind, p, x + a_out, cfg)
+        return _ffn(kind, p, x + a_out, cfg, sh)
     s_out, (conv_s, ssm_s) = ssm_decode(p["ssm"], h, cfg, cache["conv"],
                                         cache["ssm"])
     cache["conv"].copy_(conv_s)
@@ -457,8 +462,11 @@ def block_decode(kind: str, p: dict, x, cfg, cache: dict, pos: int):
 # ---------------------------------------------------------------------- #
 # model-level passes
 # ---------------------------------------------------------------------- #
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def embed(params: dict, tokens: torch.Tensor, sh=None) -> torch.Tensor:
+    """The tokens' rows of the embedding, constrained to the batch (and
+    sequence) split where the model is laid out over ranks."""
+    x = params["embed"][tokens.long()]
+    return x if sh is None else sh.constrain_safe(x, "dp", "sp", None)
 
 
 def logits_from(params: dict, x, cfg) -> torch.Tensor:
@@ -467,17 +475,16 @@ def logits_from(params: dict, x, cfg) -> torch.Tensor:
                 params["unembed"])
 
 
-def _encode(params: dict, ctx, cfg, remat: bool = False):
+def _encode(params: dict, ctx, cfg, remat: bool = False, sh=None):
     """An encoder-decoder's encoder over the context (audio frames) [B,
     Sc, d]: its ``enc`` layers, not causal, RoPE over the frames'
     positions (each under the config's ``remat`` when ``remat``), then
     ``enc_final_norm``: the memory the decoder's cross layers attend."""
     B, S = ctx.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=ctx.device).expand(B, S)
+    positions = _positions(B, S, ctx)
     g = plan(cfg)[0]
     x = _run_group(g, params["groups"][g.name], ctx, cfg, positions, None,
-                   remat)
+                   remat, sh)
     return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -510,11 +517,25 @@ def maybe_remat(fn, cfg):
     raise ValueError(f"unknown remat mode {cfg.remat!r}")
 
 
-def _run_group(g, gp, x, cfg, positions, ctx, remat: bool):
+def _positions(B: int, S: int, x) -> torch.Tensor:
+    """int32 positions 0 .. S-1 of each of B rows, on ``x``'s data's
+    device."""
+    return torch.arange(S, dtype=torch.int32,
+                        device=device_of(x)).expand(B, S)
+
+
+def _constrained(x, sh):
+    """A block's output constrained to the batch (and sequence) split,
+    the reference's ``constrain_safe(y, "dp", "sp", None)``."""
+    return x if sh is None else sh.constrain_safe(x, "dp", "sp", None)
+
+
+def _run_group(g, gp, x, cfg, positions, ctx, remat: bool, sh=None):
     """One group's layers in turn, each block under the config's
     ``remat`` when ``remat``; the blocks' caches are dropped."""
     def body(y, p):
-        return block_apply(g.kind, p, y, cfg, positions, ctx)[0]
+        return _constrained(
+            block_apply(g.kind, p, y, cfg, positions, ctx, sh)[0], sh)
     if remat:
         body = maybe_remat(body, cfg)
     for i in range(g.n):
@@ -522,36 +543,97 @@ def _run_group(g, gp, x, cfg, positions, ctx, remat: bool):
     return x
 
 
-def forward_train(params: dict, batch: dict, cfg: ModelConfig):
+def forward_train(params: dict, batch: dict, cfg: ModelConfig, sh=None):
     """batch: ``{"tokens": [B,S] int}`` (and ``"ctx"`` [B,Sc,d] bf16 for
     a model with context tokens; ``"labels"`` is not read).  Returns the
     bf16 logits of every position, [B,S,V] over the padded vocabulary.
     An encoder-decoder runs its encoder on ``ctx`` first, then its
-    decoder groups."""
+    decoder groups.  ``sh``: the sharder of a model laid out over ranks
+    (DTensor parameters and batch); each block's output is constrained
+    to the batch split, as the reference's."""
     tokens = batch["tokens"]
     ctx = batch.get("ctx")
     _check_ctx(ctx, tokens, cfg)
     B, S = tokens.shape
-    x = embed(params, tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    x = embed(params, tokens, sh)
+    positions = _positions(B, S, x)
     if cfg.enc_dec:
-        ctx = _encode(params, ctx, cfg, remat=True)
+        ctx = _encode(params, ctx, cfg, remat=True, sh=sh)
     for g in _decoder_groups(cfg):
         x = _run_group(g, params["groups"][g.name], x, cfg, positions, ctx,
-                       remat=True)
+                       remat=True, sh=sh)
     return logits_from(params, x, cfg)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def _vocab_split(lf):
+    """(mesh, vocab split of each mesh dim, the rows' placements, lf's
+    placements) of DTensor logits lf [..., V]: a mesh dim splits the
+    vocabulary, or the rows (kept), or nothing."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = lf.dim() - 1
+    split = [isinstance(p, Shard) and p.dim == last for p in lf.placements]
+    rows = [Shard(p.dim) if isinstance(p, Shard) and not s else Replicate()
+            for p, s in zip(lf.placements, split)]
+    lf_p = [Shard(last) if s else r for s, r in zip(split, rows)]
+    return lf.device_mesh, split, rows, lf_p
+
+
+def _logsumexp(lf):
+    """``logsumexp`` over the last dim.  On a DTensor whose vocabulary is
+    split, each rank sums ``exp(lf - m)`` over its part (``m`` the row
+    max, reduced across the split) and the sums are reduced: rows move,
+    never the logits."""
+    if not is_dtensor(lf):
+        return torch.logsumexp(lf, dim=-1)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    dm, split, rows, lf_p = _vocab_split(lf)
+    m = reduce_partial(lf.detach().amax(-1, keepdim=True))
+    total = local_map(
+        lambda x, mm: torch.exp(x - mm).sum(-1, keepdim=True),
+        out_placements=[Partial() if s else r for s, r in zip(split, rows)],
+        in_placements=(lf_p, rows), in_grad_placements=(lf_p, rows),
+        device_mesh=dm, redistribute_inputs=True)(lf, m)
+    return (m + torch.log(reduce_partial(total)))[..., 0]
+
+
+def _gold_logit(lf, labels):
+    """``lf[..., labels]``: each position's logit of its label.  On a
+    DTensor whose vocabulary is split, each rank takes the labels that
+    fall in its part of it (zero elsewhere) and the sum over the split
+    is left to DTensor (a ``Partial``), GSPMD's gather on a split dim."""
+    if not is_dtensor(lf):
+        return lf.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    dm, split, rows, lf_p = _vocab_split(lf)
+
+    def local(lfl, lab):
+        v = lfl.shape[-1]
+        v0 = 0
+        for i, s in enumerate(split):
+            if s:
+                v0 = v0 * dm.size(i) + dm.get_local_rank(i)
+        idx = lab.long() - v0 * v
+        inside = (idx >= 0) & (idx < v)
+        g = lfl.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        return torch.where(inside, g, torch.zeros_like(g))
+    return local_map(local, out_placements=[
+        Partial() if s else r for s, r in zip(split, rows)],
+        in_placements=(lf_p, rows), device_mesh=dm,
+        redistribute_inputs=True)(lf, as_dtensor(labels, dm))
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            sh=None) -> torch.Tensor:
     """Mean next-token cross-entropy over the positions whose label is
     ``>= 0``: float32 ``logsumexp`` of the logits less the gold logit,
     summed and divided by ``max(count, 1)``."""
-    logits = forward_train(params, batch, cfg)
+    logits = forward_train(params, batch, cfg, sh)
     labels = batch["labels"].long()
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    lse = _logsumexp(lf)
+    gold = _gold_logit(lf, labels.clamp_min(0))
     mask = labels >= 0
     nll = torch.where(mask, lse - gold, torch.zeros_like(lse))
     return nll.sum() / torch.clamp(mask.sum(), min=1)
@@ -582,7 +664,7 @@ def _check_ctx(ctx, tokens, cfg) -> None:
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            ctx: Optional[torch.Tensor] = None):
+            ctx: Optional[torch.Tensor] = None, sh=None):
     """Prompt pass: tokens [B,S] (and, for a model with context tokens,
     the bf16 context ``ctx`` [B,Sc,d]: vision tokens, or the audio frames
     the encoder reads) -> (last-token logits [B,1,V], cache).
@@ -597,20 +679,21 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``{"k", "v"}``: ``[L, cross_every - 1, B, S, Hkv, D]`` and its cross
     layer's context keys and values ``{"ck", "cv"}``: ``[L, B, Sc, Hkv,
     D]``; a ``dec`` group's ``{"k", "v", "ck", "cv"}`` (an encoder keeps
-    none)."""
+    none).  ``sh``: as :func:`forward_train`'s."""
     _check_ctx(ctx, tokens, cfg)
     B, S = tokens.shape
-    x = embed(params, tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    x = embed(params, tokens, sh)
+    positions = _positions(B, S, x)
     if cfg.enc_dec:
-        ctx = _encode(params, ctx, cfg)
+        ctx = _encode(params, ctx, cfg, sh=sh)
     caches = {}
     for g in _decoder_groups(cfg):
         gp = params["groups"][g.name]
         entries = []
         for i in range(g.n):
-            x, c = block_apply(g.kind, _layer(gp, i), x, cfg, positions, ctx)
+            x, c = block_apply(g.kind, _layer(gp, i), x, cfg, positions, ctx,
+                               sh)
+            x = _constrained(x, sh)
             entries.append(c)
         caches[g.name] = {k: torch.stack([c[k] for c in entries])
                           for k in entries[0]}
@@ -618,14 +701,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
-                cfg: ModelConfig):
+                cfg: ModelConfig, sh=None):
     """tokens: [B,1]; pos: the tokens' position.  Returns (logits, cache),
     the cache updated in place (a cross layer reads its context keys and
-    values from it)."""
-    x = embed(params, tokens)
+    values from it).  ``sh``: as :func:`forward_train`'s."""
+    x = embed(params, tokens, sh)
     for g in _decoder_groups(cfg):
         gp, gc = params["groups"][g.name], cache[g.name]
         for i in range(g.n):
             x = block_decode(g.kind, _layer(gp, i), x, cfg, _layer(gc, i),
-                             pos)
+                             pos, sh)
     return logits_from(params, x, cfg), cache

@@ -1,9 +1,10 @@
-"""Mixture-of-Experts FFN on one device: routing, capacity, experts, combine.
+"""Mixture-of-Experts FFN: routing, capacity, experts, combine.
 
-The port of the reference's ``models/moe.py`` for one device, where its
+The port of the reference's ``models/moe.py``.  On one device its
 expert-parallel split has one rank (``n_tp = n_dp = 1``): every token is
-routed among all ``E`` experts.  The port's models take no sharder, so an
-expert split over devices is not ported (ROADMAP queue 1 item 16).
+routed among all ``E`` experts.  A model laid out over ranks (DTensor
+activations) splits tokens over ``dp`` and experts over ``tp`` under
+``local_map``, as the reference's ``shard_map`` (:func:`moe_apply`).
 
 The steps, each a function of its own so that they can be timed apart:
 
@@ -31,6 +32,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import as_dtensor, is_dtensor
 from .common import ParamSpec, init_scale_out, proj
 
 __all__ = ["MoECfg", "moe_specs", "capacity", "router_logits", "route",
@@ -160,14 +162,88 @@ def combine(ys: torch.Tensor, r: dict) -> torch.Tensor:
     return out
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _local_experts(p: dict, xt: torch.Tensor, m: MoECfg, e0: int,
+                   wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The routed experts ``e0 .. e0 + E_loc - 1`` (whose weights are
+    ``wi``, ``wo`` [E_loc, ...]) on the tokens xt [T, d]: every token is
+    routed among all ``E`` experts, each of these takes its first ``cap``
+    assignments (``cap`` from ``T``), and each token's rows from these
+    experts are added as :func:`combine` adds them, the others' rows
+    left out: [T, d], the part of the output these experts give."""
+    r = route(p, router_logits(p, xt), m)
+    e_loc = wi.shape[0]
+    mine = {"tok": r["tok"][e0:e0 + e_loc], "gate": r["gate"][e0:e0 + e_loc]}
+    ys = expert_ffn({"wi": wi, "wo": wo}, gather(xt, mine), mine)
+    local = (r["experts"] >= e0) & (r["experts"] < e0 + e_loc)
+    return combine(ys, dict(r, experts=torch.where(local, r["experts"] - e0,
+                                                   e_loc),
+                            kept=r["kept"] & local))
+
+
+def _split_experts(p: dict, x, cfg, sh):
+    """The reference's ``shard_map`` of the routed experts on a DTensor x
+    [B,S,d]: tokens split over ``dp``, experts over ``tp``.  Each rank
+    routes its own tokens (so ``cap`` comes from its token count) and
+    runs its ``E / n_tp`` experts; its output is a partial sum over
+    ``tp`` (``Partial``), which DTensor reduces where it is next used, as
+    the reference's ``psum``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    m: MoECfg = cfg.moe
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    tp, dp = sh.rules.tp, tuple(sh.rules.dp)
+    n_tp = dm.size(names.index(tp)) if tp else 1
+    if m.n_experts % n_tp:
+        raise ValueError(f"{m.n_experts} experts do not split over "
+                         f"{n_tp} ranks of {tp!r}")
+    e0 = dm.get_local_rank(tp) * (m.n_experts // n_tp) if n_tp > 1 else 0
+
+    def along(dp_p, tp_p):
+        return [Replicate() if dm.size(i) == 1 else dp_p if a in dp
+                else tp_p if a == tp else Replicate()
+                for i, a in enumerate(names)]
+    split_x = along(Shard(0), Replicate())
+    rep = along(Replicate(), Replicate())
+    split_e = along(Replicate(), Shard(0))
+    # gradients: x's a partial sum over the experts' split, the router's
+    # over both splits, the experts' over the tokens' split
+    grads = (along(Shard(0), Partial()), along(Partial(), Partial()),
+             along(Partial(), Partial()), along(Partial(), Shard(0)),
+             along(Partial(), Shard(0)))
+    bias = p.get("router_bias")
+
+    def local(x_loc, router, router_bias, wi, wo):
+        B, S, d = x_loc.shape
+        q = {"router": router}
+        if router_bias is not None:
+            q["router_bias"] = router_bias
+        return _local_experts(q, x_loc.reshape(B * S, d), m, e0, wi,
+                              wo).reshape(B, S, d)
+    return local_map(
+        local, out_placements=along(Shard(0), Partial()),
+        in_placements=(split_x, rep, None if bias is None else rep,
+                       split_e, split_e),
+        in_grad_placements=grads[:2] + (None if bias is None else grads[2],)
+        + grads[3:],
+        device_mesh=dm, redistribute_inputs=True)(
+            x, *(as_dtensor(t, dm) for t in (p["router"], bias, p["wi"],
+                                             p["wo"])))
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, sh=None) -> torch.Tensor:
     """x: [B,S,d] -> [B,S,d]: the routed experts' combined output, plus
-    the shared experts' where the config has them."""
+    the shared experts' where the config has them.  A DTensor x (a model
+    laid out over ranks by ``sh``) splits the experts as the reference's
+    ``shard_map`` does (:func:`_split_experts`)."""
     m: MoECfg = cfg.moe
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
-    r = route(p, router_logits(p, xt), m)
-    out = combine(expert_ffn(p, gather(xt, r), r), r).reshape(B, S, d)
+    if is_dtensor(x):
+        out = _split_experts(p, x, cfg, sh)
+    else:
+        xt = x.reshape(B * S, d)
+        r = route(p, router_logits(p, xt), m)
+        out = combine(expert_ffn(p, gather(xt, r), r), r).reshape(B, S, d)
     if m.n_shared:
         gu = proj("bsd,dgf->bsgf", x, p["shared_wi"])
         h = F.silu(gu[:, :, 0].float()).to(x.dtype) * gu[:, :, 1]

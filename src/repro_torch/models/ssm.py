@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.selective_scan import selective_scan_op
-from .common import ParamSpec, fdot, init_scale_out, proj
+from .common import ParamSpec, device_of, fdot, init_scale_out, proj
 
 __all__ = ["ssm_specs", "ssm_prefill", "ssm_decode"]
 
@@ -78,7 +78,7 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg):
     u_act, dt, Bc, Cc = _post_conv(p, u_conv, cfg)
     A = -torch.exp(p["A_log"])                                  # [di,N]
     h0 = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
-                     device=x.device)
+                     device=device_of(x))
     uf = u_act.float()
     y, h_last = selective_scan_op(uf, dt.contiguous(), A.contiguous(),
                                   Bc.contiguous(), Cc.contiguous(), h0)

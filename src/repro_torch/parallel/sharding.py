@@ -25,9 +25,16 @@ cards.  :meth:`Sharder.sharding` gives a :class:`Placement` (the mesh
 and the resolved axis of each dim) where the reference gives a
 ``NamedSharding``; :meth:`Placement.place` moves a tensor whole to the
 one device its split axes span, and refuses a split over distinct
-devices, which the port has no partitioner for (ROADMAP queue 1 item
-16).  The reference's ``constrain`` / ``constrain_safe`` have no caller
-in the port (its models take no sharder) and are not ported.
+devices (:data:`SPLIT_REFUSAL`).
+
+A model laid out over ranks is partitioned by DTensor
+(``torch.distributed.tensor``), which plays GSPMD's part: a
+:class:`Sharder` built with a ``DeviceMesh`` (``device_mesh=``, the
+mesh's axes as its dim names) places tensors as DTensors
+(:meth:`Placement.dtensor_placements`), and :meth:`Sharder.constrain` /
+:meth:`Sharder.constrain_safe`, the reference's
+``with_sharding_constraint``, redistribute a DTensor to the resolved
+placements; on a plain tensor they are the identity.
 """
 from __future__ import annotations
 
@@ -41,14 +48,16 @@ import torch
 from .._device import canonical_device
 
 __all__ = ["Mesh", "Placement", "Sharder", "ShardingRules", "make_sim_mesh",
-           "place_tree", "SPLIT_REFUSAL"]
+           "place_tree", "is_dtensor", "as_dtensor", "reduce_partial",
+           "SPLIT_REFUSAL"]
 
 # what a split over distinct devices needs, and where the ROADMAP lists it
-SPLIT_REFUSAL = ("the port does not split a tensor over distinct devices: "
-                 "torch has no partitioner to insert the exchange that "
-                 "GSPMD inserts for the reference (a switch-partitioned "
-                 "step needs an explicit exchange in _link_phase; ROADMAP "
-                 "queue 1 item 16)")
+SPLIT_REFUSAL = ("the port does not split a simulator state or a tensor "
+                 "placed by Placement.place over distinct devices: the "
+                 "switch-partitioned step needs its packet exchange in "
+                 "_link_phase written with DTensor and the functional "
+                 "collectives, which it does not have yet (ROADMAP queue 1 "
+                 "item 16)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +147,54 @@ class Placement:
                 f"{[str(d) for d in devs]}; {SPLIT_REFUSAL}")
         return t.to(devs[0])
 
+    def dtensor_placements(self) -> list:
+        """The DTensor placements of this placement, one a mesh axis in
+        the mesh's order: ``Shard(i)`` on an axis that splits dim ``i``,
+        else ``Replicate()``.  A dim split over several axes is split in
+        the mesh's order of them, as a JAX mesh splits it (major axis
+        first); an axis of size 1 holds the whole tensor and is
+        ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+        owner = {}
+        for i, ax in enumerate(self.spec):
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                if a is not None:
+                    owner[a] = i
+        return [Shard(owner[a]) if a in owner and n > 1 else Replicate()
+                for a, n in zip(self.mesh.axis_names, self.mesh.axis_sizes)]
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (False where torch has no
+    ``torch.distributed``)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def as_dtensor(t, device_mesh):
+    """``t`` as a DTensor on ``device_mesh``: a plain tensor is the same
+    on every rank (a tensor the step makes itself), so it is replicated
+    on every axis."""
+    if is_dtensor(t) or t is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, device_mesh,
+                              [Replicate()] * device_mesh.ndim,
+                              run_check=False)
+
+
+def reduce_partial(t):
+    """A DTensor ``t`` with every partial sum reduced (``Partial`` to
+    ``Replicate``: an all-reduce), its splits kept; a plain tensor as it
+    is."""
+    if not is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+
 
 def place_tree(tree, placements):
     """Each tensor leaf of ``tree`` placed by the :class:`Placement` at
@@ -211,11 +268,22 @@ def make_sim_mesh(n_devices: Optional[int] = None, axis: str = "replica",
 
 
 class Sharder:
-    """Resolves logical axis names against a concrete mesh."""
+    """Resolves logical axis names against a concrete mesh; with
+    ``device_mesh`` (a ``DeviceMesh`` of the same axes, as
+    ``launch.mesh.make_production_mesh`` gives), it also places and
+    constrains DTensors on that mesh's ranks."""
 
-    def __init__(self, mesh: Mesh, rules: Optional[ShardingRules] = None):
+    def __init__(self, mesh: Mesh, rules: Optional[ShardingRules] = None,
+                 device_mesh=None):
         self.mesh = mesh
         self.rules = rules or ShardingRules.for_mesh(mesh)
+        if device_mesh is not None and (
+                tuple(device_mesh.mesh_dim_names) != mesh.axis_names
+                or tuple(device_mesh.shape) != mesh.axis_sizes):
+            got = dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+            raise ValueError(f"device mesh {got} is not the mesh "
+                             f"{mesh.shape}")
+        self.device_mesh = device_mesh
 
     @classmethod
     def for_simulator(cls, mesh: Optional[Mesh] = None,
@@ -270,3 +338,20 @@ class Sharder:
                 size *= self.mesh.shape[a]
             resolved.append(ax if dim % size == 0 else None)
         return Placement(self.mesh, tuple(resolved))
+
+    def constrain(self, x, *names):
+        """The reference's ``with_sharding_constraint`` by logical names:
+        a DTensor redistributed to the resolved placements; a plain
+        tensor as it is."""
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(x.device_mesh,
+                              self.sharding(names).dtensor_placements())
+
+    def constrain_safe(self, x, *names):
+        """:meth:`constrain` with every axis that does not divide its dim
+        dropped (replicated), as the reference's ``constrain_safe``."""
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(
+            x.device_mesh, self.sharding(names, x.shape).dtensor_placements())

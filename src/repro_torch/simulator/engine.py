@@ -1359,8 +1359,9 @@ class Simulator:
         ``run_chunk`` is bitwise the unsharded one.  Over distinct
         devices it raises ``NotImplementedError`` before it places
         anything: each shard's link phase would have to exchange the
-        packets that cross shards, and torch has no partitioner to
-        insert that exchange as GSPMD does for the reference."""
+        packets that cross shards, which GSPMD inserts for the
+        reference and the port's step does not have yet (to be written
+        with the functional collectives, ROADMAP queue 1 item 16)."""
         shardings = self.state_shardings(st, sharder)
         devs = Placement(sharder.mesh,
                          (sharder.rules.switch,)).devices()

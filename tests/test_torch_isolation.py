@@ -41,6 +41,9 @@ missing = sorted({"repro_torch.core.collectives", "repro_torch.workloads.ir",
                   "repro_torch.fabric.planner",
                   "repro_torch.parallel", "repro_torch.parallel.sharding",
                   "repro_torch.launch.mesh",
+                  "repro_torch.launch.dryrun",
+                  "repro_torch.launch.op_stats",
+                  "repro_torch.kernels._work",
                   "repro_torch.configs.falcon_mamba_7b",
                   "repro_torch.configs.base",
                   "repro_torch.configs.nemotron_4_15b",
@@ -67,6 +70,34 @@ def test_port_imports_no_jax_and_no_reference():
                                          "PATH": "/usr/bin:/bin"},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT_DRYRUN = """
+import sys
+import torch.distributed as dist
+import repro_torch.launch.dryrun, repro_torch.launch.mesh
+import repro_torch.launch.op_stats
+from repro_torch.launch.mesh import make_production_mesh
+print(dist.is_initialized())
+try:
+    make_production_mesh()
+except RuntimeError as e:
+    print(e)
+print(dist.is_initialized())
+"""
+
+
+def test_dry_run_modules_initialize_no_process_group():
+    """Importing the dry run, the mesh and the accountant sets up no
+    process group; the production mesh refuses to stand in for one."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_DRYRUN],
+                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == lines[-1] == "False"
+    assert "needs a process group of 256 ranks" in lines[1]
 
 
 def test_entry_points_refuse_to_run_on_the_cpu_by_default():
